@@ -1,0 +1,86 @@
+"""nvcc -> shared library -> ctypes, for the CUDA sources under ``csrc/``.
+
+The library is built on first use, only from the sources in the checkout,
+into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
+Its file name carries a hash of the sources and the compiler flags, so an
+edited source is rebuilt and a stale library is never loaded. The sources
+have a plain C interface and include no PyTorch header, so one build takes
+seconds.
+
+Every pointer and the stream are passed as ``c_void_p``; integers as
+``c_int``. Each entry point returns the ``cudaError_t`` of its launch
+(``cudaGetLastError()``); the Python wrappers raise when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libavsr_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into one shared library unless it is built."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
+    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare the signatures."""
+    lib = ctypes.CDLL(str(build()))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # q, k, v, bias, q_rel, pos, mask, out, batch, heads, t, dk, is_bf16, mode, stream
+    lib.avsr_flash_attention.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.avsr_flash_attention.restype = i32
+    # x, gamma, beta, w, b, out, batch, t, channels, kernel_size, is_bf16, stream
+    lib.avsr_fused_csgu.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.avsr_fused_csgu.restype = i32
+    return lib
