@@ -2,17 +2,21 @@
 
 The JAX package stays the reference; every module here mirrors the JAX
 module of the same path and is held against it on the CPU
-(``tests/test_torch_port_*.py``). The first slice covers the flagship
-tailored AVSR encoder and greedy CTC serving:
+(``tests/test_torch_port_*.py``). The port covers the flagship tailored
+AVSR model's serving: greedy CTC, and the joint CTC/attention beam search
+with Transformer-LM fusion over the ancestry KV cache:
 
 - ``ops/``     : frontends, MVN, subsampling, positional encodings, rel-pos
-                 attention, cgMLP, FFN, plus the wrappers of the hand-written
-                 CUDA kernels (``flash_attention.py``, ``fused_csgu.py``);
+                 and absolute multi-head attention, cgMLP, FFN, plus the
+                 wrappers of the hand-written CUDA kernels
+                 (``flash_attention.py``, ``fused_csgu.py``,
+                 ``group_attend.py``, ``cache_update.py``);
 - ``models/``  : Conv3D + ResNet-18 visual frontend, AVSR embeddings, the
-                 tailored encoder, adaptive fusion, CTC head, the AVSR model;
-- ``tasks/``   : config -> model for the flagship combination;
-- ``decode/``  : greedy CTC collapse;
-- ``inference``: ``Speech2Text`` with the greedy decode mode;
+                 tailored encoder, adaptive fusion, CTC head, the Transformer
+                 decoder, the Transformer LM, the AVSR model;
+- ``tasks/``   : config -> model for the flagship combination and its LM;
+- ``decode/``  : greedy CTC collapse, CTC prefix scorer, beam search;
+- ``inference``: ``Speech2Text`` (``greedy``, ``nbest``, ``__call__``);
 - ``utils/``   : JAX parameters -> port state dict, seeded initialisation;
 - ``csrc/``    : CUDA C++ sources for ``sm_90a``;
 - ``kernels/`` : nvcc build and ctypes bindings.
@@ -23,4 +27,13 @@ its plain PyTorch version for a CPU tensor and launches the CUDA kernel (or
 raises) for a CUDA tensor. Nothing here imports JAX.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    """The error for a choice the port does not run yet, naming the
+    ``ROADMAP.md`` item that will port it."""
+    return NotImplementedError(
+        f"{what} is not ported to tailored_avsr_tpu_torch yet "
+        f"(ROADMAP.md 'Modules to port' item {item})"
+    )

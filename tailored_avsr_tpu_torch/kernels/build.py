@@ -5,7 +5,8 @@ into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
 Its file name carries a hash of the sources and the compiler flags, so an
 edited source is rebuilt and a stale library is never loaded. The sources
 have a plain C interface and include no PyTorch header, so one build takes
-seconds.
+seconds: each source compiles in its own nvcc process, all started at once,
+and one more links the objects.
 
 Every pointer and the stream are passed as ``c_void_p``; integers as
 ``c_int``. Each entry point returns the ``cudaError_t`` of its launch
@@ -27,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 
 
@@ -54,20 +55,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libavsr_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into one shared library unless it is built."""
+    """Compile each ``csrc/*.cu`` to an object, all at once, and link them
+    into one shared library, unless it is built."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}"
-        )
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, compiles = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        compiles.append([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    _run_all(compiles)
+    tmp = out.with_name(f"{tag}.so.tmp")
+    _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
@@ -83,4 +101,10 @@ def load() -> ctypes.CDLL:
     # x, gamma, beta, w, b, out, batch, t, channels, kernel_size, is_bf16, stream
     lib.avsr_fused_csgu.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.avsr_fused_csgu.restype = i32
+    # k, v, q, k_new, v_new, anc, out, groups, heads, beam, lc, n_live, is_bf16, stream
+    lib.avsr_group_attend.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+    lib.avsr_group_attend.restype = i32
+    # kcache, vcache, kcol, vcol, rows, lc, col, dk, cache_bf16, col_bf16, stream
+    lib.avsr_write_cache_columns.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.avsr_write_cache_columns.restype = i32
     return lib

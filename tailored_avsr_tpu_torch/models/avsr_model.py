@@ -1,6 +1,6 @@
 """Audio-visual speech recognition model, serving part
 (counterpart of ``tailored_avsr_tpu/models/avsr_model.py``: ``_align``,
-``encode`` and ``ctc_greedy``).
+``encode``, ``ctc_greedy``, the attention ``decoder`` and ``sos``/``eos``).
 
 encode: per-modality frontends, utterance MVN on the audio, embed layers,
 alignment of the two streams by padding the shorter one (pad value =
@@ -30,6 +30,7 @@ class AVSRModel(nn.Module):
         visual_frontend: Optional[nn.Module] = None,
         normalize: Optional[nn.Module] = None,
         ignore_id: int = -1,
+        decoder: Optional[nn.Module] = None,
     ):
         super().__init__()
         self.vocab_size = vocab_size
@@ -41,7 +42,16 @@ class AVSRModel(nn.Module):
         self.encoder = encoder
         self.audiovisual_fusion = audiovisual_fusion
         self.ctc = ctc
+        self.decoder = decoder  # None for a CTC-only model (ctc_weight 1.0)
         self.ignore_id = ignore_id
+
+    @property
+    def sos(self) -> int:
+        return self.vocab_size - 1
+
+    @property
+    def eos(self) -> int:
+        return self.vocab_size - 1
 
     @staticmethod
     def _align(a, a_mask, v, v_mask, pad_value: float):

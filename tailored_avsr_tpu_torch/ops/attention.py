@@ -1,13 +1,19 @@
-"""Relative-position multi-head self-attention
-(counterpart of ``tailored_avsr_tpu/ops/attention.py:480-603``).
+"""Multi-head attention: the decoder's and the LM's absolute MHA with its
+beam-step forms, and the encoder's relative-position self-attention
+(counterpart of ``tailored_avsr_tpu/ops/attention.py:58-412`` and
+``:480-603``).
 
-Routing follows the JAX module: with ``use_flash`` outside training and a
-key-side mask, the in-kernel rel-pos flash kernel (K1) runs once the
+Rel-pos routing follows the JAX module: with ``use_flash`` outside training
+and a key-side mask, the in-kernel rel-pos flash kernel (K1) runs once the
 materialised (B, H, T, T) bias would reach 32 MiB, and below that the bias
 is built here and streamed through the flash kernel (K2). Otherwise the
 eager formulation runs. The 32 MiB switch was measured on the TPU and is
 kept so both kernels sit on the serving path; it has not been measured on
 the H100.
+
+The beam step's self-attention over the ancestry cache
+(``MultiHeadedAttention.attend_kv_anc``) launches the group-attend kernel
+(K4, ``ops/group_attend.py``) for CUDA tensors unless ``fused=False``.
 """
 
 from __future__ import annotations
@@ -16,8 +22,10 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.ops.masking import MASK_MIN
 
 FLASH_RELPOS_MIN_BIAS_BYTES = 32 * 1024 * 1024
@@ -25,13 +33,132 @@ FLASH_RELPOS_MIN_BIAS_BYTES = 32 * 1024 * 1024
 
 def _masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """f32 softmax over the last axis of (B, H, Tq, Tk) scores with a (B, Tk)
-    key-side mask (True = valid); fully masked rows give zeros."""
+    key-side or (B, Tq, Tk) pairwise mask (True = valid); fully masked rows
+    give zeros."""
     scores = scores.float()
     if mask is None:
         return torch.softmax(scores, dim=-1)
-    m = mask[:, None, None, :]
+    m = mask[:, None, None, :] if mask.dim() == 2 else mask[:, None, :, :]
     attn = torch.softmax(scores.masked_fill(~m, MASK_MIN), dim=-1)
     return attn.masked_fill(~m, 0.0)
+
+
+class MultiHeadedAttention(nn.Module):
+    """Scaled dot-product multi-head attention (``linear_q/k/v/out``).
+
+    ``mask`` may be (B, Tk) key-side or (B, Tq, Tk) pairwise (causal
+    decoding). Heads are (B, H, T, dk), split from the model axis heads-major.
+    """
+
+    def __init__(self, num_heads: int, dropout_rate: float = 0.0, model_dim: int = 256,
+                 *, device=None, dtype=None):
+        super().__init__()
+        if model_dim % num_heads:
+            raise ValueError(f"model_dim {model_dim} is not a multiple of num_heads {num_heads}")
+        kw = {"device": device, "dtype": dtype}
+        self.h, self.d_k = num_heads, model_dim // num_heads
+        self.linear_q = nn.Linear(model_dim, model_dim, **kw)
+        self.linear_k = nn.Linear(model_dim, model_dim, **kw)
+        self.linear_v = nn.Linear(model_dim, model_dim, **kw)
+        self.linear_out = nn.Linear(model_dim, model_dim, **kw)
+        self.dropout = nn.Dropout(dropout_rate)
+        self._qkv = (None, None)  # (key of the q/k/v parameters, fused weight and bias)
+
+    def _heads(self, y: torch.Tensor) -> torch.Tensor:
+        return y.reshape(y.shape[:-1] + (self.h, self.d_k)).transpose(1, 2)
+
+    def _merge(self, out: torch.Tensor) -> torch.Tensor:
+        """(B, H, T, dk) -> (B, T, H*dk), heads-major."""
+        b, _, t, _ = out.shape
+        return out.transpose(1, 2).reshape(b, t, self.h * self.d_k)
+
+    def forward(self, query, key, value, mask=None) -> torch.Tensor:
+        return self.attend(query, key, value, mask)[0]
+
+    def attend(self, query, key, value, mask=None):
+        """Full forward -> (output (B, Tq, D), attention (B, H, Tq, Tk))."""
+        q = self._heads(self.linear_q(query))
+        k = self._heads(self.linear_k(key))
+        v = self._heads(self.linear_v(value))
+        scores = (q @ k.transpose(-2, -1)) / math.sqrt(self.d_k)
+        attn = _masked_softmax(scores, mask).to(v.dtype)
+        out = self.dropout(attn) @ v
+        return self.linear_out(self._merge(out)), attn
+
+    def project_kv(self, x: torch.Tensor):
+        """(B, T, D) -> heads-form key and value (B, H, T, dk)."""
+        return self._heads(self.linear_k(x)), self._heads(self.linear_v(x))
+
+    def _qkv_params(self):
+        """The concatenated q/k/v weight and bias, rebuilt only when a
+        parameter was replaced or written in place (the beam loop calls this
+        every step)."""
+        params = [m.weight for m in (self.linear_q, self.linear_k, self.linear_v)]
+        params += [m.bias for m in (self.linear_q, self.linear_k, self.linear_v)]
+        key = tuple((p.data_ptr(), p._version, p.dtype) for p in params)
+        if self._qkv[0] != key:
+            with torch.no_grad():
+                self._qkv = (key, (torch.cat(params[:3]), torch.cat(params[3:])))
+        return self._qkv[1]
+
+    def project_qkv(self, x: torch.Tensor):
+        """One fused (D -> 3D) projection -> heads-form (q, k, v); the same
+        sums per output element as ``linear_q/k/v``."""
+        w, b = self._qkv_params()
+        q, k, v = F.linear(x, w, b).chunk(3, dim=-1)
+        return self._heads(q), self._heads(k), self._heads(v)
+
+    def attend_kv_anc(
+        self,
+        k: torch.Tensor,  # (B, H, beam, Lc, dk) group-major cached keys
+        v: torch.Tensor,  # (B, H, beam, Lc, dk) cached values
+        k_new: torch.Tensor,  # (N, H, 1, dk) this step's key column
+        v_new: torch.Tensor,  # (N, H, 1, dk) this step's value column
+        anc: torch.Tensor,  # (N, >=Lc) ancestry: column t of row n lives in slot anc[n, t]
+        pos: int,  # cache columns < pos-1 are live
+        beam: int,
+        q_heads: torch.Tensor,  # (N, H, 1, dk) query heads
+        width: Optional[int] = None,  # attend only cache columns [0, width)
+        fused: Optional[bool] = None,  # None / True: K4 for CUDA tensors; False: plain
+    ) -> torch.Tensor:
+        """Single-query attention of every beam row over its group's
+        never-reordered cache, resolved through ``anc``; the step's own column
+        joins the softmax. -> (N, 1, D). CPU tensors always take the plain
+        formulation (the JAX XLA path)."""
+        from tailored_avsr_tpu_torch.ops.group_attend import group_attend_anc, group_attend_anc_plain, to_group
+
+        if isinstance(k, tuple):
+            raise not_ported("int8 cache or memory K/V (cache_dtype / mem_dtype: int8)", 7)
+        b, h, km, lc, dk = k.shape
+        n = b * beam
+        if anc.shape[1] < lc:  # pad columns never written: -1 matches no slot
+            anc = F.pad(anc, (0, lc - anc.shape[1]), value=-1)
+        ancg = anc[:, :lc].reshape(b, beam, lc).contiguous()
+        args = (k, v, to_group(q_heads, beam), to_group(k_new, beam), to_group(v_new, beam), ancg, pos)
+        attend = group_attend_anc_plain if fused is False else group_attend_anc
+        out = attend(*args, width=width)  # (B, H, beam, dk)
+        return self.linear_out(out.transpose(1, 2).reshape(n, 1, h * dk))
+
+    def attend_kv_mem_grouped(
+        self,
+        query: torch.Tensor,  # (N, 1, D) single-step queries, N = B*beam
+        k: torch.Tensor,  # (B, H, T, dk) memory keys shared by each beam group
+        v: torch.Tensor,  # (B, H, T, dk)
+        mask: Optional[torch.Tensor],  # (B, T) key validity
+        beam: int,
+    ) -> torch.Tensor:
+        """Cross-attention of every beam row over its group's encoder memory,
+        read once per group instead of once per row. -> (N, 1, D)."""
+        if isinstance(k, tuple):
+            raise not_ported("int8 cache or memory K/V (cache_dtype / mem_dtype: int8)", 7)
+        n = query.shape[0]
+        b = n // beam
+        q = self._heads(self.linear_q(query))  # (N, H, 1, dk)
+        qg = q[:, :, 0].reshape(b, beam, self.h, self.d_k).transpose(1, 2)  # (B, H, i, dk)
+        scores = (qg @ k.transpose(-2, -1)) / math.sqrt(self.d_k)  # (B, H, i, T)
+        attn = _masked_softmax(scores, mask).to(qg.dtype)
+        out = attn @ v  # (B, H, i, dk)
+        return self.linear_out(out.transpose(1, 2).reshape(n, 1, self.h * self.d_k))
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:

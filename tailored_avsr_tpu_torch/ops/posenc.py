@@ -1,12 +1,15 @@
-"""Relative (Transformer-XL, espnet "latest") positional encoding
-(counterpart of ``RelPositionalEncoding`` in ``tailored_avsr_tpu/ops/posenc.py``).
+"""Absolute and relative (Transformer-XL, espnet "latest") positional
+encodings (counterpart of ``AbsolutePositionalEncoding`` and
+``RelPositionalEncoding`` in ``tailored_avsr_tpu/ops/posenc.py``).
 
-Table layout (``2T-1`` rows): row ``j`` encodes relative position ``T-1-j``,
-so that after the rel-shift in attention score(i, j) reads distance ``i - j``.
+Relative table layout (``2T-1`` rows): row ``j`` encodes relative position
+``T-1-j``, so that after the rel-shift in attention score(i, j) reads
+distance ``i - j``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -24,9 +27,41 @@ def sinusoidal_table(positions: np.ndarray, d_model: int) -> np.ndarray:
     return pe
 
 
+def abs_pos_table(max_len: int, d_model: int) -> np.ndarray:
+    return sinusoidal_table(np.arange(max_len), d_model)
+
+
 def rel_pos_table(t: int, d_model: int) -> np.ndarray:
     """(2t-1, d) table; row j encodes relative position t-1-j."""
     return sinusoidal_table(np.arange(t - 1, -t, -1), d_model)
+
+
+class AbsolutePositionalEncoding(nn.Module):
+    """x * sqrt(d) + PE, then dropout."""
+
+    def __init__(self, dropout_rate: float = 0.1):
+        super().__init__()
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t, d = x.shape[-2], x.shape[-1]
+        pe = torch.from_numpy(abs_pos_table(t, d)).to(device=x.device, dtype=x.dtype)
+        return self.dropout(x * math.sqrt(d) + pe)
+
+    def at_position(self, x: torch.Tensor, pos: int, max_len: int) -> torch.Tensor:
+        """Single-step form: x (N, 1, D) at position ``pos`` of a table of
+        ``max_len`` rows."""
+        if not 0 <= pos < max_len:  # the JAX form clamps the index; a beam step never needs it
+            raise IndexError(f"position {pos} outside a table of {max_len} rows")
+        d = x.shape[-1]
+        return x * math.sqrt(d) + _abs_table(max_len, d, x.device, x.dtype)[pos]
+
+
+@functools.lru_cache(maxsize=16)
+def _abs_table(max_len: int, d_model: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The absolute table on the device, built once per shape (a beam step
+    reads one row of it)."""
+    return torch.from_numpy(abs_pos_table(max_len, d_model)).to(device=device, dtype=dtype)
 
 
 class RelPositionalEncoding(nn.Module):

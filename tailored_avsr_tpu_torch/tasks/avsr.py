@@ -3,12 +3,12 @@
 
 Ported: the default log-mel frontend, utterance MVN, the conv3dresnet18
 visual frontend, default embeddings with rel-pos, the tailored encoder,
-adaptive fusion, the CTC head and the ``espnet`` model. Any other choice
-raises ``NotImplementedError`` naming the ``ROADMAP.md`` item ("Modules to
-port") that will port it. The attention decoder is not built: greedy CTC
-serving does not run it (item 5, the beam path). Training-only settings
-(SpecAug, loss weights) are not read; dropout rates are kept and inert in
-eval mode.
+adaptive fusion, the CTC head, the ``transformer`` attention decoder
+(built unless ``model_conf.ctc_weight`` is 1.0, as in the JAX task) and the
+``espnet`` model. Any other choice raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item ("Modules to port") that will port it. Training-only
+settings (SpecAug, loss weights) are not read; dropout rates are kept and
+inert in eval mode.
 """
 
 from __future__ import annotations
@@ -18,8 +18,10 @@ from typing import Dict, List, Optional
 
 import torch
 
+from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.models.avsr_model import AVSRModel
 from tailored_avsr_tpu_torch.models.ctc import CTCHead
+from tailored_avsr_tpu_torch.models.decoder import TransformerDecoder
 from tailored_avsr_tpu_torch.models.embedding import DefaultEmbeddingLayerForAVSR
 from tailored_avsr_tpu_torch.models.frontends import Conv3dResNet18
 from tailored_avsr_tpu_torch.models.fusion import AdaptiveAudioVisualFusion
@@ -38,13 +40,12 @@ _ENCODER_FIXED = {
     "interctc_layer_idx": ((),),
     "positionwise_layer_type": (None, "linear"),
 }
+# decoder_conf keys whose other values are not ported (ROADMAP item 8)
+_DECODER_FIXED = {"use_output_layer": (True,), "layer_variant": ("transformer",)}
 
 
 def _not_ported(what: str, value, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}={value!r} is not ported to tailored_avsr_tpu_torch yet "
-        f"(ROADMAP.md 'Modules to port' item {item})"
-    )
+    return not_ported(f"{what}={value!r}", item)
 
 
 def _require(what: str, value, allowed, item: int) -> None:
@@ -70,6 +71,16 @@ def _conf(cls, conf: Optional[Dict], fixed: Optional[Dict] = None, **extra) -> D
 def _cfg(config, key: str, default=None):
     value = getattr(config, key, default)
     return default if value is None else value
+
+
+def materialize(module: torch.nn.Module, generator: Optional[torch.Generator], device,
+                dtype: Optional[torch.dtype]) -> torch.nn.Module:
+    """A module built on the meta device -> its weights drawn from
+    ``generator`` (seed 0 when None) on the CPU, moved to ``device`` /
+    ``dtype``, in eval mode."""
+    module = module.to_empty(device="cpu")
+    init_params_(module, generator if generator is not None else torch.Generator().manual_seed(0))
+    return module.to(device=device, dtype=dtype).eval()
 
 
 def build_model(
@@ -121,6 +132,12 @@ def build_model(
                 output_size=size), **kw)
     ctc = CTCHead(size, len(token_list),
                   float(_cfg(config, "ctc_conf", {}).get("dropout_rate", 0.0)), **kw)
+    decoder = None
+    if float(model_conf.get("ctc_weight", 0.5)) < 1.0:
+        _require("decoder", _cfg(config, "decoder", "transformer") or "transformer", ("transformer",), 8)
+        decoder = TransformerDecoder(
+            **_conf(TransformerDecoder, _cfg(config, "decoder_conf", {}), _DECODER_FIXED,
+                    vocab_size=len(token_list), encoder_output_size=size), **kw)
     model = AVSRModel(
         vocab_size=len(token_list),
         encoder=encoder,
@@ -132,8 +149,7 @@ def build_model(
         visual_frontend=visual_frontend,
         normalize=normalize,
         ignore_id=int(model_conf.get("ignore_id", -1)),
+        decoder=decoder,
     )
-    model = model.to_empty(device="cpu")
-    init_params_(model, generator if generator is not None else torch.Generator().manual_seed(0))
-    return model.to(device=device, dtype=dtype).eval()
+    return materialize(model, generator, device, dtype)
 

@@ -5,6 +5,10 @@ torch_compat.py:311``) already writes the reference's PyTorch key grammar,
 and the port's module and parameter names follow that grammar, so exported
 weights load with ``load_state_dict(strict=True)``. That module needs only
 numpy; it is imported lazily, inside the function that uses it.
+
+The Transformer LM's keys carry an ``lm.`` prefix in that grammar (espnet's
+``ESPnetLanguageModel.lm``); ``lm_state_dict`` strips it for the port's
+``TransformerLM``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ def filter_state_dict(
 
     Returns (kept, dropped): ``dropped`` names each dropped key by its
     top-level module when the model has no such module at all (``decoder``
-    for the serving slice), else by its full key. BatchNorm
+    for a CTC-only model), else by its full key. BatchNorm
     ``num_batches_tracked`` counters, which exported JAX trees lack, are
     filled in as 0.
     """
@@ -56,3 +60,25 @@ def convert_jax_variables(
     exported = export_torch_state_dict(variables)
     tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in exported.items()}
     return filter_state_dict(model, tensors)
+
+
+LM_PREFIX = "lm."
+
+
+def lm_state_dict(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """An LM state dict in the ``lm.`` key grammar (a ``.pth`` the JAX
+    export or espnet writes) -> keys of the port's ``TransformerLM``, for a
+    strict load. Raises if a key lacks the prefix."""
+    stray = [k for k in state_dict if not k.startswith(LM_PREFIX)]
+    if stray:
+        raise KeyError(f"LM state dict keys outside the {LM_PREFIX!r} grammar: {stray[:5]}")
+    return {k[len(LM_PREFIX):]: v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in state_dict.items()}
+
+
+def convert_jax_lm_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``TransformerLM`` variables (numpy leaves) -> state dict ready for
+    the port's ``TransformerLM.load_state_dict(strict=True)``."""
+    from tailored_avsr_tpu.utils.torch_compat import export_torch_state_dict
+
+    return lm_state_dict(export_torch_state_dict(variables))

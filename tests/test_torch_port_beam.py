@@ -1,0 +1,444 @@
+"""The PyTorch port's beam slice against the JAX package, in f32 on the CPU.
+
+Modules: ``MultiHeadedAttention`` (full forward, grouped cross-attention,
+the ancestry attend in both formulations), the Transformer decoder and LM
+(full forward, and ``score_step_anc`` over several steps of a hand-built
+beam), the CTC prefix scorer, ``beam_search`` on a synthetic scorer. Then
+``Speech2Text.nbest`` as a whole on the same converted weights: the tiny
+flagship with and without a Transformer LM and with phased widths, and at
+full width (12 encoder blocks, 6-block decoder, 16-layer 512-d LM).
+
+Tolerances: about 1e-5 abs per op (f32 sums of tens to thousands of terms in
+another order: the port's kernels' plain versions, its doubling scan against
+``lax.associative_scan``); 1e-4 on beam scores (sums of a hundred log-probs
+of magnitude up to ~100). Token ids must be identical.
+"""
+
+import copy
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as graft
+from test_torch_port_ops import jax_module, load_port, t
+from test_torch_port_slice import TOKENS, _batch, _random_variables
+
+ATOL = 1e-5
+
+
+def close(got, want, atol=ATOL):
+    np.testing.assert_allclose(got.detach().numpy() if torch.is_tensor(got) else np.asarray(got),
+                               np.asarray(want), atol=atol, rtol=0.0)
+
+
+# --------------------------------------------------------------- attention
+
+
+def _mha(seed=0, d=32, h=4):
+    from tailored_avsr_tpu.ops.attention import MultiHeadedAttention as J
+    from tailored_avsr_tpu_torch.ops.attention import MultiHeadedAttention as P
+
+    x = np.random.RandomState(seed).randn(2, 5, d).astype(np.float32)
+    jm = J(h, 0.0, d)
+    v = jax_module(jm, x, x, x)
+    return jm, v, load_port(P(h, 0.0, d), v, "attn")
+
+
+@pytest.mark.parametrize("mask_kind", ["key", "causal"])
+def test_mha_attend(mask_kind):
+    from tailored_avsr_tpu.models.decoder import causal_mask
+
+    jm, v, pm = _mha()
+    rs = np.random.RandomState(1)
+    q, kv = rs.randn(2, 6, 32).astype(np.float32), rs.randn(2, 9, 32).astype(np.float32)
+    if mask_kind == "key":
+        mask = np.arange(9)[None] < np.array([9, 4])[:, None]
+    else:
+        kv = q
+        mask = np.array(causal_mask(2, 6, jnp.asarray([6, 3])))
+    want, want_attn = jm.apply(v, q, kv, kv, mask, method="attend")
+    with torch.no_grad():
+        got, got_attn = pm.attend(t(q), t(kv), t(kv), t(mask))
+        close(got, want)
+        close(got_attn, want_attn)
+        close(pm(t(q), t(kv), t(kv), t(mask)), want)
+        for g, w in zip(pm.project_qkv(t(q)), jm.apply(v, q, method="project_qkv")):
+            close(g, w)
+
+
+def test_mha_attend_kv_mem_grouped():
+    jm, v, pm = _mha(2)
+    rs = np.random.RandomState(3)
+    b, beam, tm = 2, 3, 7
+    query = rs.randn(b * beam, 1, 32).astype(np.float32)
+    mk, mv = (rs.randn(b, 4, tm, 8).astype(np.float32) for _ in range(2))
+    mask = np.arange(tm)[None] < np.array([7, 5])[:, None]
+    want = jm.apply(v, query, mk, mv, mask, beam, method="attend_kv_mem_grouped")
+    with torch.no_grad():
+        close(pm.attend_kv_mem_grouped(t(query), t(mk), t(mv), t(mask), beam), want)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            pm.attend_kv_mem_grouped(t(query), (t(mk), t(mk)), (t(mv), t(mv)), t(mask), beam)
+
+
+@pytest.mark.parametrize("pos,width", [(1, None), (5, None), (9, 8), (15, None)])
+def test_mha_attend_kv_anc(pos, width):
+    """Both formulations of the port (the kernel route, K4's plain version
+    on the CPU, and ``fused=False``) against the JAX XLA path and its Pallas
+    kernel in interpret mode; the ancestry table is narrower than Lc (the
+    pad columns match no slot)."""
+    jm, v, pm = _mha(4)
+    rs = np.random.RandomState(5)
+    b, beam, lc = 2, 3, 16
+    k, vv = (rs.randn(b, 4, beam, lc, 8).astype(np.float32) for _ in range(2))
+    k_new, v_new, q = (rs.randn(b * beam, 4, 1, 8).astype(np.float32) for _ in range(3))
+    anc = rs.randint(0, beam, (b * beam, 14)).astype(np.int32)
+    args = (k, vv, k_new, v_new, anc, pos, beam, q)
+    want = jm.apply(v, *args, width, False, method="attend_kv_anc")
+    want_pallas = jm.apply(v, *args, width, True, method="attend_kv_anc")
+    close(want_pallas, want)
+    with torch.no_grad():
+        targs = [t(x) for x in args[:5]] + [pos, beam, t(q)]
+        for fused in (None, False):
+            close(pm.attend_kv_anc(*targs, width=width, fused=fused), want)
+
+
+# ------------------------------------------------------- decoder and LM
+
+
+def _walk_beam(jax_step, port_step, jax_write, port_write, steps, b, beam, lc_anc, seed):
+    """Run both scorers over ``steps`` beam steps with the same hand-built
+    reorders: after each step every slot writes its column, and slot i of
+    group b continues a random source slot (the ancestry threads through)."""
+    from tailored_avsr_tpu.decode.beam_search import update_ancestry as jupdate
+    from tailored_avsr_tpu_torch.decode.beam_search import update_ancestry as pupdate
+
+    rs = np.random.RandomState(seed)
+    n = b * beam
+    anc_j = jnp.zeros((n, lc_anc), jnp.int32)
+    anc_p = torch.zeros((n, lc_anc), dtype=torch.int32)
+    for pos in range(1, steps + 1):
+        ys = rs.randint(1, 9, (n, steps + 2)).astype(np.int32)
+        want, jnew = jax_step(ys, pos, anc_j)
+        got, pnew = port_step(torch.from_numpy(ys).long(), pos, anc_p)
+        close(got, want)
+        src_bk = rs.randint(0, beam, (b, beam))
+        g_src = (np.arange(b)[:, None] * beam + src_bk).reshape(n)
+        jax_write(jnew, pos)
+        port_write(pnew, pos)
+        anc_j = jupdate(anc_j, jnp.asarray(g_src), jnp.asarray(src_bk), pos)
+        anc_p = pupdate(anc_p, torch.from_numpy(g_src), torch.from_numpy(src_bk), pos)
+        np.testing.assert_array_equal(anc_p.numpy(), np.asarray(anc_j))
+
+
+def test_decoder_forward_and_score_step_anc():
+    from tailored_avsr_tpu.decode.beam_search import write_beam_columns_kv as jwrite
+    from tailored_avsr_tpu.models.decoder import TransformerDecoder as J
+    from tailored_avsr_tpu_torch.decode.beam_search import write_beam_columns_kv as pwrite
+    from tailored_avsr_tpu_torch.models.decoder import TransformerDecoder as P
+
+    rs = np.random.RandomState(6)
+    b, beam, tm, d, vocab = 2, 3, 9, 32, 11
+    conf = dict(encoder_output_size=d, attention_heads=4, linear_units=40, num_blocks=2,
+                dropout_rate=0.0, positional_dropout_rate=0.0)
+    mem = rs.randn(b, tm, d).astype(np.float32)
+    mem_mask = np.arange(tm)[None] < np.array([9, 6])[:, None]
+    ys_in = rs.randint(0, vocab, (b, 5)).astype(np.int32)
+    ys_lens = np.array([5, 3], np.int32)
+    jm = J(vocab, **conf)
+    v = jax_module(jm, mem, mem_mask, ys_in, ys_lens)
+    pm = load_port(P(vocab, **conf), v, "decoder")
+    with torch.no_grad():
+        got = pm(t(mem), t(mem_mask), t(ys_in).long(), t(ys_lens))
+    want = jm.apply(v, mem, mem_mask, ys_in, ys_lens)
+    for i, n in enumerate(ys_lens):
+        close(got[i, :n], want[i, :n])
+
+    mem_kv_j = jm.apply(v, mem, method="precompute_memory")
+    cache_j = [jm.init_cache_group(b, beam, tm)]  # boxed: rebound by the writes
+    with torch.no_grad():
+        mem_kv_p = pm.precompute_memory(t(mem))
+        cache_p = pm.init_cache_group(b, beam, tm)
+    assert [tuple(x.shape) for x in cache_p[0]] == [tuple(x.shape) for x in cache_j[0][0]]
+
+    def jax_step(ys, pos, anc):
+        return jm.apply(v, mem_kv_j, mem_mask, ys, pos, cache_j[0], anc, beam,
+                        method="score_step_anc")
+
+    def port_step(ys, pos, anc):
+        with torch.no_grad():
+            return pm.score_step_anc(mem_kv_p, t(mem_mask), ys, pos, cache_p, anc, beam)
+
+    def jax_write(new_kv, pos):
+        cache_j[0] = [jwrite(ck, cv, kn, vn, pos) for (ck, cv), (kn, vn) in zip(cache_j[0], new_kv)]
+
+    def port_write(new_kv, pos):
+        for (ck, cv), (kn, vn) in zip(cache_p, new_kv):
+            pwrite(ck, cv, kn, vn, pos)
+
+    _walk_beam(jax_step, port_step, jax_write, port_write, 6, b, beam, 16, seed=7)
+    for (gk, gv), (wk, wv) in zip(cache_p, cache_j[0]):
+        close(gk, wk)
+        close(gv, wv)
+
+
+@pytest.mark.parametrize("embed_unit,pos_enc", [(16, None), (None, "sinusoidal")])
+def test_lm_forward_and_score_step_anc(embed_unit, pos_enc):
+    from tailored_avsr_tpu.decode.beam_search import write_beam_columns_kv as jwrite
+    from tailored_avsr_tpu.models.lm import TransformerLM as J
+    from tailored_avsr_tpu_torch.decode.beam_search import write_beam_columns_kv as pwrite
+    from tailored_avsr_tpu_torch.models.lm import TransformerLM as P
+    from tailored_avsr_tpu_torch.utils.convert import convert_jax_lm_variables
+
+    rs = np.random.RandomState(8)
+    b, beam, vocab = 2, 3, 11
+    conf = dict(att_unit=32, head=4, unit=40, layer=2, dropout_rate=0.0,
+                positional_dropout_rate=0.0, embed_unit=embed_unit, pos_enc=pos_enc)
+    tokens = rs.randint(0, vocab, (b, 6)).astype(np.int32)
+    lens = np.array([6, 4], np.int32)
+    jm = J(vocab, **conf)
+    v = jax_module(jm, tokens, lens)
+    pm = P(vocab, **conf)
+    pm.load_state_dict(convert_jax_lm_variables(v), strict=True)
+    pm.eval()
+    with torch.no_grad():
+        got = pm(t(tokens).long(), t(lens))
+    want = jm.apply(v, tokens, lens)
+    for i, n in enumerate(lens):
+        close(got[i, :n], want[i, :n])
+
+    max_len = 10
+    cache_j = [jm.init_cache_group(b, beam, max_len)]
+    cache_p = pm.init_cache_group(b, beam, max_len)
+
+    def jax_step(ys, pos, anc):
+        return jm.apply(v, ys, pos, cache_j[0], anc, beam, method="score_step_anc")
+
+    def port_step(ys, pos, anc):
+        with torch.no_grad():
+            return pm.score_step_anc(ys, pos, cache_p, anc, beam)
+
+    def jax_write(new_kv, pos):
+        cache_j[0] = [jwrite(ck, cv, kn, vn, pos) for (ck, cv), (kn, vn) in zip(cache_j[0], new_kv)]
+
+    def port_write(new_kv, pos):
+        for (ck, cv), (kn, vn) in zip(cache_p, new_kv):
+            pwrite(ck, cv, kn, vn, pos)
+
+    _walk_beam(jax_step, port_step, jax_write, port_write, 7, b, beam, 16, seed=9)
+
+
+def test_unported_steps_name_their_item():
+    from tailored_avsr_tpu_torch.decode import beam_search as bs
+    from tailored_avsr_tpu_torch.models.decoder import TransformerDecoder
+    from tailored_avsr_tpu_torch.models.lm import TransformerLM
+
+    dec = TransformerDecoder(5, 16, 2, 8, 1)
+    lm = TransformerLM(5, 16, 2, 8, 1)
+    for fn in (dec.score_step, dec.score_step_cached, dec.score_step_append,
+               dec.score_step_cached_seg, lm.score_step, lm.score_step_cached,
+               lm.score_step_append, bs.reorder_beam_rows, bs.insert_permute_rows):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            fn()
+    for kw in ({"att_state": {}}, {"ngram_part_fn": lambda *a: None}):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            bs.beam_search(lambda *a: None, torch.zeros(1, 2, 3), torch.ones(1), 2, 2,
+                           bs.BeamSearchConfig(beam_size=2), **kw)
+
+
+@pytest.mark.parametrize("decoder,decoder_conf", [("sim_t", {}), ("transformer", {"use_output_layer": False})])
+def test_unported_decoders_name_item_8(decoder, decoder_conf):
+    from tailored_avsr_tpu_torch.tasks.avsr import build_model
+
+    cfg = graft._flagship_cfg(tiny=True)
+    cfg.decoder = decoder
+    cfg.decoder_conf = dict(cfg.decoder_conf, **decoder_conf)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        build_model(cfg, ["<blank>", "a", "<sos/eos>"])
+
+
+# ----------------------------------------------------------- CTC prefix
+
+
+def test_ctc_prefix_scorer_over_steps():
+    from tailored_avsr_tpu.decode import ctc_prefix as J
+    from tailored_avsr_tpu_torch.decode import ctc_prefix as P
+
+    rs = np.random.RandomState(10)
+    n, tt, v, p, eos = 4, 13, 7, 5, 6
+    logp = jax.nn.log_softmax(jnp.asarray(rs.randn(n, tt, v) * 2.0), axis=-1)
+    lens = np.array([13, 9, 4, 1], np.int32)
+    want_vt = J.to_time_minor(J.neutralize_padding(logp, jnp.asarray(lens)))
+    got_vt = P.to_time_minor(P.neutralize_padding(t(np.asarray(logp)), t(lens)))
+    close(got_vt, want_vt)
+    sj, sp = J.ctc_prefix_init_state(want_vt), P.ctc_prefix_init_state(got_vt)
+    for _ in range(4):
+        cand = rs.randint(0, v, (n, p)).astype(np.int32)
+        psi_j, r_j = J.ctc_prefix_score_step(want_vt, sj, jnp.asarray(cand), eos)
+        psi_p, r_p = P.ctc_prefix_score_step(got_vt, sp, t(cand).long(), eos)
+        close(psi_p, psi_j, atol=1e-4)
+        close(r_p, r_j, atol=1e-4)
+        src, sel = rs.randint(0, n, n), rs.randint(0, p, n)
+        sj = J.ctc_prefix_select(sj, psi_j, r_j, jnp.asarray(cand), jnp.asarray(src), jnp.asarray(sel))
+        sp = P.ctc_prefix_select(sp, psi_p, r_p, t(cand).long(), t(src), t(sel))
+        for g, w in zip(sp, sj):
+            close(g, w, atol=1e-4)
+
+
+# ---------------------------------------------------------- beam search
+
+V, SOS = 7, 6
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(beam_size=3, ctc_weight=0.4, penalty=0.1, nbest=3),
+    dict(beam_size=4, ctc_weight=0.0, nbest=2),
+    dict(beam_size=3, ctc_weight=0.3, minlenratio=0.3, maxlenratio=0.8, nbest=3),
+    dict(beam_size=3, ctc_weight=1.0, nbest=2),
+    dict(beam_size=3, ctc_weight=0.4, maxlenratio=2.0, nbest=2, early_exit=False),
+])
+def test_beam_search_matches_jax(cfg):
+    """The port's loop against the JAX while loop on the synthetic scorer of
+    ``tests/test_beam_reference.py`` (its configs), stateless: same
+    hypotheses, scores within 1e-4."""
+    from tailored_avsr_tpu.decode.beam_search import BeamSearchConfig as JC, beam_search as jbeam
+    from tailored_avsr_tpu_torch.decode.beam_search import BeamSearchConfig as PC, beam_search as pbeam
+
+    rs = np.random.RandomState(int(cfg["beam_size"] * 100 + cfg["ctc_weight"] * 10))
+    b, tt = 2, 6
+    ctc_logp = np.asarray(jax.nn.log_softmax(jnp.asarray(rs.randn(b, tt, V) * 1.5), axis=-1))
+    enc_lens = np.array([6, 5], np.int32)
+    w, u = rs.randn(V, V).astype(np.float32) * 1.2, rs.randn(8, V).astype(np.float32)
+    wj, uj = jnp.asarray(w), jnp.asarray(u)
+
+    def jatt(ys, pos):
+        tok = ys[:, jnp.clip(pos - 1, 0, ys.shape[1] - 1)]
+        return jax.nn.log_softmax(wj[tok] + uj[jnp.minimum(pos, 7)], axis=-1)
+
+    def patt(ys, pos):
+        tok = ys[:, min(max(pos - 1, 0), ys.shape[1] - 1)]
+        return torch.log_softmax(t(w)[tok] + t(u)[min(pos, 7)], dim=-1)
+
+    want = jbeam(jatt, jnp.asarray(ctc_logp), jnp.asarray(enc_lens), SOS, SOS, JC(**cfg))
+    got = pbeam(patt, t(ctc_logp), t(enc_lens), SOS, SOS, PC(**cfg))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    close(got.scores, want.scores, atol=1e-4)
+
+
+def test_top_k_keeps_the_lower_index_among_ties():
+    from tailored_avsr_tpu_torch.decode.beam_search import top_k
+
+    x = np.array([[0.0, -1e10, 2.0, -1e10, 2.0, -1e10, -1e10]], np.float32)
+    want_v, want_i = jax.lax.top_k(jnp.asarray(x), 5)
+    got_v, got_i = top_k(t(x), 5)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+# ------------------------------------------------------- the whole slice
+
+LM_TINY = dict(att_unit=32, head=4, unit=40, layer=2, embed_unit=16, pos_enc=None, dropout_rate=0.0)
+LM_FULL = dict(att_unit=512, head=8, unit=2048, layer=16, embed_unit=128, pos_enc=None, dropout_rate=0.0)
+
+
+def _engines(width: str, lm_conf, **inference_conf):
+    """A JAX and a port ``Speech2Text`` on the same random weights."""
+    from tailored_avsr_tpu.inference import Speech2Text as JaxSpeech2Text
+    from tailored_avsr_tpu.tasks.avsr import AVSRTask
+    from tailored_avsr_tpu.tasks.lm import LMTask
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+    from tailored_avsr_tpu_torch.utils.convert import convert_jax_lm_variables, convert_jax_variables
+
+    cfg = graft._flagship_cfg(tiny=width == "tiny")
+    cfg.token_list = TOKENS
+    cfg.inference_conf = dict(cfg.inference_conf, **inference_conf)
+    tokens = [line.rstrip() for line in open(TOKENS) if line.rstrip()]
+    batch = _batch()
+    args = tuple(batch[k] for k in ("audio", "audio_lengths", "video", "video_lengths"))
+    jm = AVSRTask.build_model(cfg, tokens)
+    shapes = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0), "mlm": jax.random.PRNGKey(1)}, *args,
+        np.ones((2, 4), np.int32), np.full((2,), 4, np.int32)))
+    variables = _random_variables(shapes, seed=3)
+    lm_cfg = None if lm_conf is None else types.SimpleNamespace(token_list=None, lm_conf=lm_conf)
+
+    js = JaxSpeech2Text(cfg, lm_config=lm_cfg)
+    js.variables = jax.tree_util.tree_map(jnp.asarray, variables)
+    ps = Speech2Text(copy.deepcopy(cfg), lm_config=lm_cfg, device="cpu")
+    sd, dropped = convert_jax_variables(variables, ps.model)
+    assert dropped == []
+    ps.model.load_state_dict(sd, strict=True)
+    if lm_cfg is not None:
+        lm = LMTask.build_model(lm_cfg, tokens)
+        lm_shapes = jax.eval_shape(lambda: lm.init(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32),
+                                                   jnp.array([4])))
+        lm_vars = _random_variables(lm_shapes, seed=4)
+        js.lm_variables = jax.tree_util.tree_map(jnp.asarray, lm_vars)
+        ps.lm.load_state_dict(convert_jax_lm_variables(lm_vars), strict=True)
+    return js, ps, batch
+
+
+def _same_nbest(got, want):
+    assert len(got) == len(want)
+    for g_hyps, w_hyps in zip(got, want):
+        assert [h[2] for h in g_hyps] == [h[2] for h in w_hyps]
+        assert [h[0] for h in g_hyps] == [h[0] for h in w_hyps]
+        np.testing.assert_allclose([h[3] for h in g_hyps], [h[3] for h in w_hyps], atol=1e-4, rtol=0)
+    assert any(h[2] for hyps in got for h in hyps)  # not a comparison of empty hypotheses
+
+
+@pytest.mark.parametrize("lm,phases", [(False, False), (True, False), (True, True)])
+def test_speech2text_nbest_matches_jax(lm, phases):
+    """Tiny flagship, beam 3, nbest 2: without an LM, with a tiny LM (embed
+    stack, no pos-enc), and with phased widths."""
+    extra = {"phase_widths": [0.25, 0.5]} if phases else {}
+    js, ps, batch = _engines("tiny", LM_TINY if lm else None, beam_size=3, nbest=2, **extra)
+    want = js.nbest(batch)
+    got = ps.nbest(batch)
+    _same_nbest(got, want)
+    assert [h[:3] for h in ps(batch)] == [hyps[0][:3] for hyps in got]
+
+
+def test_speech2text_nbest_full_width_matches_jax():
+    """Full width: 12-block encoder, 6-block 256-d decoder, 16-layer 512-d LM
+    with its 128-d embedding stack; batch 2, 8 frames, beam 10."""
+    js, ps, batch = _engines("full", LM_FULL, beam_size=10, nbest=2)
+    _same_nbest(ps.nbest(batch), js.nbest(batch))
+
+
+@pytest.mark.parametrize("conf,item", [
+    ({"cache_protocol": "append"}, 7), ({"cache_segments": 2}, 7), ({"cache_dtype": "int8"}, 7),
+    ({"mem_dtype": "int8"}, 7), ({"decode_mode": "timesync"}, 7), ({"ngram_file": "x.arpa"}, 7),
+    ({"quantize_asr_model": True}, 7), ({"data_parallel": True}, 9),
+])
+def test_unported_inference_choices_name_their_item(conf, item):
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+
+    cfg = graft._flagship_cfg(tiny=True)
+    cfg.token_list = TOKENS
+    cfg.inference_conf = dict(cfg.inference_conf, **conf)
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        Speech2Text(cfg, device="cpu")
+
+
+def test_lm_checkpoint_loads_in_the_lm_grammar(tmp_path):
+    """``lm_ckpt_path``: a ``.pth`` whose keys carry the ``lm.`` prefix loads
+    strictly into the port's LM; a key outside that grammar is refused."""
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+
+    cfg = graft._flagship_cfg(tiny=True)
+    cfg.token_list = TOKENS
+    lm_cfg = types.SimpleNamespace(token_list=None, lm_conf=LM_TINY)
+    src = Speech2Text(cfg, lm_config=lm_cfg, rng_seed=1, device="cpu")
+    path = str(tmp_path / "lm.pth")
+    torch.save({"lm." + k: v for k, v in src.lm.state_dict().items()}, path)
+    dst = Speech2Text(cfg, lm_config=lm_cfg, lm_ckpt_path=path, rng_seed=2, device="cpu")
+    for (k, a), (_, b) in zip(src.lm.state_dict().items(), dst.lm.state_dict().items()):
+        assert torch.equal(a, b), k
+    torch.save({"embed.weight": src.lm.embed.weight}, path)
+    with pytest.raises(KeyError, match="grammar"):
+        dst.load_lm_checkpoint(path)

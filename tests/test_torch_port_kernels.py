@@ -5,9 +5,12 @@ On the CPU a kernel wrapper runs its plain version; the CUDA kernels
 themselves are compared with these plain versions on the card by
 ``chip_smoke.py``. Cases: K1 (in-kernel rel-pos flash attention) with T not
 a multiple of the block, K2 (flash attention) with and without a bias,
-fully masked query rows, K3 (fused cgMLP gate) with T not a multiple of 8.
-Tolerance 1e-5 abs, f32: the online softmax and the tiled sums round in
-another order than one softmax over the whole row.
+fully masked query rows, K3 (fused cgMLP gate) with T not a multiple of 8,
+K4 (ancestry group attend) at every position of a small cache, at pos 1 and
+with a narrowed width, K5 / K5' (cache column writes) at every column and
+past the last (the clamp). Tolerance 1e-5 abs, f32: the online softmax and
+the tiled sums round in another order than one softmax over the whole row;
+the cache writes are bit-exact.
 """
 
 import numpy as np
@@ -16,9 +19,14 @@ import torch
 
 from tailored_avsr_tpu.ops.flash_attention import flash_attention as pallas_flash
 from tailored_avsr_tpu.ops.flash_attention import flash_attention_relpos as pallas_relpos
+from tailored_avsr_tpu.ops.cache_update import write_cache_column as pallas_write
+from tailored_avsr_tpu.ops.cache_update import write_cache_columns_kv as pallas_write_kv
 from tailored_avsr_tpu.ops.fused_csgu import fused_csgu as pallas_csgu
+from tailored_avsr_tpu.ops.group_attend import group_attend_anc as pallas_group_attend
+from tailored_avsr_tpu_torch.ops import cache_update as cu
 from tailored_avsr_tpu_torch.ops import flash_attention as fa
 from tailored_avsr_tpu_torch.ops import fused_csgu as fc
+from tailored_avsr_tpu_torch.ops import group_attend as ga
 
 ATOL = 1e-5
 
@@ -79,16 +87,94 @@ def test_k3_plain_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+def _group_inputs(seed, b=2, h=2, km=3, lc=16, dk=8):
+    rs = np.random.RandomState(seed)
+    k, v = (rs.randn(b, h, km, lc, dk).astype(np.float32) for _ in range(2))
+    q, k_new, v_new = (rs.randn(b, h, km, dk).astype(np.float32) for _ in range(3))
+    anc = rs.randint(0, km, (b, km, lc)).astype(np.int32)
+    anc[0, 1, 5:] = -1  # entries outside [0, K) match no slot
+    return k, v, q, k_new, v_new, anc
+
+
+@pytest.mark.parametrize("width", [None, 8])
+def test_k4_plain_matches_pallas_over_every_pos(width):
+    k, v, q, k_new, v_new, anc = _group_inputs(5)
+    for pos in range(1, 18 if width is None else 10):
+        want = pallas_group_attend(k, v, q, k_new, v_new, anc, pos, width=width, interpret=True)
+        got = ga.group_attend_anc(*_t(k, v, q, k_new, v_new, anc), pos, width=width)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, err_msg=f"pos {pos}")
+    got = ga.group_attend_anc(*_t(k, v, q, k_new, v_new, anc), 1, width=width)
+    assert torch.equal(got, torch.from_numpy(v_new))  # pos 1: only the step's own column
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ga.group_attend_anc(*_t(k, v, q, k_new, v_new, anc), 3, width=12)
+
+
+def test_k4_plain_matches_the_jax_xla_formulation():
+    """Against ``attend_kv_anc(fused=False)`` with an identity output
+    projection, in the (N, H, 1, dk) row layout the attention module uses."""
+    import jax.numpy as jnp
+
+    from tailored_avsr_tpu.ops.attention import MultiHeadedAttention
+
+    b, h, km, lc, dk = 2, 2, 3, 16, 8
+    k, v, q, k_new, v_new, anc = _group_inputs(6, b, h, km, lc, dk)
+    mha = MultiHeadedAttention(h, 0.0, h * dk)
+    eye = {"linear_out": {"kernel": jnp.eye(h * dk), "bias": jnp.zeros(h * dk)}}
+
+    def rows(x):  # (B, H, K, dk) -> (N, H, 1, dk)
+        return x.transpose(0, 2, 1, 3).reshape(b * km, h, 1, dk)
+
+    for pos in (1, 2, 9, 17):
+        want = mha.apply({"params": eye}, k, v, rows(k_new), rows(v_new), anc.reshape(b * km, lc),
+                         pos, km, rows(q), None, False, method="attend_kv_anc")
+        got = ga.group_attend_anc(*_t(k, v, q, k_new, v_new, anc), pos)
+        np.testing.assert_allclose(got.numpy().transpose(0, 2, 1, 3).reshape(b * km, 1, h * dk),
+                                   np.asarray(want), atol=ATOL, err_msg=f"pos {pos}")
+
+
+def test_k5_plain_matches_pallas_bit_exact():
+    rs = np.random.RandomState(7)
+    b, h, km, lc, dk = 2, 2, 3, 16, 8
+    kc, vc = (rs.randn(b, h, km, lc, dk).astype(np.float32) for _ in range(2))
+    kcol, vcol = (rs.randn(b, h, km, dk).astype(np.float32) for _ in range(2))
+    for pos in range(lc + 2):  # past the last column: the clamp
+        wk, wv = pallas_write_kv(kc, vc, kcol, vcol, pos, interpret=True)
+        gk, gv = cu.write_cache_columns_kv(*_t(kc.copy(), vc.copy(), kcol, vcol), pos)
+        np.testing.assert_array_equal(gk.numpy(), np.asarray(wk), err_msg=f"pos {pos}")
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(wv), err_msg=f"pos {pos}")
+        w1 = pallas_write(kc, kcol, pos, interpret=True)
+        g1 = cu.write_cache_column(torch.from_numpy(kc.copy()), torch.from_numpy(kcol), pos)
+        np.testing.assert_array_equal(g1.numpy(), np.asarray(w1), err_msg=f"pos {pos}")
+
+
+def test_k5_writes_in_place_and_rounds_to_the_cache_dtype():
+    cache = torch.zeros(1, 1, 2, 8, 4, dtype=torch.bfloat16)
+    col = torch.randn(1, 1, 2, 4, generator=torch.Generator().manual_seed(0))
+    out = cu.write_cache_column(cache, col, 3)
+    assert out is cache
+    assert torch.equal(cache[:, :, :, 3], col.to(torch.bfloat16))
+    assert not cache[:, :, :, :3].any() and not cache[:, :, :, 4:].any()
+    with pytest.raises(ValueError, match=">= 0"):
+        cu.write_cache_column(cache, col, -1)
+
+
 def test_wrappers_are_forward_only_and_count_only_launches():
     """A tensor that autograd would track is refused (the kernels have no
     backward, like the Pallas kernels); CPU calls launch nothing."""
     q, k, v, qr, pos, bias, mask = _t(*_attention_inputs(4, 1, 1, 8, 16, [8]))
-    before = (fa.flash_attention.launches, fa.flash_attention_relpos.launches, fc.fused_csgu.launches)
+    wrappers = (fa.flash_attention, fa.flash_attention_relpos, fc.fused_csgu, ga.group_attend_anc,
+                cu.write_cache_columns_kv, cu.write_cache_column)
+    before = [w.launches for w in wrappers]
+    gk, gv, gq, gkn, gvn, ganc = _t(*_group_inputs(8))
     with torch.no_grad():
         fa.flash_attention(q, k, v, bias, mask)
         fa.flash_attention_relpos(q, k, v, qr, pos, mask)
-    assert (fa.flash_attention.launches, fa.flash_attention_relpos.launches,
-            fc.fused_csgu.launches) == before
+        ga.group_attend_anc(gk, gv, gq, gkn, gvn, ganc, 4)
+        cu.write_cache_columns_kv(gk, gv, gkn, gvn, 4)
+        cu.write_cache_column(gk, gkn, 4)
+    assert [w.launches for w in wrappers] == before
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ga.group_attend_anc(gk, gv, gq.requires_grad_(), gkn, gvn, ganc, 4)
     with pytest.raises(RuntimeError, match="forward-only"):
         fa.flash_attention(q.requires_grad_(), k, v, bias, mask)
     x = torch.zeros(1, 4, 8, requires_grad=True)
