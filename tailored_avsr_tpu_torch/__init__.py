@@ -4,20 +4,24 @@ The JAX package stays the reference; every module here mirrors the JAX
 module of the same path and is held against it on the CPU
 (``tests/test_torch_port_*.py``). The port covers the flagship tailored
 AVSR model's serving: greedy CTC, and the joint CTC/attention beam search
-with Transformer-LM fusion over the ancestry KV cache:
+with Transformer-LM fusion over the ancestry KV cache, whose caches and
+cross-attention memory may be stored as int8 (``cache_dtype`` /
+``mem_dtype: int8``):
 
 - ``ops/``     : frontends, MVN, subsampling, positional encodings, rel-pos
-                 and absolute multi-head attention, cgMLP, FFN, plus the
-                 wrappers of the hand-written CUDA kernels
-                 (``flash_attention.py``, ``fused_csgu.py``,
-                 ``group_attend.py``, ``cache_update.py``);
+                 and absolute multi-head attention, cgMLP, FFN, the int8
+                 column quantiser (``kv_quant.py``), plus the wrappers of
+                 the hand-written CUDA kernels (``flash_attention.py``,
+                 ``fused_csgu.py``, ``group_attend.py``,
+                 ``cache_update.py``, ``stream_probe.py``);
 - ``models/``  : Conv3D + ResNet-18 visual frontend, AVSR embeddings, the
                  tailored encoder, adaptive fusion, CTC head, the Transformer
                  decoder, the Transformer LM, the AVSR model;
 - ``tasks/``   : config -> model for the flagship combination and its LM;
 - ``decode/``  : greedy CTC collapse, CTC prefix scorer, beam search;
 - ``inference``: ``Speech2Text`` (``greedy``, ``nbest``, ``__call__``);
-- ``utils/``   : JAX parameters -> port state dict, seeded initialisation;
+- ``utils/``   : JAX parameters -> port state dict (the port's own copy of
+                 the key-grammar export), seeded initialisation;
 - ``csrc/``    : CUDA C++ sources for ``sm_90a``;
 - ``kernels/`` : nvcc build and ctypes bindings.
 

@@ -1,17 +1,23 @@
-// Ancestry-group attention for one beam decode step (K4).
+// Ancestry-group attention for one beam decode step: K4, and K6 over an int8
+// cache.
 //
 // Replaces tailored_avsr_tpu/ops/group_attend.py:_group_attend_kernel
-// (group_attend_anc). Each of the K queries of a beam group attends over the
-// group's never-reordered (B, H, K, Lc, dk) cache: column (j, t) counts for
-// query i iff anc[b, i, t] == j and t < n_live (= min(pos - 1, width)); the
-// step's own column (k_new, v_new) joins the max and the normaliser. Softmax
-// and sums in f32; inputs f32 or bf16, dk = 64; out has the input type. With
-// no live column the output is exactly v_new.
+// (group_attend_anc, K4) and :_group_attend_q_kernel (group_attend_anc_q,
+// K6). Each of the K queries of a beam group attends over the group's
+// never-reordered (B, H, K, Lc, dk) cache: column (j, t) counts for query i
+// iff anc[b, i, t] == j and t < n_live (= min(pos - 1, width)); the step's own
+// column (k_new, v_new) joins the max and the normaliser. Softmax and sums in
+// f32; q, k_new, v_new and out f32 or bf16, dk = 64. K4's cache has the query's
+// type. K6's cache is an int8 payload with one f32 scale per (b, h, j, t)
+// column: the logit is (q . k_int8) * k_scale / sqrt(dk) and the value scale
+// folds into the column's softmax weight (p * v_scale). With no live column
+// the output is exactly v_new.
 //
 // What bounds it on the H100: bytes. A step reads each live cache row of K
 // and V once and does 2 * dk multiply-adds per row, far below the card's
 // operations-per-byte line; the flagship LM's bf16 cache is 34 MB per leaf at
-// batch 32, beam 10, Lc 104.
+// batch 32, beam 10, Lc 104, its int8 payload half that, plus 4 bytes of
+// scale per 64-byte row.
 //
 // Design: the TPU kernel multiplies each query densely against all K * Lc
 // columns of its group and masks K - 1 of every K, because the MXU wants
@@ -23,14 +29,20 @@
 // only in the order of the sums. One 128-thread block owns one (b, h, i)
 // query: B * H * K blocks (1,280 for the decoder, 2,560 for the LM at the
 // flagship shape), enough to fill 132 SMs. Pass 1 gives each live column to
-// 8 lanes that read its 64-wide key row with 16-byte loads (coalesced) and
-// reduce by shuffles; scores stay in shared memory (the TPU kernel's VMEM
-// logits). The max and the normaliser are block reductions; pass 2 gives each
-// warp every fourth live column and each lane two of the 64 output dims, so a
-// warp reads one value row per column, coalesced. An anc entry outside [0, K)
-// matches nothing, as in the TPU kernel.
+// 8 lanes that read its 64-wide key row (16-byte loads of bf16 or f32, 8-byte
+// loads of int8; coalesced) and reduce by shuffles; scores stay in shared
+// memory (the TPU kernel's VMEM logits). The max and the normaliser are block
+// reductions; pass 2 gives each warp every fourth live column and each lane
+// two of the 64 output dims, so a warp reads one value row per column,
+// coalesced. An anc entry outside [0, K) matches nothing, as in the TPU
+// kernel. K6 is the same template with an int8 element type and the two
+// scale pointers set (null for K4): the int8 payload halves the bytes of a
+// bf16 cache, and the scales add 1/16 of the payload.
 
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -63,17 +75,33 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
   }
 }
 
+__device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const char4 a = *reinterpret_cast<const char4*>(&u.x);
+  const char4 b = *reinterpret_cast<const char4*>(&u.y);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
 __device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+__device__ __forceinline__ float2 load2(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2(c.x, c.y);
+}
 
-template <typename T>
+// C: the cache's element type (T for K4, int8_t for K6); T: q, k_new, v_new, out.
+// k_scale, v_scale: (B, H, K, Lc) f32 column scales for K6, null for K4.
+template <typename C, typename T>
 __global__ void __launch_bounds__(NTHREADS)
-    group_attend_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ q,
-                        const T* __restrict__ k_new, const T* __restrict__ v_new,
-                        const int* __restrict__ anc, T* __restrict__ out, int heads, int beam,
-                        int lc, int n_live, float scale) {
+    group_attend_kernel(const C* __restrict__ k, const float* __restrict__ k_scale,
+                        const C* __restrict__ v, const float* __restrict__ v_scale,
+                        const T* __restrict__ q, const T* __restrict__ k_new,
+                        const T* __restrict__ v_new, const int* __restrict__ anc,
+                        T* __restrict__ out, int heads, int beam, int lc, int n_live, float scale) {
+  constexpr bool QUANT = std::is_same<C, int8_t>::value;
   extern __shared__ float smem[];
   float* s_q = smem;                     // DK: the query, f32
   float* s_acc = s_q + DK;               // NWARPS * DK: pass-2 partial outputs
@@ -86,6 +114,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const int bh = query / beam;
   const int b = bh / heads;
   const size_t group_off = size_t(bh) * beam * lc * DK;
+  const size_t scale_off = size_t(bh) * beam * lc;  // (B, H, K, Lc) column scales
   const size_t qoff = size_t(query) * DK;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -111,7 +140,13 @@ __global__ void __launch_bounds__(NTHREADS)
     }
 #pragma unroll
     for (int off = LANES_PER_COL / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    if (sub == 0 && t < n_live) s_p[t] = live ? dot * scale : -INFINITY;
+    if (sub == 0 && t < n_live) {
+      float col_scale = scale;
+      if constexpr (QUANT) {
+        if (live) col_scale = k_scale[scale_off + size_t(j) * lc + t] * scale;
+      }
+      s_p[t] = live ? dot * col_scale : -INFINITY;
+    }
   }
   if (warp == 0) {
     const float x = avsr::warp_sum(s_q[lane] * to_f32(k_new[qoff + lane]) +
@@ -131,12 +166,17 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
   for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, s_red[w]);
 
-  // probabilities (each thread rewrites the entries it read) and the normaliser
+  // probabilities (each thread rewrites the entries it read) and the
+  // normaliser; K6 stores each column's weight times its value scale
   float sum = 0.f;
   for (int t = tid; t < n_live; t += NTHREADS) {
     const float p = expf(s_p[t] - mx);  // exp(-inf) = 0 for a column no slot matches
-    s_p[t] = p;
     sum += p;
+    if constexpr (QUANT) {
+      s_p[t] = p != 0.f ? p * v_scale[scale_off + size_t(s_anc[t]) * lc + t] : 0.f;
+    } else {
+      s_p[t] = p;
+    }
   }
   sum = avsr::warp_sum(sum);
   if (lane == 0) s_red[NWARPS + warp] = sum;
@@ -151,7 +191,7 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll 4
   for (int t = warp; t < n_live; t += NWARPS) {
     const float p = s_p[t];
-    if (p != 0.f) {  // warp-uniform; a column no slot matches has p = 0 exactly
+    if (p != 0.f) {  // warp-uniform; a column no slot matches has p = 0 exactly (K6: or scale 0)
       const float2 x = load2(v + group_off + (size_t(s_anc[t]) * lc + t) * DK + 2 * lane);
       acc.x = fmaf(p, x.x, acc.x);
       acc.y = fmaf(p, x.y, acc.y);
@@ -168,36 +208,55 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* k, const void* v, const void* q, const void* k_new,
-                   const void* v_new, const int* anc, void* out, int groups, int heads, int beam,
-                   int lc, int n_live, cudaStream_t stream) {
+template <typename C, typename T>
+cudaError_t launch(const void* k, const float* k_scale, const void* v, const float* v_scale,
+                   const void* q, const void* k_new, const void* v_new, const int* anc, void* out,
+                   int groups, int heads, int beam, int lc, int n_live, cudaStream_t stream) {
   const size_t smem = (DK + NWARPS * DK + 2 * NWARPS + 1 + size_t(lc)) * sizeof(float) +
                       size_t(lc) * sizeof(int);
-  auto kernel = group_attend_kernel<T>;
+  auto kernel = group_attend_kernel<C, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   kernel<<<groups * beam, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(q),
-      static_cast<const T*>(k_new), static_cast<const T*>(v_new), anc, static_cast<T*>(out),
-      heads, beam, lc, n_live, float(1.0 / sqrt(double(DK))));
+      static_cast<const C*>(k), k_scale, static_cast<const C*>(v), v_scale,
+      static_cast<const T*>(q), static_cast<const T*>(k_new), static_cast<const T*>(v_new), anc,
+      static_cast<T*>(out), heads, beam, lc, n_live, float(1.0 / sqrt(double(DK))));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// k, v: (B*H, K, Lc, 64) contiguous; q, k_new, v_new, out: (B*H, K, 64);
-// anc: (B, K, Lc) int32; groups = B*H. Columns t < n_live are read.
-// Returns the launch's cudaError_t.
+// K4. k, v: (B*H, K, Lc, 64) contiguous; q, k_new, v_new, out: (B*H, K, 64),
+// all of one type; anc: (B, K, Lc) int32; groups = B*H. Columns t < n_live
+// are read. Returns the launch's cudaError_t.
 extern "C" int avsr_group_attend(const void* k, const void* v, const void* q, const void* k_new,
                                  const void* v_new, const void* anc, void* out, int groups,
                                  int heads, int beam, int lc, int n_live, int is_bf16,
                                  void* stream) {
   const int* a = static_cast<const int*>(anc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(is_bf16 ? launch<__nv_bfloat16>(k, v, q, k_new, v_new, a, out, groups, heads, beam,
-                                             lc, n_live, s)
-                     : launch<float>(k, v, q, k_new, v_new, a, out, groups, heads, beam, lc,
-                                     n_live, s));
+  return int(is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(k, nullptr, v, nullptr, q, k_new,
+                                                             v_new, a, out, groups, heads, beam,
+                                                             lc, n_live, s)
+                     : launch<float, float>(k, nullptr, v, nullptr, q, k_new, v_new, a, out,
+                                            groups, heads, beam, lc, n_live, s));
+}
+
+// K6. k, v: (B*H, K, Lc, 64) int8 contiguous; k_scale, v_scale: (B*H, K, Lc)
+// f32; q, k_new, v_new, out: (B*H, K, 64) f32 or bf16 (is_bf16); the rest as
+// K4. Returns the launch's cudaError_t.
+extern "C" int avsr_group_attend_q(const void* k, const void* k_scale, const void* v,
+                                   const void* v_scale, const void* q, const void* k_new,
+                                   const void* v_new, const void* anc, void* out, int groups,
+                                   int heads, int beam, int lc, int n_live, int is_bf16,
+                                   void* stream) {
+  const int* a = static_cast<const int*>(anc);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int(is_bf16 ? launch<int8_t, __nv_bfloat16>(k, ks, v, vs, q, k_new, v_new, a, out,
+                                                     groups, heads, beam, lc, n_live, s)
+                     : launch<int8_t, float>(k, ks, v, vs, q, k_new, v_new, a, out, groups,
+                                             heads, beam, lc, n_live, s));
 }

@@ -25,6 +25,9 @@ OLD finished entry; many candidates clamp to exactly NEG_INF), while
 The ancestry cache protocol: the caches are never reordered; each step
 writes every slot's new K/V column (``write_beam_columns_kv``, K5) and
 threads the (N, Lc) ancestry table through the reorder (``update_ancestry``).
+An int8 cache side (``cache_dtype: int8``) is an (int8 payload, f32 scale)
+tuple: the step's columns are quantised, the payload goes through K5 and
+the scale planes take an indexed write.
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ from tailored_avsr_tpu_torch.decode.ctc_prefix import (
 )
 from tailored_avsr_tpu_torch.ops.cache_update import write_cache_column, write_cache_columns_kv
 from tailored_avsr_tpu_torch.ops.group_attend import to_group
+from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
 
 NEG_INF = -1.0e10
-WIDTH_TILE = 8  # phased widths round up to this (the JAX package's f32/bf16 cache tile)
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -61,12 +64,21 @@ def write_beam_column(x: torch.Tensor, new_col: torch.Tensor, pos: int) -> torch
     return write_cache_column(x, to_group(new_col, x.shape[2]), pos - 1)
 
 
-def write_beam_columns_kv(ck: torch.Tensor, cv: torch.Tensor, k_new: torch.Tensor,
-                          v_new: torch.Tensor, pos: int):
+def write_beam_columns_kv(ck, cv, k_new: torch.Tensor, v_new: torch.Tensor, pos: int):
     """One layer's K and V column writes at column ``pos - 1`` in one launch,
-    in place (K5)."""
+    in place (K5). An int8 side ``(payload, scale)``: the (N, H, 1, dk)
+    columns are quantised (``quantize_kv_column``), the payloads written
+    through K5 and the (B, H, K) scales at the same column by indexed
+    assignment, as ``tailored_avsr_tpu/decode/beam_search.py:142-161``."""
     if isinstance(ck, tuple):
-        raise not_ported("the int8 beam cache (cache_dtype: int8)", 7)
+        (ck_p, ck_s), (cv_p, cv_s) = ck, cv
+        (kq, ks), (vq, vs) = quantize_kv_column(k_new), quantize_kv_column(v_new)
+        write_beam_columns_kv(ck_p, cv_p, kq, vq, pos)
+        b, h, km, lc = ck_s.shape
+        col = min(pos - 1, lc - 1)  # the payload write's clamp
+        ck_s[:, :, :, col] = ks[:, :, 0].reshape(b, km, h).transpose(1, 2)
+        cv_s[:, :, :, col] = vs[:, :, 0].reshape(b, km, h).transpose(1, 2)
+        return (ck_p, ck_s), (cv_p, cv_s)
     km = ck.shape[2]
     return write_cache_columns_kv(ck, cv, to_group(k_new, km), to_group(v_new, km), pos - 1)
 
@@ -100,8 +112,11 @@ class BeamSearchConfig:
     nbest: int = 1
     early_exit: bool = True  # exact upper-bound stop (one host read per step)
     # attend widths of the early steps: entries <= 1 are fractions of the
-    # max decode length, > 1 absolute columns; each rounds up to WIDTH_TILE
+    # max decode length, > 1 absolute columns; each rounds up to width_tile
     phase_widths: tuple = ()
+    # the JAX package's cache tile: 8, or 32 for cache_dtype: int8 (kept so
+    # that the phase schedule is the JAX package's step for step)
+    width_tile: int = 8
 
 
 class BeamSearchResult(NamedTuple):
@@ -247,7 +262,7 @@ def beam_search(
         prev = 0
         for w in config.phase_widths:
             w = int(w * lmax) if 0 < w <= 1 else int(w)
-            w = -(-w // WIDTH_TILE) * WIDTH_TILE
+            w = -(-w // config.width_tile) * config.width_tile
             if prev < w < lmax:
                 phases.append(w)
                 prev = w

@@ -18,8 +18,14 @@ decoder and the LM score each step through their never-reordered group
 caches (``score_step_anc``, group attend K4), the step's columns are written
 in place after the reorder (K5) and an (N, Lc) ancestry table tracks which
 slot holds each column. ``inference_conf fused_group_attend: false`` takes
-the plain group attend on the card (the JAX package's A/B switch). The
-other protocols and decode modes raise, naming their ``ROADMAP.md`` item.
+the plain group attend on the card (the JAX package's A/B switch).
+``cache_dtype: int8`` stores the beam caches as int8 payloads with per-column
+scales (group attend K6, quantised column writes through K5) and
+``mem_dtype: int8`` the decoder's cross-attention memory K/V, as
+``inference.py:218-246`` and ``:663-699`` do. The other protocols and decode
+modes raise, naming their ``ROADMAP.md`` item.
+
+The engine runs on the CUDA card unless ``device="cpu"`` is asked for.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from tailored_avsr_tpu_torch.decode.beam_search import (
     write_beam_columns_kv,
 )
 from tailored_avsr_tpu_torch.decode.greedy import ctc_greedy_collapse
+from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
 from tailored_avsr_tpu_torch.tasks import lm as lm_task
 from tailored_avsr_tpu_torch.tasks.avsr import build_model
@@ -65,21 +72,36 @@ def _load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _check_inference_conf(inf: dict, ngram_path: Optional[str]) -> None:
-    """Raise for each ``inference_conf`` choice the port does not run."""
+_DTYPE_NAMES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _check_inference_conf(inf: dict, ngram_path: Optional[str], dtype: torch.dtype) -> None:
+    """Raise for each ``inference_conf`` choice the port does not run; the
+    cache and memory dtypes as ``tailored_avsr_tpu/inference.py:218-246``."""
+    protocol = str(inf.get("cache_protocol", "anc"))
+    if protocol not in ("anc", "append"):
+        raise ValueError(f"cache_protocol must be 'anc' or 'append', got {protocol!r}")
+    cache_dtype = str(inf.get("cache_dtype", "") or "")
+    if cache_dtype not in ("", "bfloat16", "float32", "int8"):
+        raise NotImplementedError(
+            f"cache_dtype={cache_dtype!r}: supported values are '' (compute dtype), 'bfloat16', "
+            "'float32', 'int8'")
+    if cache_dtype == "int8" and protocol != "anc":
+        raise NotImplementedError("cache_dtype: int8 requires cache_protocol: anc")
+    mem_dtype = str(inf.get("mem_dtype", "") or "")
+    if mem_dtype not in ("", "int8"):
+        raise NotImplementedError(
+            f"mem_dtype={mem_dtype!r}: supported values are '' (compute dtype) and 'int8'")
+    if mem_dtype == "int8" and protocol != "anc":
+        raise NotImplementedError("mem_dtype: int8 requires cache_protocol: anc")
+    if _DTYPE_NAMES.get(cache_dtype, dtype) != dtype:  # needs K4 with mixed query and cache types
+        raise not_ported(f"cache_dtype: {cache_dtype} under a {str(dtype).replace('torch.', '')} model", 7)
     if inf.get("time_sync") or str(inf.get("decode_mode", "label_sync")) != "label_sync":
         raise not_ported("decode_mode: timesync", 7)
-    protocol = str(inf.get("cache_protocol", "anc"))
     if protocol == "append":
         raise not_ported("cache_protocol: append", 7)
-    if protocol != "anc":
-        raise ValueError(f"cache_protocol must be 'anc' or 'append', got {protocol!r}")
     if int(inf.get("cache_segments", 1)) > 1:
         raise not_ported("cache_segments > 1", 7)
-    for key in ("cache_dtype", "mem_dtype"):  # the caches follow the model's dtype
-        value = str(inf.get(key, "") or "")
-        if value:
-            raise not_ported(f"{key}: {value}", 7)
     if ngram_path or inf.get("ngram_file"):
         raise not_ported("n-gram fusion", 7)
     if inf.get("quantize_asr_model") or inf.get("quantize_lm"):
@@ -110,15 +132,21 @@ class Speech2Text:
         if token_type != "char":
             raise not_ported(f"token_type {token_type!r}", 8)
         inf = dict(getattr(config, "inference_conf", {}) or {})
-        _check_inference_conf(inf, ngram_path)
-        self.config = config
-        self.token_list = load_token_list(config.token_list)
-        self.device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
         self.dtype = (
             torch.bfloat16
             if str(getattr(config, "dtype", "float32")) in ("bfloat16", "bf16")
             else torch.float32
         )
+        _check_inference_conf(inf, ngram_path, self.dtype)
+        self.config = config
+        self.token_list = load_token_list(config.token_list)
+        self.device = torch.device(device if device is not None else "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Speech2Text runs on the CUDA card and this host has no CUDA device; "
+                "pass device='cpu' to run it on the CPU")
+        self.quantized_cache = str(inf.get("cache_dtype", "") or "") == "int8"
+        self.quantized_memory = str(inf.get("mem_dtype", "") or "") == "int8"
         # the beam (``unroll`` is accepted and not used: the port runs one
         # step per iteration, the result-exact form)
         self.beam_config = BeamSearchConfig(
@@ -131,6 +159,8 @@ class Speech2Text:
             nbest=int(inf.get("nbest", 1)),
             early_exit=bool(inf.get("early_exit", True)),
             phase_widths=tuple(inf.get("phase_widths", ()) or ()),
+            # the int8 cache phases at the JAX package's int8 tile
+            width_tile=32 if self.quantized_cache else 8,
         )
         # group-attend choice per engine: None = K4 on the card, plain on the CPU
         fga = inf.get("fused_group_attend", None)
@@ -235,13 +265,16 @@ class Speech2Text:
             raise not_ported("LM fusion with ctc_weight 1.0 (full-prefix LM scoring)", 7)
         mem_mask = make_valid_mask(enc_lens, t)
         mem_kv = dec.precompute_memory(enc)  # B rows, shared by each beam group
+        if self.quantized_memory:  # once per request, per (b, h, t) column
+            mem_kv = [(quantize_kv_column(mk), quantize_kv_column(mv)) for mk, mv in mem_kv]
+        quantized = self.quantized_cache
         state = {
-            "dec": dec.init_cache_group(b, k, t, dtype=enc.dtype),
+            "dec": dec.init_cache_group(b, k, t, dtype=enc.dtype, quantized=quantized),
             # as wide as the widest (8-rounded) group cache
             "anc": torch.zeros((b * k, -(-(t + 2) // 8) * 8), dtype=torch.int32, device=enc.device),
         }
         if fold_lm:
-            state["lm"] = lm.init_cache_group(b, k, t + 2, dtype=enc.dtype)
+            state["lm"] = lm.init_cache_group(b, k, t + 2, dtype=enc.dtype, quantized=quantized)
             lm_scale = cfg.lm_weight / att_w
         fused = self.fused_group_attend
 

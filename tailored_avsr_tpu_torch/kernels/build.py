@@ -9,7 +9,7 @@ seconds: each source compiles in its own nvcc process, all started at once,
 and one more links the objects.
 
 Every pointer and the stream are passed as ``c_void_p``; integers as
-``c_int``. Each entry point returns the ``cudaError_t`` of its launch
+``c_int``, a row length that may pass 2**31 as ``c_longlong``. Each entry point returns the ``cudaError_t`` of its launch
 (``cudaGetLastError()``); the Python wrappers raise when it is not 0.
 """
 
@@ -94,7 +94,7 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the signatures."""
     lib = ctypes.CDLL(str(build()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # q, k, v, bias, q_rel, pos, mask, out, batch, heads, t, dk, is_bf16, mode, stream
     lib.avsr_flash_attention.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.avsr_flash_attention.restype = i32
@@ -104,7 +104,14 @@ def load() -> ctypes.CDLL:
     # k, v, q, k_new, v_new, anc, out, groups, heads, beam, lc, n_live, is_bf16, stream
     lib.avsr_group_attend.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
     lib.avsr_group_attend.restype = i32
-    # kcache, vcache, kcol, vcol, rows, lc, col, dk, cache_bf16, col_bf16, stream
+    # k, k_scale, v, v_scale, q, k_new, v_new, anc, out, groups, heads, beam, lc, n_live,
+    # is_bf16, stream
+    lib.avsr_group_attend_q.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+    lib.avsr_group_attend_q.restype = i32
+    # kcache, vcache, kcol, vcol, rows, lc, col, dk, cache_type, col_type, stream
     lib.avsr_write_cache_columns.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     lib.avsr_write_cache_columns.restype = i32
+    # x, partial, out, rows, row_len, elem_type, vec, chunk, nblk, stream
+    lib.avsr_stream_abs_sum.argtypes = [ptr] * 3 + [i32, i64] + [i32] * 4 + [ptr]
+    lib.avsr_stream_abs_sum.restype = i32
     return lib

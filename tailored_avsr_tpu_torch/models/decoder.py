@@ -12,7 +12,7 @@ their ``ROADMAP.md`` item; the other layer variants are refused by
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import torch
 from torch import nn
@@ -34,13 +34,28 @@ def causal_mask(b: int, t: int, lengths: Optional[torch.Tensor] = None, *, devic
 
 
 def group_cache(layers: int, b: int, beam: int, max_len: int, heads: int, dk: int,
-                dtype, device) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+                dtype, device, quantized: bool = False) -> list:
     """Per-layer zero (K, V) caches (B, H, beam, Lc, dk), Lc = max_len
-    rounded up to a multiple of 8 (the JAX package's shapes)."""
+    rounded up to a multiple of 8 (the JAX package's float shapes). With
+    ``quantized`` each side is an (int8 payload (B, H, beam, Lc, dk), f32
+    scale (B, H, beam, Lc)) tuple (``ops/kv_quant.py``); the JAX package
+    rounds that Lc to 32 for Mosaic's int8 tile, which no value depends on."""
     lc = -(-max_len // 8) * 8
     shape = (b, heads, beam, lc, dk)
-    return [(torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device)) for _ in range(layers)]
+    if quantized:
+        def side():
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:4], dtype=torch.float32, device=device))
+    else:
+        def side():
+            return torch.zeros(shape, dtype=dtype, device=device)
+    return [(side(), side()) for _ in range(layers)]
+
+
+def cache_width(cache) -> int:
+    """Lc of per-layer (K, V) group caches, float or (payload, scale) sides."""
+    k0 = cache[0][0]
+    return (k0[0] if isinstance(k0, tuple) else k0).shape[3]
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -115,19 +130,22 @@ class TransformerDecoder(nn.Module):
         """Per-layer cross-attention (K, V), each (B, H, T, dk)."""
         return [layer.src_attn.project_kv(memory) for layer in self.decoders]
 
-    def init_cache_group(self, b: int, beam: int, max_len: int, dtype=torch.float32, *, device=None):
+    def init_cache_group(self, b: int, beam: int, max_len: int, dtype=torch.float32, *, device=None,
+                         quantized: bool = False):
         """Group-major (B, H, beam, Lc, dk) per-layer (K, V) zero caches for
-        ``score_step_anc``; Lc is ``max_len`` rounded up to a multiple of 8."""
+        ``score_step_anc``; Lc is ``max_len`` rounded up to a multiple of 8.
+        ``quantized``: int8 payload + per-column scale sides (``group_cache``)."""
         device = device if device is not None else self.after_norm.weight.device
-        return group_cache(len(self.decoders), b, beam, max_len, self.heads, self.d_k, dtype, device)
+        return group_cache(len(self.decoders), b, beam, max_len, self.heads, self.d_k, dtype, device,
+                           quantized)
 
     def score_step_anc(
         self,
-        mem_kv,  # per-layer (K, V) from precompute_memory, B rows
+        mem_kv,  # per-layer (K, V) from precompute_memory, B rows (int8: (payload, scale) sides)
         memory_mask: Optional[torch.Tensor],  # (B, T), not beam-repeated
         ys: torch.Tensor,  # (N, L) token buffer, N = B*beam
         pos: int,  # position being generated
-        cache,  # per-layer (K, V) group caches, never reordered
+        cache,  # per-layer (K, V) group caches (float or (payload, scale) sides), never reordered
         anc: torch.Tensor,  # (N, >=Lc) int32 ancestry table
         beam: int,
         width: Optional[int] = None,  # attend cache columns [0, width)
@@ -136,7 +154,7 @@ class TransformerDecoder(nn.Module):
         """Ancestry-cache beam step -> ((N, V) f32 log-probs of the token at
         ``pos``, per-layer (k_new, v_new) (N, H, 1, dk) columns to write)."""
         n, l = ys.shape
-        lc = cache[0][0].shape[3]
+        lc = cache_width(cache)
         p = min(max(pos - 1, 0), l - 1)
         x = self.embed[0](ys[:, p:p + 1])  # (N, 1, D)
         x = self.embed[1].at_position(x, pos - 1, lc)

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from tailored_avsr_tpu_torch import not_ported
-from tailored_avsr_tpu_torch.models.decoder import anc_columns, causal_mask, group_cache
+from tailored_avsr_tpu_torch.models.decoder import anc_columns, cache_width, causal_mask, group_cache
 from tailored_avsr_tpu_torch.ops.attention import MultiHeadedAttention
 from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
 from tailored_avsr_tpu_torch.ops.posenc import AbsolutePositionalEncoding
@@ -108,19 +108,21 @@ class TransformerLM(nn.Module):
             x = layer(x, mask)
         return self.decoder(self.encoder.after_norm(x))
 
-    def init_cache_group(self, b: int, beam: int, max_len: int, dtype=torch.float32, *, device=None):
+    def init_cache_group(self, b: int, beam: int, max_len: int, dtype=torch.float32, *, device=None,
+                         quantized: bool = False):
         """Group-major (B, H, beam, Lc, dk) per-layer (K, V) zero caches for
-        ``score_step_anc``; Lc is ``max_len`` rounded up to a multiple of 8."""
+        ``score_step_anc``; Lc is ``max_len`` rounded up to a multiple of 8.
+        ``quantized``: int8 payload + per-column scale sides (``group_cache``)."""
         device = device if device is not None else self.decoder.weight.device
         return group_cache(len(self.encoder.encoders), b, beam, max_len, self.heads, self.d_k,
-                           dtype, device)
+                           dtype, device, quantized)
 
     def score_step_anc(self, ys: torch.Tensor, pos: int, cache, anc: torch.Tensor, beam: int,
                        width: Optional[int] = None, fused: Optional[bool] = None):
         """Ancestry-cache beam step -> ((N, V) f32 log-probs of the token at
         ``pos``, per-layer (k_new, v_new) (N, H, 1, dk) columns to write)."""
         n, l = ys.shape
-        lc = cache[0][0].shape[3]
+        lc = cache_width(cache)
         p = min(max(pos - 1, 0), l - 1)
         x = self._embed_in(ys[:, p:p + 1])
         if self.posenc is not None:

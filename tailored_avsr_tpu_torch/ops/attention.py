@@ -13,7 +13,9 @@ the H100.
 
 The beam step's self-attention over the ancestry cache
 (``MultiHeadedAttention.attend_kv_anc``) launches the group-attend kernel
-(K4, ``ops/group_attend.py``) for CUDA tensors unless ``fused=False``.
+(K4, or K6 over an int8 cache, ``ops/group_attend.py``) for CUDA tensors
+unless ``fused=False``. An int8 cache or memory side arrives as an (int8
+payload, f32 per-column scale) tuple (``ops/kv_quant.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.ops.masking import MASK_MIN
 
 FLASH_RELPOS_MIN_BIAS_BYTES = 32 * 1024 * 1024
@@ -110,8 +111,8 @@ class MultiHeadedAttention(nn.Module):
 
     def attend_kv_anc(
         self,
-        k: torch.Tensor,  # (B, H, beam, Lc, dk) group-major cached keys
-        v: torch.Tensor,  # (B, H, beam, Lc, dk) cached values
+        k,  # (B, H, beam, Lc, dk) group-major cached keys, or (int8 payload, (B, H, beam, Lc) scale)
+        v,  # (B, H, beam, Lc, dk) cached values, or (int8 payload, scale)
         k_new: torch.Tensor,  # (N, H, 1, dk) this step's key column
         v_new: torch.Tensor,  # (N, H, 1, dk) this step's value column
         anc: torch.Tensor,  # (N, >=Lc) ancestry: column t of row n lives in slot anc[n, t]
@@ -119,45 +120,58 @@ class MultiHeadedAttention(nn.Module):
         beam: int,
         q_heads: torch.Tensor,  # (N, H, 1, dk) query heads
         width: Optional[int] = None,  # attend only cache columns [0, width)
-        fused: Optional[bool] = None,  # None / True: K4 for CUDA tensors; False: plain
+        fused: Optional[bool] = None,  # None / True: K4 / K6 for CUDA tensors; False: plain
     ) -> torch.Tensor:
         """Single-query attention of every beam row over its group's
         never-reordered cache, resolved through ``anc``; the step's own column
         joins the softmax. -> (N, 1, D). CPU tensors always take the plain
-        formulation (the JAX XLA path)."""
-        from tailored_avsr_tpu_torch.ops.group_attend import group_attend_anc, group_attend_anc_plain, to_group
+        formulation (the JAX XLA path; over an int8 cache, its dequantising
+        twin)."""
+        from tailored_avsr_tpu_torch.ops import group_attend as ga
 
-        if isinstance(k, tuple):
-            raise not_ported("int8 cache or memory K/V (cache_dtype / mem_dtype: int8)", 7)
-        b, h, km, lc, dk = k.shape
+        quantized = isinstance(k, tuple)
+        cache = (*k, *v) if quantized else (k, v)  # (k, [k_scale,] v, [v_scale])
+        b, h, km, lc, dk = cache[0].shape
         n = b * beam
         if anc.shape[1] < lc:  # pad columns never written: -1 matches no slot
             anc = F.pad(anc, (0, lc - anc.shape[1]), value=-1)
         ancg = anc[:, :lc].reshape(b, beam, lc).contiguous()
-        args = (k, v, to_group(q_heads, beam), to_group(k_new, beam), to_group(v_new, beam), ancg, pos)
-        attend = group_attend_anc_plain if fused is False else group_attend_anc
+        args = (*cache, ga.to_group(q_heads, beam), ga.to_group(k_new, beam), ga.to_group(v_new, beam),
+                ancg, pos)
+        if quantized:
+            attend = ga.group_attend_anc_q_plain if fused is False else ga.group_attend_anc_q
+        else:
+            attend = ga.group_attend_anc_plain if fused is False else ga.group_attend_anc
         out = attend(*args, width=width)  # (B, H, beam, dk)
         return self.linear_out(out.transpose(1, 2).reshape(n, 1, h * dk))
 
     def attend_kv_mem_grouped(
         self,
         query: torch.Tensor,  # (N, 1, D) single-step queries, N = B*beam
-        k: torch.Tensor,  # (B, H, T, dk) memory keys shared by each beam group
-        v: torch.Tensor,  # (B, H, T, dk)
+        k,  # (B, H, T, dk) memory keys shared by each beam group, or (int8 payload, (B, H, T) scale)
+        v,  # (B, H, T, dk), or (int8 payload, scale)
         mask: Optional[torch.Tensor],  # (B, T) key validity
         beam: int,
     ) -> torch.Tensor:
         """Cross-attention of every beam row over its group's encoder memory,
-        read once per group instead of once per row. -> (N, 1, D)."""
+        read once per group instead of once per row. -> (N, 1, D). With
+        ``mem_dtype: int8`` the key scales fold into the f32 scores and the
+        value scales into the softmax weights, rounding where the JAX
+        package rounds."""
+        k_scale = v_scale = None
         if isinstance(k, tuple):
-            raise not_ported("int8 cache or memory K/V (cache_dtype / mem_dtype: int8)", 7)
+            (k, k_scale), (v, v_scale) = k, v
         n = query.shape[0]
         b = n // beam
         q = self._heads(self.linear_q(query))  # (N, H, 1, dk)
         qg = q[:, :, 0].reshape(b, beam, self.h, self.d_k).transpose(1, 2)  # (B, H, i, dk)
-        scores = (qg @ k.transpose(-2, -1)) / math.sqrt(self.d_k)  # (B, H, i, T)
-        attn = _masked_softmax(scores, mask).to(qg.dtype)
-        out = attn @ v  # (B, H, i, dk)
+        scores = (qg @ k.to(qg.dtype).transpose(-2, -1)) / math.sqrt(self.d_k)  # (B, H, i, T)
+        if k_scale is not None:
+            scores = scores.float() * k_scale[:, :, None, :]
+        attn = _masked_softmax(scores, mask)
+        if v_scale is not None:
+            attn = attn * v_scale[:, :, None, :]
+        out = attn.to(qg.dtype) @ v.to(qg.dtype)  # (B, H, i, dk)
         return self.linear_out(out.transpose(1, 2).reshape(n, 1, self.h * self.d_k))
 
 

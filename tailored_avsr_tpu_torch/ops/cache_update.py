@@ -6,12 +6,15 @@ Counterpart of ``tailored_avsr_tpu/ops/cache_update.py``:
 one CUDA kernel in ``csrc/cache_update.cu`` (see its header), which writes
 the (B, H, K, dk) column(s) into column ``min(pos, Lc - 1)`` of the
 (B, H, K, Lc, dk) cache(s), cast to the cache dtype in the kernel (f32 ->
-bf16 rounds to nearest even, as ``Tensor.to`` does).
+bf16 rounds to nearest even, as ``Tensor.to`` does). An int8 cache (the
+payload of ``cache_dtype: int8``) takes int8 columns, quantised by the
+caller (``decode/beam_search.write_beam_columns_kv``), and copies them.
 
 The JAX functions return new (aliased) buffers; these update the caches in
 place and return the same tensors. That is safe on the beam path because
 the write comes after the step's attend has read the caches. The clamp is
-kept; the Mosaic 8/32-row block alignment and its ``Lc % 8`` check are not.
+kept; the Mosaic 8/32-row block read-modify-write and its ``Lc % 8`` check
+are not.
 
 The plain versions are the indexed assignment; the kernel agrees with them
 bit for bit. A wrapper runs the plain version for CPU tensors only; for
@@ -27,7 +30,7 @@ import torch
 
 from tailored_avsr_tpu_torch.ops.backend import check_kernel_input, use_kernel
 
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # csrc/cache_update.cu
 
 
 def _column(pos: int, lc: int) -> int:
@@ -54,8 +57,10 @@ def _launch(kcache: torch.Tensor, vcache: Optional[torch.Tensor], kcol: torch.Te
     if kcache.dim() != 5:
         raise ValueError(f"cache must be (B, H, K, Lc, dk), got {tuple(kcache.shape)}")
     b, h, km, lc, dk = kcache.shape
-    if kcache.dtype not in _KERNEL_DTYPES or kcol.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"cache write kernel takes float32 or bfloat16, got {kcache.dtype} <- {kcol.dtype}")
+    codes = (_TYPE_CODES.get(kcache.dtype), _TYPE_CODES.get(kcol.dtype))
+    if None in codes or (codes[0] == 2) != (codes[1] == 2):
+        raise TypeError("cache write kernel takes float32 or bfloat16 caches and columns, or an int8 "
+                        f"cache and int8 columns, got {kcache.dtype} <- {kcol.dtype}")
     col = _column(pos, lc)
     for name, c, x in (("cache", kcache, kcol), ("vcache", vcache, vcol)):
         if c is None:
@@ -65,8 +70,7 @@ def _launch(kcache: torch.Tensor, vcache: Optional[torch.Tensor], kcol: torch.Te
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(kcache.device):
         err = build.load().avsr_write_cache_columns(
-            ptr(kcache), ptr(vcache), ptr(kcol), ptr(vcol), b * h * km, lc, col, dk,
-            int(kcache.dtype == torch.bfloat16), int(kcol.dtype == torch.bfloat16),
+            ptr(kcache), ptr(vcache), ptr(kcol), ptr(vcol), b * h * km, lc, col, dk, *codes,
             torch.cuda.current_stream(kcache.device).cuda_stream,
         )
     if err:

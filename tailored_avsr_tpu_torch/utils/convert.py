@@ -1,10 +1,9 @@
 """JAX parameters -> the port's state dict.
 
-The JAX package's ``export_torch_state_dict`` (``tailored_avsr_tpu/utils/
-torch_compat.py:311``) already writes the reference's PyTorch key grammar,
-and the port's module and parameter names follow that grammar, so exported
-weights load with ``load_state_dict(strict=True)``. That module needs only
-numpy; it is imported lazily, inside the function that uses it.
+``utils/torch_compat.export_torch_state_dict`` (the port's numpy-only copy
+of the JAX package's export) writes the reference's PyTorch key grammar, and
+the port's module and parameter names follow that grammar, so exported
+weights load with ``load_state_dict(strict=True)``.
 
 The Transformer LM's keys carry an ``lm.`` prefix in that grammar (espnet's
 ``ESPnetLanguageModel.lm``); ``lm_state_dict`` strips it for the port's
@@ -19,6 +18,8 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from tailored_avsr_tpu_torch.utils.torch_compat import export_torch_state_dict
 
 logger = logging.getLogger(__name__)
 
@@ -55,8 +56,6 @@ def convert_jax_variables(
     """JAX ``{'params': ..., 'batch_stats': ...}`` tree (numpy leaves) ->
     (state dict ready for ``model.load_state_dict(strict=True)``, dropped
     prefixes as in ``filter_state_dict``)."""
-    from tailored_avsr_tpu.utils.torch_compat import export_torch_state_dict
-
     exported = export_torch_state_dict(variables)
     tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in exported.items()}
     return filter_state_dict(model, tensors)
@@ -79,6 +78,4 @@ def lm_state_dict(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def convert_jax_lm_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``TransformerLM`` variables (numpy leaves) -> state dict ready for
     the port's ``TransformerLM.load_state_dict(strict=True)``."""
-    from tailored_avsr_tpu.utils.torch_compat import export_torch_state_dict
-
     return lm_state_dict(export_torch_state_dict(variables))
