@@ -12,10 +12,17 @@ Run from the repository root on a machine with one CUDA card:
    max abs error, tolerance, and median times over 25 runs (CUDA events,
    the L2 written over before each timed call), beside the least time the
    card could take (its bound) and, where one PyTorch call computes the
-   same function, that call's time. K1-K3 at the encoder's shapes; K4
-   (group attend) and K6 (group attend over an int8 cache) at the beam
-   step's decoder and LM shapes over several positions and a narrowed
-   width; K5 and K5' (cache column writes) bit-exact, the clamp included,
+   same function, that call's time. K1-K3 at the encoder's shapes, and
+   bf16 K2 (tensor cores) also at T = 1, 63, 64, 65, 100, 128 and 500 with
+   and without bias, one utterance fully masked (exactly 0); K4 (group
+   attend) and K6 (group attend over an int8 cache) at the beam step's
+   decoder and LM shapes over positions 1, 2, 17, 33, 53, 103 and two
+   narrowed widths, with ancestry entries outside [0, K); at pos 53 and 103
+   every forced column split and chunk of a sweep (the split ones through
+   the kernel that combines partial results) held to the plain version too,
+   with its time printed; and a long cache (Lc 1024) whose ancestry the
+   default plan splits over blocks; K5 and K5' (cache column writes)
+   bit-exact, the clamp included,
    on bf16, f32 and int8 caches; P1 (the HBM streaming probe) against its
    plain version, with the four cases of ``scripts/bench_int8_stream.py``.
 5. Greedy path: the flagship serving model (the ``_tpu.yaml`` values, 12
@@ -39,14 +46,16 @@ Run from the repository root on a machine with one CUDA card:
    must not launch there; scores within 2e-2, and a 1-best that differs
    must be a swap of two near-tied hypotheses, see ``SCORE_ATOL``) and the
    unphased run; K6 and K5 must launch and K4 must not. The f32 K6 check
-   runs on a second request too, and the plain twin once more with
-   relative noise of 1e-6 on what it quantises (a control: the spread that
-   sound code shows). The share of utterances whose int8 1-best equals the
+   runs on a second request too, and the plain twin once more on each
+   request with relative noise of 1e-6 on what it quantises (a control:
+   the spread that sound code shows, printed as the gate would read it).
+   The share of utterances whose int8 1-best equals the
    exact bf16 run's is printed, not gated.
 8. Prints one JSON line of per-kernel results (launches: K1-K3 from the
    greedy path, K4, K5 and K5' from the beam path, K6 from the int8 beam
    path; P1 counted over both beam paths, where no serving code may launch
-   it), then the result line ``{"ok": true, "device": {...}}`` last.
+   it), then the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises, so the run exits non-zero and prints no result line.
 Nothing here imports JAX.
@@ -121,14 +130,15 @@ def _result(err, ms, plain_ms, bound, library_ms=None) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def _compare(name, kind, got, want):
+def _compare(name, kind, got, want, show=True):
     atol, rtol = TOL[(kind, want.dtype)]
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     excess = float((diff - rtol * want.float().abs()).max())
     ok = bool(torch.isfinite(got.float()).all()) and excess <= atol
-    print(f"  {name}: max_abs_err={err:.3e} tol=atol {atol:g} + rtol {rtol:g}*|ref| -> {'ok' if ok else 'FAIL'}")
+    if show or not ok:
+        print(f"  {name}: max_abs_err={err:.3e} tol=atol {atol:g} + rtol {rtol:g}*|ref| -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version (max abs err {err:.3e})")
     return err
@@ -210,6 +220,9 @@ def kernel_phases(device) -> dict:
         if bool(got[1].abs().max() != 0):
             raise AssertionError("K1: a fully masked utterance must give exactly 0")
 
+        if dtype == torch.bfloat16:
+            _k2_edges(fa, randn, gen, device)
+
         # K3: fused cgMLP gate, request (a) shapes
         b, t, u, ks = 32, 100, 2048, 31
         x = randn(b, t, u, dtype=dtype)
@@ -228,6 +241,38 @@ def kernel_phases(device) -> dict:
     return results
 
 
+def _k2_edges(fa, randn, gen, device) -> None:
+    """bf16 K2 (tensor cores) at T across its 16-row, 16-key and 64-key
+    tile edges and at request (b)'s T = 500, with and without bias, one
+    utterance fully masked (exactly 0) and ragged lengths elsewhere; times
+    at T = 500 beside the one-call yardstick (printed, not in the line)."""
+    from tailored_avsr_tpu_torch.ops.masking import MASK_MIN
+
+    h, dk, dtype = 4, 64, torch.bfloat16
+    for t in (1, 63, 64, 65, 100, 128, 500):
+        b = 24 if t == 500 else 8
+        q, k, v = (randn(b, h, t, dk, dtype=dtype) for _ in range(3))
+        bias = randn(b, h, t, t, dtype=dtype, scale=4.0)
+        mask = _lengths_mask(gen, b, t, device)
+        mask[1] = False
+        for bname, bb in (("bias", bias), ("no bias", None)):
+            got = fa.flash_attention(q, k, v, bb, mask)
+            _compare(f"K2 flash_attention {bname} bf16 B={b} H={h} T={t} (utterance 1 fully masked)",
+                     "attention", got, fa.flash_attention_plain(q, k, v, bb, mask))
+            if bool(got[1].abs().max() != 0):
+                raise AssertionError(f"K2 bf16 T={t}: a fully masked utterance must give exactly 0")
+            if t == 500:
+                merged = torch.zeros((b, 1, 1, t), dtype=dtype, device=device).masked_fill(
+                    ~mask[:, None, None, :], MASK_MIN)
+                if bb is not None:
+                    merged = merged + bb / dk ** 0.5
+                args = (q, k, v, bb, mask)
+                _result(0.0, cold_time_ms(lambda: fa.flash_attention(*args)),
+                        cold_time_ms(lambda: fa.flash_attention_plain(*args)),
+                        _bound(_nbytes(*args, got), 4 * b * h * t * t * dk, dtype),
+                        cold_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=merged)))
+
+
 def _group_attend_bound(anc, pos, width, cache_rows_bytes, step_tensors, heads, dtype) -> tuple:
     """K4 / K6 bound from this call's data: each distinct live cache row
     (b, h, j, t) that some query's ancestry names is read once (K and V,
@@ -243,6 +288,98 @@ def _group_attend_bound(anc, pos, width, cache_rows_bytes, step_tensors, heads, 
     dk = step_tensors[0].shape[-1]
     nbytes = rows * cache_rows_bytes + b * km * n_live * 4 + _nbytes(*step_tensors)
     return _bound(nbytes, int(valid.sum()) * heads * 4 * dk, dtype)
+
+
+def _forced(shape: dict, chunk: int, split: int) -> dict:
+    """``launch_shape``'s integers with the column plan forced: ``split``
+    blocks a group (at least a chunk each), ``chunk`` columns a copy."""
+    n = max(shape["n_live"], 1)
+    per = -(-(-(-n // split)) // chunk) * chunk
+    return dict(shape, chunk=chunk, per=per, split=-(-n // per))
+
+
+def _plan_sweep(ga, args, qargs, tag) -> None:
+    """K4 and K6 under forced column splits and chunks, each plan held to
+    the plain version (the split ones run the combining kernel), with its
+    L2-cold time (printed, the default plan marked): the measurement behind
+    ``group_attend_plan``'s choices."""
+    k, v, q, k_new, v_new, a, pos = args
+    kq, ks, vq, vs = qargs[:4]
+    sms = torch.cuda.get_device_properties(k.device).multi_processor_count
+    for name, kind, entry, cache, scales, plain in (
+            ("K4", "group_attend", "avsr_group_attend", (k, v), (), ga.group_attend_anc_plain(*args)),
+            ("K6", "group_attend_q", "avsr_group_attend_q", (kq, vq), (ks, vs),
+             ga.group_attend_anc_q_plain(*qargs))):
+        shape = ga.launch_shape(entry, *cache, scales, q, k_new, v_new, a, pos, None, cache[0].dtype,
+                                sms=sms)
+        row, worst, seen = [], 0.0, []
+        for chunk, split in ((shape["chunk"], 1), (shape["chunk"], 2), (shape["chunk"], 4),
+                             (8, 1), (16, 1), (32, 1)):
+            plan = _forced(shape, chunk, split)
+            if plan in seen:
+                continue
+            seen.append(plan)
+            desc = f"chunk {plan['chunk']} per {plan['per']} split {plan['split']}"
+            if ga._smem_bytes(plan["beam"], chunk, plan["per"], cache[0].element_size()) > ga._SMEM_LIMIT:
+                row.append(f"{desc}: does not fit")
+                continue
+
+            def run():
+                return ga._launch(entry, *cache, scales, q, k_new, v_new, a, plan)
+
+            worst = max(worst, _compare(f"{name} {tag} H={k.shape[1]} pos={pos} {desc}", kind, run(),
+                                        plain, show=False))
+            mark = " (default)" if plan == shape else ""
+            row.append(f"{desc}{mark}: {cold_time_ms(run):.4f}")
+        print(f"    {name} {tag} plan sweep, H={k.shape[1]} pos={pos}, every plan held to the plain version "
+              f"(max abs err {worst:.3e}), ms: " + "; ".join(row))
+
+
+def _split_cases(ga, randn, gen, device) -> None:
+    """K4 and K6 where the default plan splits a group over blocks: a long
+    cache (batch 2, LM heads, beam 10, Lc 1024) whose live columns carry
+    more ancestry than one block holds. Held to the plain version in f32
+    and bf16; each launch runs the kernel and the combining kernel, and the
+    wrapper must count both. Times of the longest case printed."""
+    from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
+
+    b, h, km, lc, dk = 2, 8, 10, 1024, 64
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        k, v = randn(b, h, km, lc, dk, dtype=dtype), randn(b, h, km, lc, dk, dtype=dtype)
+        (kq, ks), (vq, vs) = (quantize_kv_column(randn(b, h, km, lc, dk, dtype=torch.float32))
+                              for _ in range(2))
+        q, k_new, v_new = (randn(b, h, km, dk, dtype=dtype) for _ in range(3))
+        anc = torch.randint(0, km, (b, km, lc), generator=gen, device=device, dtype=torch.int32)
+        odd = torch.rand(anc.shape, generator=gen, device=device)
+        anc = torch.where(odd < 0.025, -1, torch.where(odd < 0.05, km, anc)).to(torch.int32)
+        splits = set()
+        for pos, width in ((400, None), (700, None), (1025, None), (1025, 512)):
+            plans = {c: ga.group_attend_plan(b * h, km, min(pos - 1, width or lc), c, sms=sms)
+                     for c in (k.element_size(), 1)}
+            shape = f"B={b} H={h} K={km} Lc={lc} pos={pos}" + (f" width={width}" if width else "")
+            for name, kind, wrapper, plain, xargs, esize in (
+                    ("K4", "group_attend", ga.group_attend_anc, ga.group_attend_anc_plain,
+                     (k, v, q, k_new, v_new, anc, pos), k.element_size()),
+                    ("K6", "group_attend_q", ga.group_attend_anc_q, ga.group_attend_anc_q_plain,
+                     (kq, ks, vq, vs, q, k_new, v_new, anc, pos), 1)):
+                chunk, per, split = plans[esize]
+                splits.add(split)
+                before = wrapper.launches
+                got = wrapper(*xargs, width=width)
+                launched = wrapper.launches - before
+                err = _compare(f"{name} {tag} {shape}, default plan chunk {chunk} per {per} split {split}",
+                               kind, got, plain(*xargs, width=width))
+                if launched != (1 if split == 1 else 2):
+                    raise AssertionError(f"{name}: split {split} counted {launched} launches")
+                if pos == 1025 and width is None and dtype == torch.bfloat16:
+                    row_bytes = 2 * (dk * k.element_size() if name == "K4" else dk + 4)
+                    _result(err, cold_time_ms(lambda: wrapper(*xargs, width=width)),
+                            cold_time_ms(lambda: plain(*xargs, width=width)),
+                            _group_attend_bound(anc, pos, width, row_bytes, (q, k_new, v_new, got), h, dtype))
+        if max(splits) < 2:
+            raise AssertionError(f"no long-cache case split a group: {splits}")
 
 
 def beam_kernel_phases(device) -> dict:
@@ -269,7 +406,11 @@ def beam_kernel_phases(device) -> dict:
                                   for _ in range(2))
             q, k_new, v_new = (randn(b, h, km, dk, dtype=dtype) for _ in range(3))
             anc = torch.randint(0, km, (b, km, lc), generator=gen, device=device, dtype=torch.int32)
-            for pos, width in ((1, None), (2, None), (53, None), (103, None), (53, 56)):
+            # about 1 in 20 entries outside [0, K): they match no slot
+            odd = torch.rand(anc.shape, generator=gen, device=device)
+            anc = torch.where(odd < 0.025, -1, torch.where(odd < 0.05, km, anc)).to(torch.int32)
+            for pos, width in ((1, None), (2, None), (17, None), (33, None), (53, None), (103, None),
+                               (53, 56), (103, 32)):
                 a = anc.clone()
                 if width is not None:
                     a[:, :, width:] = -1
@@ -296,6 +437,9 @@ def beam_kernel_phases(device) -> dict:
                              cold_time_ms(lambda: ga.group_attend_anc_q_plain(*qargs, width=width)), bound)
                 if h == 8 and pos == 53 and width is None:
                     results["K4", tag], results["K6", tag] = r4, r6
+                if pos in (53, 103) and width is None:
+                    _plan_sweep(ga, args, qargs, tag)
+    _split_cases(ga, randn, gen, device)
 
     # K5 / K5': bit-exact in-place column writes at the LM shape
     h = 8
@@ -559,11 +703,11 @@ def _score_spread(hyp, hyp_ref) -> tuple:
     return same, max(abs(g[0][3] - w[0][3]) for g, w in zip(hyp, hyp_ref))
 
 
-def _noise_control(engine, req, hyp_ref) -> None:
+def _noise_control(engine, req, hyp_ref, name) -> None:
     """The plain twin once more, with relative noise of 1e-6 on everything
     it quantises (the memory K/V and each step's columns): the score spread
     that the int8 rounding makes of a column gap that size in sound code.
-    Printed beside the K6 reading, not gated."""
+    Printed as K6's gate would read it beside the K6 reading, not gated."""
     from tailored_avsr_tpu_torch import inference as inf_mod
     from tailored_avsr_tpu_torch.decode import beam_search as bs
 
@@ -575,15 +719,17 @@ def _noise_control(engine, req, hyp_ref) -> None:
 
     bs.quantize_kv_column = inf_mod.quantize_kv_column = noisy
     try:
-        hyp = _nbest(engine, "f32, plain group attend, relative noise 1e-6 on the quantiser's inputs", req)
+        hyp = _nbest(engine, f"f32, plain group attend, {name}, relative noise 1e-6 on the quantiser's inputs",
+                     req)
     finally:
         bs.quantize_kv_column = inf_mod.quantize_kv_column = quantize
-    same, worst = _score_spread(hyp, hyp_ref)
-    print(f"  noise control: 1-best ids equal to the plain run's on {same}/{len(hyp)} utterances, "
-          f"max |score diff| {worst:.3e} (not gated)")
+    bad = _against_plain(hyp, hyp_ref, "K6", f"noise control, {name}: plain + noise")
+    print(f"  noise control, {name}: {bad} utterances beyond K6's gate (not gated)")
 
 
-def _held_against_plain(hyp, hyp_plain, kernel: str) -> None:
+def _against_plain(hyp, hyp_plain, kernel: str, what: str) -> int:
+    """Print how ``hyp`` reads against ``hyp_plain`` under ``kernel``'s
+    gate; returns the number of utterances beyond it."""
     atol = SCORE_ATOL[kernel]
 
     def close(g, w):
@@ -602,11 +748,15 @@ def _held_against_plain(hyp, hyp_plain, kernel: str) -> None:
         swaps += swap
         bad += not (swap and kernel == "K6")
         print(f"    utterance {i}: 1-best differs, {'a swap of the top two' if swap else 'NOT a swap'}: "
-              f"{kernel} {g[0][3]:.6f}, {g[1][3]:.6f}; plain {w[0][3]:.6f}, {w[1][3]:.6f}")
-    print(f"  f32 {kernel} vs plain group attend: 1-best ids equal on {len(hyp) - differ}/{len(hyp)} "
+              f"{what} {g[0][3]:.6f}, {g[1][3]:.6f}; plain {w[0][3]:.6f}, {w[1][3]:.6f}")
+    print(f"  {what} vs plain group attend: 1-best ids equal on {len(hyp) - differ}/{len(hyp)} "
           f"utterances ({swaps} near-tied swaps), max |1-best score diff| {worst:.3e} ({over_1e3} beyond "
           f"1e-3), {bad} beyond tolerance ({atol:g} or 8 ulps)")
-    if bad:
+    return bad
+
+
+def _held_against_plain(hyp, hyp_plain, kernel: str) -> None:
+    if _against_plain(hyp, hyp_plain, kernel, f"f32 {kernel}"):
         raise AssertionError(f"f32 beam through {kernel} disagrees with the plain group attend")
 
 
@@ -636,11 +786,13 @@ def beam_phase(device, req, **inference_conf) -> tuple:
     if _counts()[kernel] != before:
         raise AssertionError("fused_group_attend: false launched the group-attend kernel")
     _held_against_plain(hyp_f32, hyp_plain, kernel)
-    if kernel == "K6":  # a second request, and the plain twin under column noise
+    if kernel == "K6":  # a second request, and the plain twin under column noise on each
         req2 = _request(3, 32, 4)
-        _held_against_plain(_nbest(f32, "f32, request (a) seed 3", req2),
-                            _nbest(plain, "f32, plain group attend, request (a) seed 3", req2), kernel)
-        _noise_control(plain, req, hyp_plain)
+        hyp_f32_2 = _nbest(f32, "f32, request (a) seed 3", req2)
+        hyp_plain_2 = _nbest(plain, "f32, plain group attend, request (a) seed 3", req2)
+        _held_against_plain(hyp_f32_2, hyp_plain_2, kernel)
+        _noise_control(plain, req, hyp_plain, "request (a)")
+        _noise_control(plain, req2, hyp_plain_2, "request (a) seed 3")
 
     phased = _beam_engine(device, "bfloat16", phase_widths=[0.25, 0.5], **inference_conf)
     same = _nbest(phased, "bf16, phase_widths [0.25, 0.5]", req) == hyp_bf16

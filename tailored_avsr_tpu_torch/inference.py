@@ -46,7 +46,7 @@ from tailored_avsr_tpu_torch.decode.greedy import ctc_greedy_collapse
 from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
 from tailored_avsr_tpu_torch.tasks import lm as lm_task
-from tailored_avsr_tpu_torch.tasks.avsr import build_model
+from tailored_avsr_tpu_torch.tasks.avsr import build_model, resolve_device
 from tailored_avsr_tpu_torch.utils.convert import filter_state_dict, lm_state_dict
 
 _SPACE = "<space>"
@@ -140,11 +140,7 @@ class Speech2Text:
         _check_inference_conf(inf, ngram_path, self.dtype)
         self.config = config
         self.token_list = load_token_list(config.token_list)
-        self.device = torch.device(device if device is not None else "cuda")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Speech2Text runs on the CUDA card and this host has no CUDA device; "
-                "pass device='cpu' to run it on the CPU")
+        self.device = resolve_device(device, "Speech2Text")
         self.quantized_cache = str(inf.get("cache_dtype", "") or "") == "int8"
         self.quantized_memory = str(inf.get("mem_dtype", "") or "") == "int8"
         # the beam (``unroll`` is accepted and not used: the port runs one

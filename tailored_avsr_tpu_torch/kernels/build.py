@@ -101,12 +101,13 @@ def load() -> ctypes.CDLL:
     # x, gamma, beta, w, b, out, batch, t, channels, kernel_size, is_bf16, stream
     lib.avsr_fused_csgu.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.avsr_fused_csgu.restype = i32
-    # k, v, q, k_new, v_new, anc, out, groups, heads, beam, lc, n_live, is_bf16, stream
-    lib.avsr_group_attend.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+    # k, v, q, k_new, v_new, anc, out, partial, groups, heads, beam, lc, n_live, chunk, per,
+    # split, is_bf16, stream
+    lib.avsr_group_attend.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
     lib.avsr_group_attend.restype = i32
-    # k, k_scale, v, v_scale, q, k_new, v_new, anc, out, groups, heads, beam, lc, n_live,
-    # is_bf16, stream
-    lib.avsr_group_attend_q.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+    # k, k_scale, v, v_scale, q, k_new, v_new, anc, out, partial, groups, heads, beam, lc,
+    # n_live, chunk, per, split, is_bf16, stream
+    lib.avsr_group_attend_q.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
     lib.avsr_group_attend_q.restype = i32
     # kcache, vcache, kcol, vcol, rows, lc, col, dk, cache_type, col_type, stream
     lib.avsr_write_cache_columns.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]

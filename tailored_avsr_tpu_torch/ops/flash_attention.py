@@ -58,9 +58,9 @@ def flash_attention_relpos_plain(
     return flash_attention_plain(q, k, v, rel_shift(q_rel @ pos.transpose(-2, -1)), mask)
 
 
-def _launch(mode, q, k, v, bias, q_rel, pos, mask) -> torch.Tensor:
-    from tailored_avsr_tpu_torch.kernels import build
-
+def check_inputs(mode: int, q, k, v, bias, q_rel, pos, mask) -> None:
+    """Raise on inputs the kernel does not take. The bf16 tensor-core form of
+    K2 copies 16 bytes at a time, so it also wants 16-byte aligned tensors."""
     b, h, t, dk = q.shape
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, got {q.dtype}")
@@ -76,6 +76,16 @@ def _launch(mode, q, k, v, bias, q_rel, pos, mask) -> torch.Tensor:
         check_kernel_input(q_rel, "q_rel", (b, h, t, dk), q.dtype)
         check_kernel_input(pos, "pos", (h, 2 * t - 1, dk), q.dtype)
     check_kernel_input(mask, "mask", (b, t), torch.bool)
+    if (mode != _MODE_RELPOS and q.dtype == torch.bfloat16
+            and any(x.data_ptr() % 16 for x in (q, k, v, bias) if x is not None)):
+        raise ValueError("bf16 flash attention kernel: q, k, v and bias must be 16-byte aligned")
+
+
+def _launch(mode, q, k, v, bias, q_rel, pos, mask) -> torch.Tensor:
+    from tailored_avsr_tpu_torch.kernels import build
+
+    check_inputs(mode, q, k, v, bias, q_rel, pos, mask)
+    b, h, t, dk = q.shape
     out = torch.empty_like(q)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):

@@ -73,6 +73,17 @@ def _cfg(config, key: str, default=None):
     return default if value is None else value
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """``device``, or the CUDA card when it is None; raises when the card is
+    asked for and the host has none (no silent CPU)."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} runs on the CUDA card and this host has no CUDA device; "
+            "pass device='cpu' to run it on the CPU")
+    return device
+
+
 def materialize(module: torch.nn.Module, generator: Optional[torch.Generator], device,
                 dtype: Optional[torch.dtype]) -> torch.nn.Module:
     """A module built on the meta device -> its weights drawn from
@@ -92,7 +103,9 @@ def build_model(
     dtype: Optional[torch.dtype] = None,
 ) -> AVSRModel:
     """The serving model for ``config``, its weights drawn from ``generator``
-    (seed 0 when None) on the CPU, then moved to ``device`` / ``dtype``."""
+    (seed 0 when None) on the CPU, then moved to ``device`` (the CUDA card
+    when None; ``device="cpu"`` keeps it on the CPU) / ``dtype``. Config
+    choices the port does not build raise before the device is looked at."""
     _require("model", _cfg(config, "model", "espnet"), ("espnet",), 7)
     _require("acoustic_frontend", _cfg(config, "acoustic_frontend", "default"), ("default",), 8)
     _require("visual_frontend", _cfg(config, "visual_frontend", "conv3dresnet18"),
@@ -151,5 +164,5 @@ def build_model(
         ignore_id=int(model_conf.get("ignore_id", -1)),
         decoder=decoder,
     )
-    return materialize(model, generator, device, dtype)
+    return materialize(model, generator, resolve_device(device, "build_model"), dtype)
 

@@ -11,7 +11,7 @@ from typing import List, Optional
 import torch
 
 from tailored_avsr_tpu_torch.models.lm import TransformerLM
-from tailored_avsr_tpu_torch.tasks.avsr import _cfg, _conf, _require, materialize
+from tailored_avsr_tpu_torch.tasks.avsr import _cfg, _conf, _require, materialize, resolve_device
 
 
 def build_model(
@@ -23,8 +23,9 @@ def build_model(
     dtype: Optional[torch.dtype] = None,
 ) -> TransformerLM:
     """The LM for ``lm_config``, its weights drawn from ``generator`` (seed 0
-    when None) on the CPU, then moved to ``device`` / ``dtype``."""
+    when None) on the CPU, then moved to ``device`` (the CUDA card when None;
+    ``device="cpu"`` keeps it on the CPU) / ``dtype``."""
     _require("lm", _cfg(lm_config, "lm", "transformer"), ("transformer",), 8)
     lm = TransformerLM(**_conf(TransformerLM, _cfg(lm_config, "lm_conf", {}),
                                vocab_size=len(token_list)), device="meta")
-    return materialize(lm, generator, device, dtype)
+    return materialize(lm, generator, resolve_device(device, "build_model"), dtype)

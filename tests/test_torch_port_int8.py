@@ -564,3 +564,31 @@ def test_speech2text_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Speech2Text(_tiny_cfg(), device="cuda")
     assert Speech2Text(_tiny_cfg(), device="cpu").device == torch.device("cpu")
+
+
+def test_build_model_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """The factories behind ``Speech2Text`` follow its rule: without
+    ``device=`` they build on ``cuda`` and, on a host with no CUDA device,
+    refuse with the same words; ``device="cpu"`` builds on the CPU. The
+    config gates come first, so an unported choice still names its item."""
+    import types
+
+    from tailored_avsr_tpu_torch.tasks import avsr as avsr_task
+    from tailored_avsr_tpu_torch.tasks import lm as lm_task
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tokens = ["<blank>", "a", "<sos/eos>"]
+    lm_cfg = types.SimpleNamespace(lm="transformer", lm_conf={"pos_enc": None, "embed_unit": 16,
+                                                               "att_unit": 16, "head": 2, "unit": 32,
+                                                               "layer": 1})
+    for build, cfg in ((avsr_task.build_model, _tiny_cfg()), (lm_task.build_model, lm_cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device; pass device='cpu'"):
+            build(cfg, tokens)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(cfg, tokens, device="cuda")
+        model = build(cfg, tokens, device="cpu")
+        assert {p.device for p in model.parameters()} == {torch.device("cpu")}
+    cfg = _tiny_cfg()
+    cfg.decoder = "sim_t"
+    with pytest.raises(NotImplementedError, match="item 8"):
+        avsr_task.build_model(cfg, tokens)

@@ -103,7 +103,7 @@ def _port(flagship, route="eager", monkeypatch=None):
         cfg.encoder_conf = dict(cfg.encoder_conf, use_flash=True, use_fused_csgu=True)
     if route == "k1":
         monkeypatch.setattr(port_attention, "FLASH_RELPOS_MIN_BIAS_BYTES", 0)
-    model = build_model(cfg, flagship["tokens"])
+    model = build_model(cfg, flagship["tokens"], device="cpu")
     sd, dropped = convert_jax_variables(flagship["variables"], model)
     model.load_state_dict(sd, strict=True)
     return model, dropped
