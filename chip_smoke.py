@@ -13,8 +13,11 @@ Run from the repository root on a machine with one CUDA card:
    the L2 written over before each timed call), beside the least time the
    card could take (its bound) and, where one PyTorch call computes the
    same function, that call's time. K1-K3 at the encoder's shapes, and
-   bf16 K2 (tensor cores) also at T = 1, 63, 64, 65, 100, 128 and 500 with
-   and without bias, one utterance fully masked (exactly 0); K4 (group
+   bf16 K2 and K1 (tensor cores) also at T = 1, 63, 64, 65, 100, 128 and
+   500 (K2 with and without bias), one utterance fully masked (exactly 0);
+   beside bf16 K1 at T = 100 and 500 the bias route it replaces, timed as a
+   yardstick: rel_shift(q_rel . pos^T) built and streamed through K2, or
+   through ``scaled_dot_product_attention``; K4 (group
    attend) and K6 (group attend over an int8 cache) at the beam step's
    decoder and LM shapes over positions 1, 2, 17, 33, 53, 103 and two
    narrowed widths, with ancestry entries outside [0, K); at pos 53 and 103
@@ -22,9 +25,13 @@ Run from the repository root on a machine with one CUDA card:
    the kernel that combines partial results) held to the plain version too,
    with its time printed; and a long cache (Lc 1024) whose ancestry the
    default plan splits over blocks; K5 and K5' (cache column writes)
-   bit-exact, the clamp included,
-   on bf16, f32 and int8 caches; P1 (the HBM streaming probe) against its
-   plain version, with the four cases of ``scripts/bench_int8_stream.py``.
+   bit-exact, the clamp included, on bf16, f32 and int8 caches, and the
+   step write (K5's form that writes all 22 cached layers of a beam step in
+   one launch, from strided step columns) bit-exact against its plain loop
+   on the same three cache types, timed beside the per-layer path it
+   replaces (22 K5 launches and 44 group-layout copies); P1 (the HBM
+   streaming probe) against its plain version, with the four cases of
+   ``scripts/bench_int8_stream.py``.
 5. Greedy path: the flagship serving model (the ``_tpu.yaml`` values, 12
    blocks, 256-d, random weights from a seed) with ``use_flash`` and
    ``use_fused_csgu`` on serves two requests through
@@ -32,29 +39,35 @@ Run from the repository root on a machine with one CUDA card:
    24 x 20 s (T = 500, K1 runs), in bf16, and the first in f32 too. The f32
    request is served again on the eager path (kernels off): the greedy ids
    must be identical and the CTC log-probs agree within 1e-3. Launch counts
-   of K1-K3 over this path must be > 0.
+   of K1-K3 over this path must be > 0. Then request (b) runs five times
+   more, warm (median wall printed), and once under ``torch.profiler``: the
+   device's busy time, its idle share and the flash-attention kernels'
+   part.
 6. Beam path: the same model plus the full-width Transformer LM
    (``configs/LM/lm-spanish.yaml``, 16 layers, 512-d) serves 32 x 4 s through
    ``Speech2Text.nbest`` (beam 10, ctc 0.1, lm 0.4): bf16 twice, f32 once,
    f32 with ``fused_group_attend: false`` (the plain group attend; K4 must
    not launch), whose 1-best must agree with the K4 run (scores within 1e-3,
    or 8 f32 ulps where that is more), and bf16 with ``phase_widths``
-   (n-best equal to the unphased run). Launch counts of K4 and K5 over this
-   path must be > 0; no decode path calls K5'.
+   (n-best equal to the unphased run). Launch counts of K4 and the step
+   write over this path must be > 0, the step write launching exactly once
+   a beam step (the group attend once a layer and step); no decode path
+   calls the per-layer K5 or K5'.
 7. Int8 beam path: the same request with ``cache_dtype: int8`` and
    ``mem_dtype: int8``, the same five calls held against the plain twin (K6
    must not launch there; scores within 2e-2, and a 1-best that differs
    must be a swap of two near-tied hypotheses, see ``SCORE_ATOL``) and the
-   unphased run; K6 and K5 must launch and K4 must not. The f32 K6 check
+   unphased run; K6 and the step write must launch (once a step) and K4
+   must not. The f32 K6 check
    runs on a second request too, and the plain twin once more on each
    request with relative noise of 1e-6 on what it quantises (a control:
    the spread that sound code shows, printed as the gate would read it).
    The share of utterances whose int8 1-best equals the
    exact bf16 run's is printed, not gated.
 8. Prints one JSON line of per-kernel results (launches: K1-K3 from the
-   greedy path, K4, K5 and K5' from the beam path, K6 from the int8 beam
-   path; P1 counted over both beam paths, where no serving code may launch
-   it), then the result line
+   greedy path, K4, K5 (the step write) and K5' from the beam path, K6 from
+   the int8 beam path; P1 counted over both beam paths, where no serving
+   code may launch it), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises, so the run exits non-zero and prints no result line.
@@ -63,7 +76,6 @@ Nothing here imports JAX.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -222,6 +234,7 @@ def kernel_phases(device) -> dict:
 
         if dtype == torch.bfloat16:
             _k2_edges(fa, randn, gen, device)
+            _k1_edges(fa, randn, gen, device)
 
         # K3: fused cgMLP gate, request (a) shapes
         b, t, u, ks = 32, 100, 2048, 31
@@ -271,6 +284,52 @@ def _k2_edges(fa, randn, gen, device) -> None:
                         cold_time_ms(lambda: fa.flash_attention_plain(*args)),
                         _bound(_nbytes(*args, got), 4 * b * h * t * t * dk, dtype),
                         cold_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=merged)))
+
+
+def _k1_edges(fa, randn, gen, device) -> None:
+    """bf16 K1 (tensor cores) at T across its 16-row, 16-key and 64-key tile
+    edges and at request (b)'s T = 500, one utterance fully masked (exactly
+    0) and ragged lengths elsewhere. At T = 100 (request (a)'s shape) and
+    T = 500 it is timed beside the bias route it replaces (printed as a
+    yardstick, not in the line): rel_shift(q_rel . pos^T) materialised and
+    streamed through K2, as ``ops/attention.py`` does below its 32 MiB
+    switch, or through ``scaled_dot_product_attention``."""
+    from tailored_avsr_tpu_torch.ops.attention import rel_shift
+    from tailored_avsr_tpu_torch.ops.masking import MASK_MIN
+
+    h, dk, dtype = 4, 64, torch.bfloat16
+    for t in (1, 63, 64, 65, 100, 128, 500):
+        b = {100: 32, 500: 24}.get(t, 8)
+        q, k, v, qr = (randn(b, h, t, dk, dtype=dtype) for _ in range(4))
+        pos = randn(h, 2 * t - 1, dk, dtype=dtype)
+        mask = _lengths_mask(gen, b, t, device)
+        mask[1] = False
+        args = (q, k, v, qr, pos, mask)
+        got = fa.flash_attention_relpos(*args)
+        _compare(f"K1 flash_attention_relpos bf16 B={b} H={h} T={t} (utterance 1 fully masked)",
+                 "attention", got, fa.flash_attention_relpos_plain(*args))
+        if bool(got[1].abs().max() != 0):
+            raise AssertionError(f"K1 bf16 T={t}: a fully masked utterance must give exactly 0")
+        if t in (100, 500):
+            def bias():
+                return rel_shift(qr @ pos.transpose(-2, -1)).contiguous()
+
+            def via_k2():
+                return fa.flash_attention(q, k, v, bias(), mask)
+
+            def via_sdpa():
+                merged = torch.zeros((b, 1, 1, t), dtype=dtype, device=device).masked_fill(
+                    ~mask[:, None, None, :], MASK_MIN) + bias() / dk ** 0.5
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=merged)
+
+            _compare(f"  bias route via K2, T={t}", "attention", via_k2(), fa.flash_attention_relpos_plain(*args))
+            _result(0.0, cold_time_ms(lambda: fa.flash_attention_relpos(*args)),
+                    cold_time_ms(lambda: fa.flash_attention_relpos_plain(*args)),
+                    _bound(_nbytes(*args, got), 6 * b * h * t * t * dk, dtype))
+            print(f"    K1 yardstick T={t}: bias route, materialised (B, H, T, T) bias + K2 "
+                  f"{cold_time_ms(via_k2):.4f} ms, + scaled_dot_product_attention "
+                  f"{cold_time_ms(via_sdpa):.4f} ms, the bias alone {cold_time_ms(bias):.4f} ms "
+                  f"({b * h * t * t * 2 / 2 ** 20:.1f} MiB)")
 
 
 def _group_attend_bound(anc, pos, width, cache_rows_bytes, step_tensors, heads, dtype) -> tuple:
@@ -485,8 +544,110 @@ def beam_kernel_phases(device) -> dict:
             if not (same and same1):
                 raise AssertionError(f"K5/K5' disagree with the plain write ({tag}, pos {pos})")
             if cache_dtype == torch.bfloat16 and pos == 57:
-                results["K5", "bf16"], results["K5'", "bf16"] = r5, r5p
+                results["K5'", "bf16"] = r5p
+    results["K5", "bf16"] = _step_write_phase(cu, gen, device)
     return results
+
+
+def _host_ms(fn, n: int = 50) -> float:
+    """Mean host time of one call of ``fn`` (its Python and launch
+    enqueue), over ``n`` calls after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
+
+
+def _step_write_phase(cu, gen, device) -> dict:
+    """The step write at the flagship's beam step (request (a): batch 32,
+    beam 10, Lc 104; 6 decoder layers with H = 4 and 16 LM layers with H = 8,
+    dk 64), its step columns strided (N, H, 1, dk) views of one fused q/k/v
+    projection as the scorers give them: bit-exact against its plain loop on
+    bf16, f32 and int8 caches (bf16 columns quantised, as the int8 beam
+    does) at pos 1, 53 and 106 (past Lc: the clamp), one launch each. At pos
+    53 its L2-cold time beside the per-layer path it replaces (22 K5
+    launches on 44 group-layout copies; on the int8 cache also 44 indexed
+    scale writes). Returns the bf16 cache's results at pos 53."""
+    from tailored_avsr_tpu_torch.ops.group_attend import to_group
+    from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
+
+    b, km, lc, dk = 32, 10, 104, 64
+    n, heads = b * km, [4] * 6 + [8] * 16
+    names = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8"}
+    result = None
+    for cache_dtype in (torch.bfloat16, torch.float32, torch.int8):
+        int8 = cache_dtype == torch.int8
+        col_dtype = torch.bfloat16 if int8 else cache_dtype
+
+        def side(h):
+            if int8:
+                return (torch.randint(-127, 128, (b, h, km, lc, dk), generator=gen, device=device,
+                                      dtype=torch.int8),
+                        torch.rand(b, h, km, lc, generator=gen, device=device))
+            return torch.randn(b, h, km, lc, dk, generator=gen, device=device).to(cache_dtype)
+
+        def step(h):
+            y = torch.randn(n, 1, 3 * h * dk, generator=gen, device=device).to(col_dtype)
+            kv = [y[..., j * h * dk:(j + 1) * h * dk].reshape(n, 1, h, dk).transpose(1, 2) for j in (1, 2)]
+            return [quantize_kv_column(x) for x in kv] if int8 else kv
+
+        leaves = [(side(h), side(h), *step(h)) for h in heads]
+
+        def flat(ls):
+            return [t for leaf in ls for x in leaf[:2] for t in (x if isinstance(x, tuple) else (x,))]
+
+        def clone(ls):
+            return [tuple(tuple(t.clone() for t in x) if isinstance(x, tuple) else x.clone() for x in leaf[:2])
+                    + tuple(leaf[2:]) for leaf in ls]
+
+        tag = f"{names[cache_dtype]} cache, {names[col_dtype]} columns" + (" (quantised)" if int8 else "")
+        for pos in (1, 53, lc + 2):
+            got, want = clone(leaves), clone(leaves)
+            before = cu.write_step_columns.launches
+            cu.write_step_columns(got, pos)
+            launched = cu.write_step_columns.launches - before
+            cu.write_step_columns_plain(want, pos)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(flat(got), flat(want)))
+            err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(flat(got), flat(want)))
+            print(f"  K5 step write, {len(heads)} layers, {tag}, pos={pos}: max_abs_err={err:.3e} tol=0 "
+                  f"(bit-exact), {launched} launch -> {'ok' if same and launched == 1 else 'FAIL'}")
+            if not same or launched != 1:
+                raise AssertionError(f"the step write disagrees with its plain loop ({tag}, pos {pos}) "
+                                     f"or took {launched} launches")
+        del got, want
+        pos = 53
+
+        def per_layer():  # the path the step write replaces, as the beam ran it before
+            for ck, cv, kn, vn in leaves:
+                if int8:
+                    (ck, ks), (cv, vs), (kn, ksn), (vn, vsn) = ck, cv, kn, vn
+                    ks[:, :, :, pos - 1] = to_group(ksn[..., None], km)[..., 0]
+                    vs[:, :, :, pos - 1] = to_group(vsn[..., None], km)[..., 0]
+                cu.write_cache_columns_kv(ck, cv, to_group(kn, km), to_group(vn, km), pos - 1)
+
+        # each step column read once, each cache column (and int8 scale) written once
+        srcs = [t for leaf in leaves for x in leaf[2:] for t in (x if isinstance(x, tuple) else (x,))]
+        nbytes = _nbytes(*srcs) + sum(x.numel() * cache_dtype.itemsize for leaf in leaves
+                                      for x in (leaf[2][0] if int8 else leaf[2], leaf[3][0] if int8 else leaf[3]))
+        if int8:
+            nbytes += sum(leaf[2][1].numel() + leaf[3][1].numel() for leaf in leaves) * 4
+        r = _result(0.0, cold_time_ms(lambda: cu.write_step_columns(leaves, pos)),
+                    cold_time_ms(lambda: cu.write_step_columns_plain(leaves, pos)),
+                    _bound(nbytes, 0, torch.float32))
+        print(f"    step write {tag}: per-layer path it replaces (22 K5 + 44 to_group copies"
+              f"{' + 44 scale writes' if int8 else ''}) {cold_time_ms(per_layer):.4f} ms; host time "
+              f"a call: step write {_host_ms(lambda: cu.write_step_columns(leaves, pos)):.3f} ms, "
+              f"per-layer path {_host_ms(per_layer):.3f} ms")
+        if cache_dtype == torch.bfloat16:
+            result = r
+        del leaves
+    return result
 
 
 def probe_phase(device) -> dict:
@@ -545,8 +706,8 @@ def _wrappers() -> dict:
     from tailored_avsr_tpu_torch.ops import stream_probe as sp
 
     return {"K1": fa.flash_attention_relpos, "K2": fa.flash_attention, "K3": fc.fused_csgu,
-            "K4": ga.group_attend_anc, "K5": cu.write_cache_columns_kv, "K5'": cu.write_cache_column,
-            "K6": ga.group_attend_anc_q, "P1": sp.stream_abs_sum}
+            "K4": ga.group_attend_anc, "K5": cu.write_step_columns, "K5 layer": cu.write_cache_columns_kv,
+            "K5'": cu.write_cache_column, "K6": ga.group_attend_anc_q, "P1": sp.stream_abs_sum}
 
 
 def _counts() -> dict:
@@ -586,20 +747,71 @@ def _ctc(engine, batch: dict):
     return ids, logp, lens
 
 
-def serve_phase(device) -> dict:
-    """The flagship serving path with the kernels, then held against the
-    eager path on the same weights; returns the main path's launch counts."""
+def _greedy_engine(device, dtype: str, kernels: bool):
+    """The flagship serving model, seeded weights, with ``use_flash`` and
+    ``use_fused_csgu`` on (``kernels``) or off (the eager path)."""
     from tailored_avsr_tpu_torch.inference import Speech2Text
     from tailored_avsr_tpu_torch.utils.config import load_config
 
     cfg = load_config(FLAGSHIP)
     cfg.token_list = os.path.join(ROOT, cfg.token_list)
+    cfg.dtype = dtype
+    cfg.encoder_conf = dict(cfg.encoder_conf, use_flash=kernels, use_fused_csgu=kernels)
+    return Speech2Text(cfg, rng_seed=0, device=device)
 
+
+def _walls(fn, repeats: int) -> list:
+    """Host wall ms of ``repeats`` calls of ``fn``, each started on an idle
+    device (``fn`` returns host data, so its end waits for the device)."""
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def nbest_walls(engine, batch: dict, name: str, repeats: int = 3) -> float:
+    """Warm wall times of ``repeats`` ``Speech2Text.nbest`` calls; prints
+    them and returns their median."""
+    walls = _walls(lambda: engine.nbest(batch), repeats)
+    print(f"  {name}: warm wall ms {', '.join(f'{w:.1f}' for w in walls)} (median {np.median(walls):.1f})")
+    return float(np.median(walls))
+
+
+def greedy_profile(engine, batch: dict, name: str, repeats: int = 5) -> dict:
+    """Warm wall times of ``repeats`` ``Speech2Text.greedy`` calls (median),
+    then one call under ``torch.profiler``: the device's busy time (the sum
+    of its kernels' and copies' times; one stream, so they do not overlap),
+    its idle share of that call's wall time, and the flash-attention
+    kernels' part of the busy time."""
+    walls = _walls(lambda: engine.greedy(batch), repeats)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        engine.greedy(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the device's own events (kernels, copies, sets); a CPU op's device
+    # time repeats its kernels' and is not summed
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    flash = sum(e.self_device_time_total for e in events if "flash_attention" in e.key) / 1e3
+    out = {"median_wall_ms": float(np.median(walls)), "profiled_wall_ms": wall, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / wall, "flash_ms": flash}
+    print(f"  {name}: warm wall ms {', '.join(f'{w:.1f}' for w in walls)} (median {out['median_wall_ms']:.1f}); "
+          f"profiled call: device busy {busy:.2f} ms of {wall:.2f} ms wall (idle share {out['idle_share']:.3f}), "
+          f"flash-attention kernels {flash:.2f} ms")
+    return out
+
+
+def serve_phase(device) -> dict:
+    """The flagship serving path with the kernels, then held against the
+    eager path on the same weights; returns the main path's launch counts.
+    Request (b), where K1 runs, is profiled after the counted calls."""
     def engine(dtype: str, kernels: bool):
-        c = argparse.Namespace(**vars(cfg))
-        c.dtype = dtype
-        c.encoder_conf = dict(cfg.encoder_conf, use_flash=kernels, use_fused_csgu=kernels)
-        return Speech2Text(c, rng_seed=0, device=device)
+        return _greedy_engine(device, dtype, kernels)
 
     req_a, req_b = _request(1, 32, 4), _request(2, 24, 20)
     bf16, f32 = engine("bfloat16", True), engine("float32", True)
@@ -616,6 +828,7 @@ def serve_phase(device) -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     print(f"  sample transcripts: (a) {hyp_a[0][:40]!r}  (b) {hyp_b[0][:40]!r}")
+    greedy_profile(bf16, req_b, "bf16 request (b) 24 x 20 s")
 
     print("eager path (kernels off) on the same weights:")
     ids_k, logp_k, lens_k = _ctc(f32, req_a)
@@ -644,8 +857,10 @@ def serve_phase(device) -> dict:
 
 def _nbest(engine, name: str, batch: dict) -> list:
     """One request through ``Speech2Text.nbest``; prints its wall time, the
-    beam steps it ran (K5 launches / cached layers: one write per layer and
-    step) and seconds of speech per wall second."""
+    beam steps it ran (the step write's launches: one a step) and seconds
+    of speech per wall second. The cache writes must go through the step
+    write alone (the per-layer K5 and K5' launch 0), and where the group
+    attend ran, once a layer and step: the step write once a step."""
     layers = len(engine.model.decoder.decoders) + len(engine.lm.encoder.encoders)
     before = _counts()
     torch.cuda.synchronize()
@@ -653,10 +868,13 @@ def _nbest(engine, name: str, batch: dict) -> list:
     hyps = engine.nbest(batch)
     wall = time.perf_counter() - t0
     after = _counts()
-    k4, k5, k6 = (after[k] - before[k] for k in ("K4", "K5", "K6"))
+    k4, steps, k5_layer, k5p, k6 = (after[k] - before[k] for k in ("K4", "K5", "K5 layer", "K5'", "K6"))
     speech = float(np.sum(batch["audio_lengths"])) / 16000
-    print(f"  {name}: {wall * 1e3:.1f} ms wall, {k5 // layers} beam steps, "
-          f"{speech / wall:.1f} s of speech per wall second, launches K4 {k4} K5 {k5} K6 {k6}")
+    print(f"  {name}: {wall * 1e3:.1f} ms wall, {steps} beam steps, "
+          f"{speech / wall:.1f} s of speech per wall second, launches K4 {k4} K5 (step write) {steps} K6 {k6}")
+    if k5_layer or k5p or steps <= 0 or (k4 or k6) and k4 + k6 != layers * steps:
+        raise AssertionError(f"{name}: the cache writes took {k5_layer} per-layer K5 and {k5p} K5' launches "
+                             f"and {steps} step writes for {k4 + k6} group attends over {layers} layers")
     nbest = engine.beam_config.nbest
     if len(hyps) != len(batch["audio"]) or any(len(h) != nbest for h in hyps):
         raise AssertionError(f"{name}: expected {len(batch['audio'])} n-best lists of {nbest}")
@@ -774,6 +992,7 @@ def beam_phase(device, req, **inference_conf) -> tuple:
     hyp_f32 = _nbest(f32, "f32", req)
     launches = _counts()
     print(f"  launches over the path: {launches}")
+    nbest_walls(bf16, req, "bf16, after the counted calls")
     if min(launches[k] for k in ("K2", "K3", kernel, "K5")) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     if kernel == "K6" and launches["K4"]:
@@ -852,7 +1071,8 @@ def main() -> int:
                "tailored_avsr_tpu/ops/fused_csgu.py:26"),
         "K4": ("group_attend_anc", "tailored_avsr_tpu_torch/csrc/group_attend.cu",
                "tailored_avsr_tpu/ops/group_attend.py:47"),
-        "K5": ("write_cache_columns_kv", "tailored_avsr_tpu_torch/csrc/cache_update.cu",
+        # K5 in its step form: every cached layer's columns of a beam step in one launch
+        "K5": ("write_step_columns", "tailored_avsr_tpu_torch/csrc/cache_update.cu",
                "tailored_avsr_tpu/ops/cache_update.py:55"),
         "K5'": ("write_cache_column", "tailored_avsr_tpu_torch/csrc/cache_update.cu",
                 "tailored_avsr_tpu/ops/cache_update.py:46"),

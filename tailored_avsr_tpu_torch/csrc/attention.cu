@@ -14,9 +14,10 @@
 // FLOPs (6*T^2*dk with the in-kernel rel-pos term) on O(T*dk) bytes, plus
 // B*H*T^2 bias elements streamed from HBM in the dense-bias form. At the
 // encoder's T = 100 the bf16 bias form is bound by its bytes (~9 MB); at
-// T = 500 by the products.
+// T = 500 K1's bytes (31 MB) and products (9.2 GFLOP at B=24, H=4) bound it
+// about equally (~9 us each).
 //
-// bf16 K2 (MODE_NONE, MODE_DENSE) runs on the tensor cores
+// bf16 K1 and K2 (all three modes) run on the tensor cores
 // (flash_attention_tc_kernel): one 128-thread block owns a (batch*head,
 // 64-query tile); each warp owns 16 query rows and walks 64-key tiles with an
 // online softmax. Both products are mma.sync.m16n8k16 bf16 -> f32: Q and K
@@ -32,18 +33,35 @@
 // the products cover 112 x 112 of the 100 x 100 scores (1.25x), against
 // 128 x 128 (1.64x) for whole 64 x 64 tiles.
 //
-// f32 K2 and all of K1 keep the first template (flash_attention_kernel), f32
-// FMA loops from shared memory: f32 is the parity dtype (the greedy f32 gate
-// wants ids identical to the eager path, which TF32 products would spend),
-// and K1's rel-pos term on the tensor-core tile loop is later work. There
-// one block owns a (batch*head, 64-query tile) pair and loops over 64-key
-// tiles with an online softmax; the 256 threads form a 16x16 grid, each
-// owning 4 query rows and 4 key columns of the score tile and 4 rows by
-// dk/16 columns of the accumulator. The rel-pos tile is index arithmetic:
-// bias[i, j] = q_rel[i] . pos[T-1-i+j], so a tile reads a span of BQ+BK-1
-// rows of the per-head table (no barrel shifter and no block-aligned
-// re-basing: those were Mosaic workarounds). The ragged edge (T not a
-// multiple of 64) is masked in both kernels.
+// K1's rel-pos term on the tensor cores: bias[i, j] = q_rel[i] . pos[T-1-i+j]
+// is a Toeplitz product. For query rows q0 + r and keys k0 + c it reads span
+// row 63 - r + c of the 127 table rows from T - q0 - 64 + k0; the table
+// comes in as 64-row chunks by cp.async into a ring of three (tile j uses
+// chunks j and j+1 while chunk j+2 is in flight), rows outside [0, 2T-1)
+// zero-filled (they feed only masked keys or rows past T). Warp w (rows
+// 16w + lr) needs span rows [48 - 16w, 48 - 16w + 79): it multiplies its
+// 16 Q_rel rows by that 80-row window with mma.sync (10 n8 tiles, against 8
+// for q . k^T), writes the 16 x 80 f32 product to its own strip of shared
+// memory, and reads it back skewed, entry (lr, c) from column 15 - lr + c,
+// into the score fragment before the softmax. The skew is a per-row shift
+// that the mma fragment layout cannot do by shuffles; strip rows of 88
+// floats keep the 8-byte stores conflict-free and the skewed reads at two
+// ways. The Q and Q_rel fragments stay in registers for the whole key loop
+// (Q_rel's tile is loaded into the strips' space). 96.8 KB of shared memory
+// a block: two blocks an SM. What bounds bf16 K1 now: mma.sync fed by
+// ldmatrix (52 ldmatrix.x4 and 104 mma a warp and key tile) at 8 warps an
+// SM, plus the strip round trip; wgmma and TMA would be next.
+//
+// f32 K1 and K2 keep the first template (flash_attention_kernel), f32 FMA
+// loops from shared memory: f32 is the parity dtype (the greedy f32 gate
+// wants ids identical to the eager path, which TF32 products would spend).
+// There one block owns a (batch*head, 64-query tile) pair and loops over
+// 64-key tiles with an online softmax; the 256 threads form a 16x16 grid,
+// each owning 4 query rows and 4 key columns of the score tile and 4 rows by
+// dk/16 columns of the accumulator. The rel-pos tile is index arithmetic
+// over the same span of BQ+BK-1 table rows (no barrel shifter and no
+// block-aligned re-basing: those were Mosaic workarounds). The ragged edge
+// (T not a multiple of 64) is masked in both kernels.
 
 #include <math.h>
 
@@ -273,7 +291,7 @@ struct AttnArgs {
   cudaStream_t stream;
 };
 
-// bf16 K2 on the tensor cores (see the header)
+// bf16 K1 and K2 on the tensor cores (see the header)
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -281,17 +299,27 @@ using bf16 = __nv_bfloat16;
 constexpr int DK = 64;
 constexpr int BQ = 64;            // query rows a block: a warp each 16
 constexpr int BK = 64;            // keys a tile
-constexpr int NTHREADS = 2 * BQ;
+constexpr int NWARPS = BQ / 16;
+constexpr int NTHREADS = 32 * NWARPS;
 static_assert(BQ % 16 == 0 && NTHREADS >= BK, "a warp owns 16 rows; a thread a key's validity");
 constexpr int LDS = DK + 8;       // padded shared row (bf16): 144 bytes, 16-byte skew per row
-static_assert(BK == DK, "one padded row length serves q, k, v and bias tiles");
+static_assert(BK == DK, "one padded row length serves q, k, v, bias and table tiles");
 constexpr float LOG2E = 1.4426950408889634f;
+// rel-pos (MODE_RELPOS): table chunks of BK rows in a ring of NCH; a warp's
+// window of WROWS span rows (79 needed) and its f32 strip of 16 x SLD
+constexpr int NCH = 3;
+constexpr int WROWS = 80;
+constexpr int SLD = WROWS + 8;    // 8-byte stores of a half-warp in distinct banks
+static_assert(BQ * LDS * sizeof(bf16) <= NWARPS * 16 * SLD * sizeof(float),
+              "the Q_rel tile is staged in the strips' space");
 
 constexpr size_t smem_bytes(int mode) {
-  return (size_t(BQ) * LDS                          // q tile, then the output staging
-          + 2 * 2 * size_t(BK) * LDS                // k, v: two stages
-          + (mode == MODE_DENSE ? 2 * size_t(BQ) * LDS : 0)) * sizeof(bf16)  // bias: two stages
-         + 2 * BK * sizeof(float);                  // key validity: two stages
+  return (size_t(BQ) * LDS                                       // q tile, then the output staging
+          + 2 * 2 * size_t(BK) * LDS                             // k, v: two stages
+          + (mode == MODE_DENSE ? 2 * size_t(BQ) * LDS : 0)      // bias: two stages
+          + (mode == MODE_RELPOS ? NCH * size_t(BK) * LDS : 0)) * sizeof(bf16)  // table ring
+         + (mode == MODE_RELPOS ? size_t(NWARPS) * 16 * SLD * sizeof(float) : 0)  // strips
+         + 2 * BK * sizeof(float);                               // key validity: two stages
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
@@ -321,14 +349,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Rows [row0, row0 + NROWS) of a (t_len, 64) bf16 matrix into a padded
-// shared tile by 16-byte copies; rows past t_len are zero-filled.
+// Rows [row0, row0 + NROWS) of a (rows_total, 64) bf16 matrix into a padded
+// shared tile by 16-byte copies; rows outside [0, rows_total) are zero-filled.
 template <int NROWS>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int row0,
-                                          int t_len) {
+                                          int rows_total) {
   for (int c = threadIdx.x; c < NROWS * (DK / 8); c += NTHREADS) {
     const int r = c / (DK / 8), p = c % (DK / 8), row = row0 + r;
-    const bool ok = row < t_len;
+    const bool ok = row >= 0 && row < rows_total;
     avsr::cp_async<16>(dst + r * LDS + p * 8, src + size_t(ok ? row : 0) * DK + p * 8, ok);
   }
 }
@@ -358,15 +386,19 @@ template <int MODE>
 __global__ void __launch_bounds__(NTHREADS)
     flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                              const bf16* __restrict__ q_rel, const bf16* __restrict__ pos,
                               const unsigned char* __restrict__ mask, bf16* __restrict__ out,
                               int t_len, int heads, int bias_vec, float scale_log2) {
   constexpr float NEG = -1.0e30f;  // finite, as in the TPU kernel
+  constexpr bool REL = MODE == MODE_RELPOS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* s_q = reinterpret_cast<bf16*>(smem_raw);
   bf16* s_k = s_q + BQ * LDS;          // stage st at s_k + st * BK * LDS
   bf16* s_v = s_k + 2 * BK * LDS;
   bf16* s_b = s_v + 2 * BK * LDS;      // MODE_DENSE only
-  float* s_valid = reinterpret_cast<float*>(s_b + (MODE == MODE_DENSE ? 2 * BQ * LDS : 0));
+  bf16* s_pos = s_b + (MODE == MODE_DENSE ? 2 * BQ * LDS : 0);  // REL only: chunk c in slot c % NCH
+  float* s_strip = reinterpret_cast<float*>(s_pos + (REL ? NCH * BK * LDS : 0));  // REL only
+  float* s_valid = s_strip + (REL ? NWARPS * 16 * SLD : 0);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;  // mma fragment row group and column pair
@@ -375,9 +407,16 @@ __global__ void __launch_bounds__(NTHREADS)
   const int b = bh / heads;
   const size_t head_off = size_t(bh) * t_len * DK;
   const bf16* bias_head = MODE == MODE_DENSE ? bias + size_t(bh) * t_len * t_len : nullptr;
+  const int n_pos = 2 * t_len - 1;
+  const bf16* pos_head = REL ? pos + size_t(bh - b * heads) * n_pos * DK : nullptr;
+  const int table0 = t_len - q0 - BQ;  // REL: table row of chunk 0's first row
   const int n_tiles = (t_len + BK - 1) / BK;
   const bool active = q0 + 16 * warp < t_len;  // warp-uniform: some of its rows are real
 
+  // REL: table chunk c (rows table0 + 64c ..) into its ring slot
+  auto load_chunk = [&](int c) {
+    load_rows<BK>(s_pos + (c % NCH) * BK * LDS, pos_head, table0 + c * BK, n_pos);
+  };
   auto load_tile = [&](int kt, int st) {
     const int k0 = kt * BK;
     load_rows<BK>(s_k + st * BK * LDS, k + head_off, k0, t_len);
@@ -391,6 +430,7 @@ __global__ void __launch_bounds__(NTHREADS)
         default: load_bias<1>(d, bias_head, q0, k0, t_len); break;
       }
     }
+    if constexpr (REL) load_chunk(kt + 1);  // tile kt reads chunks kt and kt + 1
   };
   // key validity of tile kt for thread tid < BK; read a tile ahead, stored
   // to shared memory at the top of the tile's iteration
@@ -399,17 +439,40 @@ __global__ void __launch_bounds__(NTHREADS)
     return tid < BK && j < t_len && mask[size_t(b) * t_len + j] != 0;
   };
 
-  load_rows<BQ>(s_q, q + head_off, q0, t_len);
-  load_tile(0, 0);
-  avsr::cp_async_commit();
-  bool valid_next = key_valid(0);
-
   uint32_t qf[DK / 16][4];      // this warp's 16 query rows as A fragments
+  uint32_t qrf[DK / 16][4];     // REL: its 16 Q_rel rows
   float o[DK / 8][4];           // output accumulator: 8 n-tiles of 8 dims
   float m[2] = {NEG, NEG};      // running max (base-2 logits) of rows g, g + 8
   float l[2] = {0.f, 0.f};      // this thread's part of the running sums
 #pragma unroll
   for (int n = 0; n < DK / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  load_rows<BQ>(s_q, q + head_off, q0, t_len);
+  if constexpr (REL) {
+    // Q and Q_rel first (Q_rel in the strips' space), then the first tile;
+    // both fragments go to registers before any warp writes a strip (the
+    // loop's first barrier)
+    bf16* s_qr = reinterpret_cast<bf16*>(s_strip);
+    load_rows<BQ>(s_qr, q_rel + head_off, q0, t_len);
+    avsr::cp_async_commit();
+    load_chunk(0);
+    load_tile(0, 0);
+    avsr::cp_async_commit();
+    avsr::cp_async_wait<1>();
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < DK / 16; ++kk) {
+        const int off = (16 * warp + (lane & 15)) * LDS + 16 * kk + (lane >> 4) * 8;
+        ldmatrix_x4(qf[kk], s_q + off);
+        ldmatrix_x4(qrf[kk], s_qr + off);
+      }
+    }
+  } else {
+    load_tile(0, 0);
+    avsr::cp_async_commit();
+  }
+  bool valid_next = key_valid(0);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int st = kt & 1, k0 = kt * BK;
@@ -425,7 +488,7 @@ __global__ void __launch_bounds__(NTHREADS)
     __syncthreads();
 
     if (active) {
-      if (kt == 0) {
+      if (!REL && kt == 0) {
 #pragma unroll
         for (int kk = 0; kk < DK / 16; ++kk)
           ldmatrix_x4(qf[kk], s_q + (16 * warp + (lane & 15)) * LDS + 16 * kk + (lane >> 4) * 8);
@@ -433,6 +496,40 @@ __global__ void __launch_bounds__(NTHREADS)
       const bf16* sk = s_k + st * BK * LDS;
       const bf16* sv = s_v + st * BK * LDS;
       const int n_steps = min(BK, t_len - k0 + 15) / 16;  // 16-key steps with a real key
+      float* strip = s_strip + warp * 16 * SLD;
+
+      if constexpr (REL) {
+        // R = Q_rel . W^T over the warp's window (span rows 48 - 16w + u,
+        // u < 80, in chunks kt and kt + 1); n8 tile t of R holds window rows
+        // 8t.. 8t+7, and keys of 16-key step s read tiles up to 2s + 3
+        float r[WROWS / 8][4];
+#pragma unroll
+        for (int t = 0; t < WROWS / 8; ++t) r[t][0] = r[t][1] = r[t][2] = r[t][3] = 0.f;
+#pragma unroll
+        for (int p = 0; p < WROWS / 16; ++p) {
+          if (p <= n_steps) {
+            const int sr = 48 - 16 * warp + 16 * p + (lane & 7) + (lane >> 4) * 8;
+            const bf16* row = s_pos + (((kt + (sr >> 6)) % NCH) * BK + (sr & (BK - 1))) * LDS +
+                              ((lane >> 3) & 1) * 8;
+#pragma unroll
+            for (int kk = 0; kk < DK / 16; ++kk) {
+              uint32_t wf[4];
+              ldmatrix_x4(wf, row + 16 * kk);
+              mma_bf16(r[2 * p], qrf[kk], wf[0], wf[1]);
+              mma_bf16(r[2 * p + 1], qrf[kk], wf[2], wf[3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < WROWS / 8; ++t) {
+          if (t / 2 <= n_steps) {
+            *reinterpret_cast<float2*>(strip + g * SLD + 8 * t + 2 * tig) = make_float2(r[t][0], r[t][1]);
+            *reinterpret_cast<float2*>(strip + (g + 8) * SLD + 8 * t + 2 * tig) =
+                make_float2(r[t][2], r[t][3]);
+          }
+        }
+        __syncwarp();
+      }
 
       // S = Q . K^T: n-tile n holds keys 8n + 2 tig (+1) of rows g (s[n][0..1]) and g + 8 ([2..3])
       float s[BK / 8][4];
@@ -467,6 +564,13 @@ __global__ void __launch_bounds__(NTHREADS)
                 *reinterpret_cast<const __nv_bfloat162*>(s_b + st * BQ * LDS + r * LDS + c));
             x0 += bv.x;
             x1 += bv.y;
+          } else if constexpr (REL) {
+            if (n < 2 * n_steps) {  // the strip holds the columns of real keys only
+              const int lr = g + 8 * h;
+              const float* e = strip + lr * SLD + 15 - lr + c;
+              x0 += e[0];
+              x1 += e[1];
+            }
           }
           x0 = v0 != 0.f ? x0 * scale_log2 : NEG;
           x1 = v1 != 0.f ? x1 * scale_log2 : NEG;
@@ -522,7 +626,7 @@ __global__ void __launch_bounds__(NTHREADS)
         }
       }
     }
-    __syncthreads();  // every reader of stage st is done before it is refilled
+    __syncthreads();  // every reader of stage st (and of the strips) is done before reuse
   }
 
   if (!active) return;
@@ -565,7 +669,8 @@ cudaError_t launch(const AttnArgs& a) {
   const dim3 grid((t + BQ - 1) / BQ, a.batch * a.heads);
   kernel<<<grid, NTHREADS, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const bf16*>(a.bias), a.mask, static_cast<bf16*>(a.out), t, a.heads, bias_vec,
+      static_cast<const bf16*>(a.bias), static_cast<const bf16*>(a.q_rel),
+      static_cast<const bf16*>(a.pos), a.mask, static_cast<bf16*>(a.out), t, a.heads, bias_vec,
       float(LOG2E / sqrt(double(DK))));
   return cudaGetLastError();
 }
@@ -608,14 +713,16 @@ cudaError_t dispatch_bf16(int dk, int mode, const AttnArgs& a) {
   if (dk != tc::DK) return cudaErrorInvalidValue;
   if (mode == MODE_NONE) return tc::launch<MODE_NONE>(a);
   if (mode == MODE_DENSE) return tc::launch<MODE_DENSE>(a);
-  return dispatch_dk<__nv_bfloat16>(dk, mode, a);  // K1 keeps the FMA template
+  if (mode == MODE_RELPOS) return tc::launch<MODE_RELPOS>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, k, v, q_rel, out: (B*H, T, dk) contiguous; bias: (B*H, T, T) for
 // mode 1; pos: (H, 2T-1, dk) for mode 2; mask: (B, T) bytes, nonzero = valid
-// key. Unused pointers may be null; q, k, v, bias and out 16-byte aligned.
+// key. Unused pointers may be null; in bf16 q, k, v, bias, q_rel, pos and
+// out 16-byte aligned.
 // Returns the launch's cudaError_t.
 extern "C" int avsr_flash_attention(const void* q, const void* k, const void* v,
                                     const void* bias, const void* q_rel, const void* pos,

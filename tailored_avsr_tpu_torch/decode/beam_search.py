@@ -23,11 +23,11 @@ OLD finished entry; many candidates clamp to exactly NEG_INF), while
 ``torch.topk`` promises no order for ties.
 
 The ancestry cache protocol: the caches are never reordered; each step
-writes every slot's new K/V column (``write_beam_columns_kv``, K5) and
-threads the (N, Lc) ancestry table through the reorder (``update_ancestry``).
-An int8 cache side (``cache_dtype: int8``) is an (int8 payload, f32 scale)
-tuple: the step's columns are quantised, the payload goes through K5 and
-the scale planes take an indexed write.
+writes every slot's new K/V column of every layer in one launch
+(``write_beam_step``, the step write) and threads the (N, Lc) ancestry
+table through the reorder (``update_ancestry``). An int8 cache side
+(``cache_dtype: int8``) is an (int8 payload, f32 scale) tuple: the step's
+columns are quantised, and the same launch writes payloads and scales.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ from tailored_avsr_tpu_torch.decode.ctc_prefix import (
     neutralize_padding,
     to_time_minor,
 )
-from tailored_avsr_tpu_torch.ops.cache_update import write_cache_column, write_cache_columns_kv
+from tailored_avsr_tpu_torch.ops.cache_update import write_cache_column, write_step_columns
 from tailored_avsr_tpu_torch.ops.group_attend import to_group
 from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
 
@@ -64,23 +64,24 @@ def write_beam_column(x: torch.Tensor, new_col: torch.Tensor, pos: int) -> torch
     return write_cache_column(x, to_group(new_col, x.shape[2]), pos - 1)
 
 
+def write_beam_step(leaves, pos: int) -> None:
+    """Every cached layer's K and V column of one beam step at column
+    ``pos - 1``, in place, in one launch (``write_step_columns``). ``leaves``:
+    one (ck, cv, k_new, v_new) a layer, with the step's (N, H, 1, dk)
+    columns as the scorer returns them. An int8 side ``(payload, scale)``:
+    the columns are quantised (``quantize_kv_column``) and their (N, H, 1)
+    scales written at the same column, as
+    ``tailored_avsr_tpu/decode/beam_search.py:142-161``."""
+    write_step_columns([
+        (ck, cv, quantize_kv_column(kn), quantize_kv_column(vn)) if isinstance(ck, tuple)
+        else (ck, cv, kn, vn) for ck, cv, kn, vn in leaves], pos)
+
+
 def write_beam_columns_kv(ck, cv, k_new: torch.Tensor, v_new: torch.Tensor, pos: int):
-    """One layer's K and V column writes at column ``pos - 1`` in one launch,
-    in place (K5). An int8 side ``(payload, scale)``: the (N, H, 1, dk)
-    columns are quantised (``quantize_kv_column``), the payloads written
-    through K5 and the (B, H, K) scales at the same column by indexed
-    assignment, as ``tailored_avsr_tpu/decode/beam_search.py:142-161``."""
-    if isinstance(ck, tuple):
-        (ck_p, ck_s), (cv_p, cv_s) = ck, cv
-        (kq, ks), (vq, vs) = quantize_kv_column(k_new), quantize_kv_column(v_new)
-        write_beam_columns_kv(ck_p, cv_p, kq, vq, pos)
-        b, h, km, lc = ck_s.shape
-        col = min(pos - 1, lc - 1)  # the payload write's clamp
-        ck_s[:, :, :, col] = ks[:, :, 0].reshape(b, km, h).transpose(1, 2)
-        cv_s[:, :, :, col] = vs[:, :, 0].reshape(b, km, h).transpose(1, 2)
-        return (ck_p, ck_s), (cv_p, cv_s)
-    km = ck.shape[2]
-    return write_cache_columns_kv(ck, cv, to_group(k_new, km), to_group(v_new, km), pos - 1)
+    """One layer's K and V column writes at column ``pos - 1``, in place:
+    ``write_beam_step`` of one layer. Returns the sides."""
+    write_beam_step([(ck, cv, k_new, v_new)], pos)
+    return ck, cv
 
 
 def update_ancestry(anc: torch.Tensor, g_src: torch.Tensor, src_bk: torch.Tensor, pos: int) -> torch.Tensor:

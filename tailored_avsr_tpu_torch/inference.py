@@ -40,7 +40,7 @@ from tailored_avsr_tpu_torch.decode.beam_search import (
     BeamSearchResult,
     beam_search,
     update_ancestry,
-    write_beam_columns_kv,
+    write_beam_step,
 )
 from tailored_avsr_tpu_torch.decode.greedy import ctc_greedy_collapse
 from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
@@ -286,11 +286,11 @@ class Speech2Text:
             return att_fn
 
         def att_gather_fn(st, g_src, pos):
-            # every slot writes the column it computed (in place, after this
-            # step's attends); the ancestry table follows the reorder
-            for side in ("dec", "lm") if fold_lm else ("dec",):
-                for (ck, cv), (kn, vn) in zip(st[side], st.pop(side + "_new")):
-                    write_beam_columns_kv(ck, cv, kn, vn, pos)
+            # every slot writes the column it computed, every layer in one
+            # launch (in place, after this step's attends); the ancestry
+            # table follows the reorder
+            write_beam_step([(ck, cv, kn, vn) for side in (("dec", "lm") if fold_lm else ("dec",))
+                             for (ck, cv), (kn, vn) in zip(st[side], st.pop(side + "_new"))], pos)
             st["anc"] = update_ancestry(st["anc"], g_src, g_src.reshape(-1, k) % k, pos)
             return st
 

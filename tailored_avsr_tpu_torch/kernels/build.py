@@ -109,9 +109,9 @@ def load() -> ctypes.CDLL:
     # n_live, chunk, per, split, is_bf16, stream
     lib.avsr_group_attend_q.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
     lib.avsr_group_attend_q.restype = i32
-    # kcache, vcache, kcol, vcol, rows, lc, col, dk, cache_type, col_type, stream
-    lib.avsr_write_cache_columns.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
-    lib.avsr_write_cache_columns.restype = i32
+    # leaves (host table), n_leaves, max_rows, dk, cache_type, col_type, vec, stream
+    lib.avsr_write_step_columns.argtypes = [ptr] + [i32] * 6 + [ptr]
+    lib.avsr_write_step_columns.restype = i32
     # x, partial, out, rows, row_len, elem_type, vec, chunk, nblk, stream
     lib.avsr_stream_abs_sum.argtypes = [ptr] * 3 + [i32, i64] + [i32] * 4 + [ptr]
     lib.avsr_stream_abs_sum.restype = i32

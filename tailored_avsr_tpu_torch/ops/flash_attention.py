@@ -59,8 +59,10 @@ def flash_attention_relpos_plain(
 
 
 def check_inputs(mode: int, q, k, v, bias, q_rel, pos, mask) -> None:
-    """Raise on inputs the kernel does not take. The bf16 tensor-core form of
-    K2 copies 16 bytes at a time, so it also wants 16-byte aligned tensors."""
+    """Raise on inputs the kernel does not take. The bf16 tensor-core forms of
+    K1 and K2 copy 16 bytes at a time, so they also want every tensor they
+    copy (q, k, v and the bias, or q_rel and the rel table ``pos``) to start
+    16-byte aligned."""
     b, h, t, dk = q.shape
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, got {q.dtype}")
@@ -76,9 +78,10 @@ def check_inputs(mode: int, q, k, v, bias, q_rel, pos, mask) -> None:
         check_kernel_input(q_rel, "q_rel", (b, h, t, dk), q.dtype)
         check_kernel_input(pos, "pos", (h, 2 * t - 1, dk), q.dtype)
     check_kernel_input(mask, "mask", (b, t), torch.bool)
-    if (mode != _MODE_RELPOS and q.dtype == torch.bfloat16
-            and any(x.data_ptr() % 16 for x in (q, k, v, bias) if x is not None)):
-        raise ValueError("bf16 flash attention kernel: q, k, v and bias must be 16-byte aligned")
+    if q.dtype == torch.bfloat16 and any(
+            x.data_ptr() % 16 for x in (q, k, v, bias, q_rel, pos) if x is not None):
+        raise ValueError("bf16 flash attention kernel: q, k, v, bias, q_rel and pos must be "
+                         "16-byte aligned")
 
 
 def _launch(mode, q, k, v, bias, q_rel, pos, mask) -> torch.Tensor:

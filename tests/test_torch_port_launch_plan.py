@@ -1,5 +1,5 @@
 """Host-side logic of the redesigned group attend (K4/K6) and the bf16
-tensor-core flash attention (K2), on the CPU.
+tensor-core flash attention (K1, K2), on the CPU.
 
 The kernels themselves run only on the card (``chip_smoke.py`` holds them
 against their plain versions there, every forced split and the default
@@ -16,6 +16,14 @@ order), at forced plans and at the port's own plan, against the JAX
 package's Pallas kernels in interpret mode, f32, tolerance 1e-5 (sums in
 another order). The emulation is not the kernel: it shows that the plan's
 decomposition is exact, not that the CUDA code computes it.
+
+The same holds for bf16 K1's rel-pos term: a PyTorch emulation of its tile
+assembly (per 64-row query block and 64-key tile the 127-row table span in
+two 64-row chunks, rows outside [0, 2T-1) zero; per warp the 80-row window
+at span row 48 - 16w multiplied into a 16 x 80 strip; entry (r, c) read
+back from strip column 15 - r + c) against ``rel_shift(q_rel . pos^T)`` and,
+through the attention, against the Pallas K1 in interpret mode, f32,
+tolerance 1e-5.
 """
 
 import math
@@ -24,10 +32,12 @@ import numpy as np
 import pytest
 import torch
 
+from tailored_avsr_tpu.ops.flash_attention import flash_attention_relpos as pallas_relpos
 from tailored_avsr_tpu.ops.group_attend import group_attend_anc as pallas_group_attend
 from tailored_avsr_tpu.ops.group_attend import group_attend_anc_q as pallas_group_attend_q
 from tailored_avsr_tpu_torch.ops import flash_attention as fa
 from tailored_avsr_tpu_torch.ops import group_attend as ga
+from tailored_avsr_tpu_torch.ops.attention import rel_shift
 from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
 
 ATOL = 1e-5
@@ -164,8 +174,8 @@ def _attn(b=2, h=2, t=40, dk=64, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_checks_want_aligned_tensors_for_the_bf16_tensor_cores(dtype):
-    """The bf16 K2 copies 16 bytes at a time; f32 K2 and K1 (FMA template)
-    take any alignment."""
+    """The bf16 K1 and K2 copy 16 bytes at a time; f32 K1 and K2 (FMA
+    template) take any alignment."""
     q, k, v, bias, mask = _attn(dtype=dtype)
     fa.check_inputs(fa._MODE_DENSE, q, k, v, bias, None, None, mask)
     off = torch.zeros(bias.numel() + 1, dtype=dtype)[1:].view(bias.shape)
@@ -181,6 +191,79 @@ def test_flash_checks_want_aligned_tensors_for_the_bf16_tensor_cores(dtype):
                         None, mask)
     with pytest.raises(ValueError, match="bias"):
         fa.check_inputs(fa._MODE_DENSE, q, k, v, bias[:, :, :, :-1].contiguous(), None, None, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_relpos_checks_want_aligned_q_rel_and_table_in_bf16(dtype):
+    """bf16 K1 copies q_rel and the rel table by 16-byte cp.async too: a
+    misaligned q_rel, or a table that starts off a 16-byte boundary (a
+    caller's view), is refused; f32 K1 takes them."""
+    q, k, v, _, mask = _attn(dtype=dtype)
+    t = q.shape[2]
+    pos = torch.randn(2, 2 * t - 1, 64).to(dtype)
+    off_q = torch.zeros(q.numel() + 1, dtype=dtype)[1:].view(q.shape)
+    off_pos = torch.zeros(pos.numel() + 1, dtype=dtype)[1:].view(pos.shape)
+    fa.check_inputs(fa._MODE_RELPOS, q, k, v, None, q, pos, mask)
+    for q_rel, table in ((off_q, pos), (q, off_pos)):
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="q_rel and pos must be 16-byte aligned"):
+                fa.check_inputs(fa._MODE_RELPOS, q, k, v, None, q_rel, table, mask)
+        else:
+            fa.check_inputs(fa._MODE_RELPOS, q, k, v, None, q_rel, table, mask)
+
+
+# ----------------------------------------------------------- K1's rel-pos tiles
+
+
+def _relpos_bias_by_tiles(q_rel: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """bf16 K1's assembly of rel_shift(q_rel . pos^T), in f32: (B, H, T, dk)
+    and (H, 2T-1, dk) -> (B, H, T, T), written tile by tile as the kernel
+    reads it into its scores."""
+    b, h, t, dk = q_rel.shape
+    n_pos, blk = 2 * t - 1, 64
+    out = torch.full((b, h, t, t), float("nan"))
+    lr, c = torch.arange(16)[:, None], torch.arange(blk)[None, :]
+    for q0 in range(0, t, blk):
+        table0 = t - q0 - blk  # table row of chunk 0's first row
+
+        def chunk(n):  # 64 table rows; those outside [0, 2T-1) read as 0
+            rows = table0 + n * blk + torch.arange(blk)
+            ok = (rows >= 0) & (rows < n_pos)
+            return torch.where(ok[None, :, None], pos[:, rows.clamp(0, n_pos - 1)], 0.0)
+
+        qr = torch.zeros(b, h, blk, dk)
+        qr[:, :, :min(blk, t - q0)] = q_rel[:, :, q0:q0 + blk]
+        for kt in range(-(-t // blk)):
+            span = torch.cat([chunk(kt), chunk(kt + 1)], dim=1)  # span row sr: table row table0 + 64kt + sr
+            for w in range(blk // 16):
+                if q0 + 16 * w >= t:
+                    continue  # the warp's rows all lie past T
+                window = span[:, 48 - 16 * w:48 - 16 * w + 80]  # (H, 80, dk)
+                strip = qr[:, :, 16 * w:16 * w + 16] @ window.transpose(1, 2)  # (B, H, 16, 80)
+                tile = strip[:, :, lr, 15 - lr + c]  # (B, H, 16, 64)
+                i, j = q0 + 16 * w + lr, kt * blk + c
+                keep = (i < t) & (j < t)
+                out[:, :, i.expand_as(keep)[keep], j.expand_as(keep)[keep]] = tile[:, :, keep]
+    return out
+
+
+@pytest.mark.parametrize("t", [1, 16, 63, 64, 65, 100, 129])
+def test_relpos_tiles_match_rel_shift_and_pallas(t):
+    """Every entry of the bias comes from the tiles, equal to rel_shift(q_rel .
+    pos^T); attention with it equals the Pallas K1 (interpret mode), an
+    utterance fully masked (exactly 0) and one ragged."""
+    rs = np.random.RandomState(t)
+    b, h, dk = 3, 2, 16
+    q, k, v, qr = (rs.randn(b, h, t, dk).astype(np.float32) for _ in range(4))
+    pos = rs.randn(h, 2 * t - 1, dk).astype(np.float32)
+    mask = np.arange(t)[None, :] < np.array([t, 0, max(1, t // 2 + 1)])[:, None]
+    bias = _relpos_bias_by_tiles(torch.from_numpy(qr), torch.from_numpy(pos))
+    want_bias = rel_shift(torch.from_numpy(qr) @ torch.from_numpy(pos).transpose(1, 2))
+    np.testing.assert_allclose(bias.numpy(), want_bias.numpy(), atol=ATOL)
+    got = fa.flash_attention_plain(*(torch.from_numpy(x) for x in (q, k, v)), bias, torch.from_numpy(mask))
+    want = pallas_relpos(q, k, v, qr, pos, mask, block=64, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert not got[1].any() and not np.asarray(want)[1].any()
 
 
 # ----------------------------------------------------------- split and combine
