@@ -31,7 +31,9 @@ Run from the repository root on a machine with one CUDA card:
    on the same three cache types, timed beside the per-layer path it
    replaces (22 K5 launches and 44 group-layout copies); P1 (the HBM
    streaming probe) against its plain version, with the four cases of
-   ``scripts/bench_int8_stream.py``.
+   ``scripts/bench_int8_stream.py``; K3 (the cgMLP gate) over an edge
+   sweep (T = 1, 15, 16, 17, 31, 100, 500; k = 3 and 31; B = 1 and 32) and
+   timed at request (a) (the kernels line) and request (b)'s shape.
 5. Greedy path: the flagship serving model (the ``_tpu.yaml`` values, 12
    blocks, 256-d, random weights from a seed) with ``use_flash`` and
    ``use_fused_csgu`` on serves two requests through
@@ -54,16 +56,20 @@ Run from the repository root on a machine with one CUDA card:
    a beam step (the group attend once a layer and step); no decode path
    calls the per-layer K5 or K5'.
 7. Int8 beam path: the same request with ``cache_dtype: int8`` and
-   ``mem_dtype: int8``, the same five calls held against the plain twin (K6
-   must not launch there; scores within 2e-2, and a 1-best that differs
-   must be a swap of two near-tied hypotheses, see ``SCORE_ATOL``) and the
-   unphased run; K6 and the step write must launch (once a step) and K4
-   must not. The f32 K6 check
-   runs on a second request too, and the plain twin once more on each
-   request with relative noise of 1e-6 on what it quantises (a control:
-   the spread that sound code shows, printed as the gate would read it).
-   The share of utterances whose int8 1-best equals the
-   exact bf16 run's is printed, not gated.
+   ``mem_dtype: int8``, the same five calls; K6 and the step write must
+   launch (once a step) and K4 must not, nor K6 in the plain twin. The f32
+   K6 run is held to the plain twin's envelope (``envelope_gate``: the twin
+   un-noised and under three seeded relative noises of 1e-6 on what it
+   quantises; stable utterances keep the fixed rule, the others must give
+   some plain run's 1-best or 2-best at its score, or lie at the 1-best
+   score of a plain run whose top two tie), on request (a) and on a
+   second request; the earlier fixed gate (scores within 2e-2, a differing
+   1-best only as a near-tied swap) is printed beside it for K6 and each
+   noised run. On request (a) two planted faults in the plain twin (value
+   scales 5 % high; feature 0 of every step's keys zeroed) must fall beyond
+   the envelope, and a held-out noise seed is read through it (printed, not
+   gated). The share of utterances whose int8 1-best equals the exact bf16
+   run's is printed, not gated.
 8. Prints one JSON line of per-kernel results (launches: K1-K3 from the
    greedy path, K4, K5 (the step write) and K5' from the beam path, K6 from
    the int8 beam path; P1 counted over both beam paths, where no serving
@@ -72,15 +78,30 @@ Run from the repository root on a machine with one CUDA card:
 
 Any failed phase raises, so the run exits non-zero and prints no result line.
 Nothing here imports JAX.
+
+Three measurement modes, one card each:
+
+    python3 chip_smoke.py --ab DIR          # DIR: a git archive of another commit
+    python3 chip_smoke.py --heldout SEED ...
+    python3 chip_smoke.py --k3-phases
+
+``--ab`` runs ``ab_measure`` (bf16 K3 at both request shapes, L2-cold, and
+the profiled device busy time of greedy requests (a) and (b)) on the
+package under DIR and on this checkout's, in the order DIR, this, this,
+DIR, one process each. ``--heldout`` reads the int8 plain twin under each
+given noise seed through the envelope of both requests. ``--k3-phases``
+times K3 with its phases taken out one at a time (``K3_PHASE_CUTS``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -236,22 +257,55 @@ def kernel_phases(device) -> dict:
             _k2_edges(fa, randn, gen, device)
             _k1_edges(fa, randn, gen, device)
 
-        # K3: fused cgMLP gate, request (a) shapes
-        b, t, u, ks = 32, 100, 2048, 31
-        x = randn(b, t, u, dtype=dtype)
-        gamma = 1.0 + randn(u // 2, dtype=dtype, scale=0.1)
-        beta = randn(u // 2, dtype=dtype, scale=0.1)
-        w = randn(ks, 1, u // 2, dtype=dtype, scale=ks ** -0.5)
-        cb = randn(u // 2, dtype=dtype, scale=0.1)
-        args = (x, gamma, beta, w, cb)
-        out = fc.fused_csgu(*args)
-        err = _compare(f"K3 fused_csgu {tag} B={b} T={t} U={u} k={ks}", "csgu",
-                       out, fc.fused_csgu_plain(*args))
-        # per gated element: LayerNorm (~8), the k-tap conv (2k), bias and gate
-        bound = _bound(_nbytes(*args, out), b * t * (u // 2) * (2 * ks + 10), dtype)
-        results["K3", tag] = _result(err, cold_time_ms(lambda: fc.fused_csgu(*args)),
-                                     cold_time_ms(lambda: fc.fused_csgu_plain(*args)), bound)
+        # K3: fused cgMLP gate, request (a) shapes (the kernels line), (b)'s timed beside it
+        results["K3", tag] = _k3_phase(fc, randn, dtype, tag)
     return results
+
+
+def _csgu_args(randn, b, t, u, ks, dtype) -> tuple:
+    x = randn(b, t, u, dtype=dtype)
+    gamma = 1.0 + randn(u // 2, dtype=dtype, scale=0.1)
+    beta = randn(u // 2, dtype=dtype, scale=0.1)
+    w = randn(ks, 1, u // 2, dtype=dtype, scale=ks ** -0.5)
+    cb = randn(u // 2, dtype=dtype, scale=0.1)
+    return x, gamma, beta, w, cb
+
+
+def _csgu_bound(args, out) -> tuple:
+    """K3's bound: its inputs and output once over the memory rate, or its
+    operations per gated element (LayerNorm ~8, the k-tap conv 2k, bias
+    and gate) over the f32 CUDA-core rate (67 TFLOP/s) in either type: no
+    tensor core computes a depthwise conv. Bytes bound it at both request
+    shapes (bf16 (a) 5.9 us against 3.5 us of operations, (b) 22.0 against
+    13.2)."""
+    b, t, u = args[0].shape
+    return _bound(_nbytes(*args, out), b * t * (u // 2) * (2 * args[3].shape[0] + 10), torch.float32)
+
+
+def _k3_phase(fc, randn, dtype, tag) -> dict:
+    """K3 against its plain version over an edge sweep (T across the
+    32-row tile, k = 3 through the generic conv and 31 through the
+    register window, B = 1 and 32), then L2-cold times at request (a)
+    (returned: the kernels line) and (b) (printed), each with its bound."""
+    u = 2048
+    for ks in (3, 31):
+        for b in (1, 32):
+            worst = 0.0
+            for t in (1, 15, 16, 17, 31, 100, 500):
+                args = _csgu_args(randn, b, t, u, ks, dtype)
+                worst = max(worst, _compare(f"K3 fused_csgu {tag} B={b} T={t} U={u} k={ks}", "csgu",
+                                            fc.fused_csgu(*args), fc.fused_csgu_plain(*args), show=False))
+            print(f"  K3 fused_csgu {tag} edge sweep B={b} k={ks}, T = 1, 15, 16, 17, 31, 100, 500: "
+                  f"max_abs_err={worst:.3e} -> ok")
+    results = {}
+    for name, b, t in (("(a)", 32, 100), ("(b)", 24, 500)):
+        args = _csgu_args(randn, b, t, u, 31, dtype)
+        out = fc.fused_csgu(*args)
+        err = _compare(f"K3 fused_csgu {tag} request {name} B={b} T={t} U={u} k=31", "csgu",
+                       out, fc.fused_csgu_plain(*args))
+        results[name] = _result(err, cold_time_ms(lambda: fc.fused_csgu(*args)),
+                                cold_time_ms(lambda: fc.fused_csgu_plain(*args)), _csgu_bound(args, out))
+    return results["(a)"]
 
 
 def _k2_edges(fa, randn, gen, device) -> None:
@@ -908,50 +962,122 @@ def _beam_engine(device, dtype: str, **inference_conf):
 # versions' ~1e-6 difference of a rounding boundary lands one step apart;
 # each such step moves later logits by up to |q| * step / sqrt(dk), so the
 # scores drift by more than the float cache's, and two hypotheses that
-# close may trade places. For K6 a 1-best that differs must be such a swap:
-# each run's 1-best is the other's second, at scores within the tolerance.
-# A wrong kernel moves scores by O(1). Readings and the control: PERF.md.
+# close may trade places, or a hypothesis may lose its eos and end in a
+# forced finish. Sound code does that too: the plain twin under relative
+# noise of 1e-6 on what it quantises moves such utterances by as much. So
+# K6 is held to the spread of sound code (``envelope_gate``): the plain twin
+# un-noised and under NOISE_SEEDS. A wrong kernel moves scores by O(1).
+# Readings: PERF.md.
 SCORE_ATOL = {"K4": 1e-3, "K6": 2e-2}
+NOISE_SEEDS = (0, 1, 2)  # the noises of the envelope's plain runs
+HELD_OUT_SEED = 3  # a sound run the envelope has not seen: printed, not gated
 
 
-def _score_spread(hyp, hyp_ref) -> tuple:
-    """(utterances whose 1-best ids equal the reference's, largest |1-best
-    score difference|)."""
-    same = sum(g[0][2] == w[0][2] for g, w in zip(hyp, hyp_ref))
-    return same, max(abs(g[0][3] - w[0][3]) for g, w in zip(hyp, hyp_ref))
+def _score_tol(ref: float, atol: float) -> float:
+    """|score difference| allowed against a score ``ref``: ``atol`` or 8 f32
+    ulps of it, whichever is more."""
+    return max(atol, 8 * float(np.spacing(np.float32(abs(ref)))))
 
 
-def _noise_control(engine, req, hyp_ref, name) -> None:
-    """The plain twin once more, with relative noise of 1e-6 on everything
-    it quantises (the memory K/V and each step's columns): the score spread
-    that the int8 rounding makes of a column gap that size in sound code.
-    Printed as K6's gate would read it beside the K6 reading, not gated."""
+def envelope_gate(hyp, plain_runs, atol: float) -> tuple:
+    """The int8 beam gate, a pure function of n-best lists (per utterance
+    [(text, tokens, ids, score), ...], best first, at least a 2-best).
+    ``plain_runs``: the plain twin un-noised first, then under seeded
+    noises. An utterance is stable when every plain run gives it the same
+    1-best ids at 1-best scores within ``_score_tol`` of one another; there
+    ``hyp`` must give the un-noised run's 1-best at its score, or swap the
+    top two with it at those scores (a near tie). Elsewhere ``hyp``'s 1-best
+    must be, at its score (within ``_score_tol``), the 1-best or 2-best of
+    some plain run; or, where a plain run's top two are tied (within
+    ``_score_tol``), it must lie at that run's 1-best score, whatever its
+    ids: the order of a tie is not determined. A forced finish (about -1e9,
+    where an f32 ulp is 64) ties the beam's hypotheses, and under noise the
+    beam may end on one that no plain run lists. Returns (stable
+    utterances, [(utterance, reason), ...] beyond the gate)."""
+    stable, bad = 0, []
+    for u, g in enumerate(hyp):
+        runs = [p[u] for p in plain_runs]
+        w, scores = runs[0], [r[0][3] for r in runs]
+        if all(r[0][2] == w[0][2] for r in runs) and \
+                max(scores) - min(scores) <= _score_tol(max(scores, key=abs), atol):
+            stable += 1
+            if g[0][2] == w[0][2]:
+                if abs(g[0][3] - w[0][3]) > _score_tol(w[0][3], atol):
+                    bad.append((u, f"stable, 1-best score {g[0][3]:.6f} against {w[0][3]:.6f}"))
+            elif not (g[0][2] == w[1][2] and g[1][2] == w[0][2]
+                      and abs(g[0][3] - w[1][3]) <= _score_tol(w[1][3], atol)
+                      and abs(g[1][3] - w[0][3]) <= _score_tol(w[0][3], atol)):
+                bad.append((u, f"stable, 1-best differs and is no near-tied swap ({g[0][3]:.6f}, "
+                               f"plain {w[0][3]:.6f}, {w[1][3]:.6f})"))
+        elif not any(g[0][2] == h[2] and abs(g[0][3] - h[3]) <= _score_tol(h[3], atol)
+                     for r in runs for h in r[:2]) and \
+                not any(abs(r[1][3] - r[0][3]) <= _score_tol(r[0][3], atol)
+                        and abs(g[0][3] - r[0][3]) <= _score_tol(r[0][3], atol) for r in runs):
+            bad.append((u, f"unstable, no plain run has its 1-best at its score {g[0][3]:.6f} (plain "
+                           f"1-best scores {', '.join(f'{x:.6f}' for x in scores)})"))
+    return stable, bad
+
+
+def _read_envelope(hyp, plain_runs, what: str) -> int:
+    """Print how ``hyp`` reads under ``envelope_gate``; returns the number
+    of utterances beyond it."""
+    stable, bad = envelope_gate(hyp, plain_runs, SCORE_ATOL["K6"])
+    for u, reason in bad:
+        print(f"    utterance {u}: {reason}")
+    print(f"  {what} against the plain twin's envelope ({len(plain_runs)} runs): {stable}/{len(hyp)} "
+          f"utterances stable, {len(bad)} beyond the gate")
+    return len(bad)
+
+
+def _plain_run(engine, req, what: str, noise_seed=None, fault=None) -> list:
+    """The plain twin's n-best on ``req``: with ``noise_seed``, relative
+    noise of 1e-6 (seeded) on everything it quantises (the memory K/V and
+    each step's columns); with ``fault``, a planted bug of the size a real
+    one makes: ``"value scale"`` takes every cached value scale 5 % high in
+    the group attend, ``"key column"`` zeroes feature 0 of every step's key
+    columns before they are quantised."""
     from tailored_avsr_tpu_torch import inference as inf_mod
     from tailored_avsr_tpu_torch.decode import beam_search as bs
+    from tailored_avsr_tpu_torch.ops import group_attend as ga
 
-    quantize = bs.quantize_kv_column
-    gen = torch.Generator(device=engine.device).manual_seed(0)
+    quantize, attend = bs.quantize_kv_column, ga.group_attend_anc_q_plain
+    patches = []
+    if noise_seed is not None:
+        gen = torch.Generator(device=engine.device).manual_seed(noise_seed)
 
-    def noisy(x):
-        return quantize(x * (1 + 1e-6 * torch.randn(x.shape, generator=gen, device=x.device)))
+        def noisy(x):
+            return quantize(x * (1 + 1e-6 * torch.randn(x.shape, generator=gen, device=x.device)))
 
-    bs.quantize_kv_column = inf_mod.quantize_kv_column = noisy
-    try:
-        hyp = _nbest(engine, f"f32, plain group attend, {name}, relative noise 1e-6 on the quantiser's inputs",
-                     req)
-    finally:
-        bs.quantize_kv_column = inf_mod.quantize_kv_column = quantize
-    bad = _against_plain(hyp, hyp_ref, "K6", f"noise control, {name}: plain + noise")
-    print(f"  noise control, {name}: {bad} utterances beyond K6's gate (not gated)")
+        patches += [(bs, "quantize_kv_column", noisy), (inf_mod, "quantize_kv_column", noisy)]
+        what += f", relative noise 1e-6 (seed {noise_seed}) on the quantiser's inputs"
+    if fault == "value scale":
+        patches.append((ga, "group_attend_anc_q_plain",
+                        lambda k, ks, v, vs, *a, **kw: attend(k, ks, v, vs * 1.05, *a, **kw)))
+    elif fault == "key column":
+        calls = [0]
+
+        def drop_key_feature(x):  # a step quantises its K, then its V, columns, layer by layer
+            calls[0] += 1
+            return quantize(x.index_fill(-1, torch.tensor([0], device=x.device), 0.0)
+                            if calls[0] % 2 else x)
+
+        patches.append((bs, "quantize_kv_column", drop_key_feature))
+    if fault:
+        what += f", planted fault: {fault}"
+    with contextlib.ExitStack() as stack:
+        for module, name, value in patches:
+            stack.enter_context(mock.patch.object(module, name, value))
+        return _nbest(engine, what, req)
 
 
 def _against_plain(hyp, hyp_plain, kernel: str, what: str) -> int:
     """Print how ``hyp`` reads against ``hyp_plain`` under ``kernel``'s
-    gate; returns the number of utterances beyond it."""
+    fixed gate (for K6 the earlier gate, printed beside the envelope);
+    returns the number of utterances beyond it."""
     atol = SCORE_ATOL[kernel]
 
     def close(g, w):
-        return abs(g[3] - w[3]) <= max(atol, 8 * float(np.spacing(np.float32(abs(w[3])))))
+        return abs(g[3] - w[3]) <= _score_tol(w[3], atol)
 
     worst, differ, swaps, bad, over_1e3 = 0.0, 0, 0, 0, 0
     for i, (g, w) in enumerate(zip(hyp, hyp_plain)):
@@ -971,6 +1097,28 @@ def _against_plain(hyp, hyp_plain, kernel: str, what: str) -> int:
           f"utterances ({swaps} near-tied swaps), max |1-best score diff| {worst:.3e} ({over_1e3} beyond "
           f"1e-3), {bad} beyond tolerance ({atol:g} or 8 ulps)")
     return bad
+
+
+def _int8_gate(plain, req, hyp_f32, hyp_plain, name: str, plant: bool) -> None:
+    """The f32 K6 beam on ``req`` held to the plain twin's envelope (the
+    un-noised run and NOISE_SEEDS); the earlier fixed gate printed beside it
+    for K6 and for each noised run; a held-out noise seed read through the
+    envelope (printed, not gated); with ``plant``, each planted fault must
+    fall beyond it."""
+    _against_plain(hyp_f32, hyp_plain, "K6", f"f32 K6, {name} (fixed gate, printed)")
+    runs = [hyp_plain]
+    for seed in NOISE_SEEDS:
+        runs.append(_plain_run(plain, req, f"f32, plain group attend, {name}", noise_seed=seed))
+        _against_plain(runs[-1], hyp_plain, "K6", f"plain + noise seed {seed}, {name} (fixed gate, printed)")
+    if _read_envelope(hyp_f32, runs, f"f32 K6, {name}"):
+        raise AssertionError(f"f32 beam through K6 falls outside the plain twin's envelope ({name})")
+    held = _plain_run(plain, req, f"f32, plain group attend, {name}", noise_seed=HELD_OUT_SEED)
+    _read_envelope(held, runs, f"plain + held-out noise seed {HELD_OUT_SEED}, {name} (not gated)")
+    if plant:
+        for fault in ("value scale", "key column"):
+            hyp = _plain_run(plain, req, f"f32, plain group attend, {name}", fault=fault)
+            if not _read_envelope(hyp, runs, f"planted fault '{fault}', {name}"):
+                raise AssertionError(f"the int8 gate let the planted fault '{fault}' through")
 
 
 def _held_against_plain(hyp, hyp_plain, kernel: str) -> None:
@@ -1004,14 +1152,14 @@ def beam_phase(device, req, **inference_conf) -> tuple:
     hyp_plain = _nbest(plain, "f32, plain group attend", req)
     if _counts()[kernel] != before:
         raise AssertionError("fused_group_attend: false launched the group-attend kernel")
-    _held_against_plain(hyp_f32, hyp_plain, kernel)
-    if kernel == "K6":  # a second request, and the plain twin under column noise on each
+    if kernel == "K4":
+        _held_against_plain(hyp_f32, hyp_plain, kernel)
+    else:  # the envelope gate on request (a), planted faults there, and a second request
+        _int8_gate(plain, req, hyp_f32, hyp_plain, "request (a)", plant=True)
         req2 = _request(3, 32, 4)
         hyp_f32_2 = _nbest(f32, "f32, request (a) seed 3", req2)
         hyp_plain_2 = _nbest(plain, "f32, plain group attend, request (a) seed 3", req2)
-        _held_against_plain(hyp_f32_2, hyp_plain_2, kernel)
-        _noise_control(plain, req, hyp_plain, "request (a)")
-        _noise_control(plain, req2, hyp_plain_2, "request (a) seed 3")
+        _int8_gate(plain, req2, hyp_f32_2, hyp_plain_2, "request (a) seed 3", plant=False)
 
     phased = _beam_engine(device, "bfloat16", phase_widths=[0.25, 0.5], **inference_conf)
     same = _nbest(phased, "bf16, phase_widths [0.25, 0.5]", req) == hyp_bf16
@@ -1019,6 +1167,154 @@ def beam_phase(device, req, **inference_conf) -> tuple:
     if not same:
         raise AssertionError("phased widths changed the bf16 n-best")
     return launches, hyp_bf16
+
+
+def heldout_main(seeds) -> int:
+    """The plain twin of the int8 beam (f32, plain group attend) under
+    held-out noise seeds, each read through the envelope of both requests
+    (the un-noised run and NOISE_SEEDS): sound code the gate has not seen.
+    Exits non-zero if one falls outside."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs the GPU", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    plain = _beam_engine(device, "float32", fused_group_attend=False, nbest=2, cache_dtype="int8",
+                         mem_dtype="int8")
+    beyond = 0
+    for name, req in (("request (a)", _request(1, 32, 4)), ("request (a) seed 3", _request(3, 32, 4))):
+        runs = [_nbest(plain, f"f32, plain group attend, {name}", req)]
+        runs += [_plain_run(plain, req, f"f32, plain group attend, {name}", noise_seed=s) for s in NOISE_SEEDS]
+        for seed in seeds:
+            held = _plain_run(plain, req, f"f32, plain group attend, {name}", noise_seed=seed)
+            beyond += _read_envelope(held, runs, f"plain + held-out noise seed {seed}, {name}")
+    print(f"held-out seeds {list(seeds)} on both requests: {beyond} utterances beyond the envelope")
+    return int(beyond > 0)
+
+
+# Phases of csrc/csgu.cu taken out one at a time, cumulatively, by editing a
+# copy of the source (the kernel's output is then wrong; only its time is
+# read): what each phase costs at the request shapes.
+K3_PHASE_CUTS = (
+    ("the conv", [("if (r < tt + KS - 1) {", "if (false) {")]),
+    ("the statistics", [
+        ("for (int r = warp; r < rows; r += CB / 32) {", "for (int r = warp; r < 0; r += CB / 32) {"),
+        ("  if (tid < rows) {\n    float2 p[MAX_CLUSTER];", "  if (false) {\n    float2 p[MAX_CLUSTER];")]),
+    ("the cluster barriers", [
+        ("  cluster_arrive();  // the partials are written (release) ...\n"
+         "  cluster_wait();    // ... and every block's are visible (acquire)", "  __syncthreads();"),
+        ("  cluster_arrive();  // done reading the other blocks' shared memory; waited on at the end", ""),
+        ("  cluster_wait();  // no block leaves while another may still read its partials", "")]),
+)
+
+
+def k3_phases_main() -> int:
+    """K3's L2-cold time at request (a) and (b) shapes, bf16 and f32, for
+    the committed source and for copies with the conv, then also the
+    statistics, then also the cluster barriers taken out (K3_PHASE_CUTS);
+    each copy built by nvcc into its own library under build/k3_phases."""
+    import ctypes
+
+    from tailored_avsr_tpu_torch.kernels import build
+    from tailored_avsr_tpu_torch.ops import fused_csgu as fc
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs the GPU", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    out_dir = os.path.join(ROOT, "build", "k3_phases")
+    os.makedirs(out_dir, exist_ok=True)
+    src = (build.CSRC / "csgu.cu").read_text()
+    names, cmds = ["whole kernel"], []
+    for what, cuts in K3_PHASE_CUTS:
+        names.append(f"without {what}" if len(names) == 1 else f"{names[-1]}, {what}")
+    for i, name in enumerate(names):
+        text = src
+        for _, cuts in K3_PHASE_CUTS[:i]:
+            for old, new in cuts:
+                if old not in text:
+                    raise AssertionError(f"csgu.cu no longer holds {old!r}: update K3_PHASE_CUTS")
+                text = text.replace(old, new)
+        path = os.path.join(out_dir, f"phase{i}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        cmds.append([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-shared", "-o",
+                     path[:-3] + ".so", path])
+    build._run_all(cmds)
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
+
+    cases = [(dtype, name, _csgu_args(randn, b, t, 2048, 31, dtype))
+             for dtype in (torch.bfloat16, torch.float32) for name, b, t in (("a", 32, 100), ("b", 24, 500))]
+    for i, name in enumerate(names):
+        fn = ctypes.CDLL(os.path.join(out_dir, f"phase{i}.so")).avsr_fused_csgu
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        row = {"k3": name}
+        for dtype, req, args in cases:
+            b, t, u = args[0].shape
+            out = torch.empty(b, t, u // 2, dtype=dtype, device=device)
+
+            def run():
+                err = fn(*(a.data_ptr() for a in args), out.data_ptr(), b, t, u // 2, 31,
+                         int(dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"K3 ({name}) failed: CUDA error {err}")
+
+            run()
+            if i == 0:  # the whole kernel is held to its plain version
+                _compare(f"K3 {name} {req} {dtype}", "csgu", out, fc.fused_csgu_plain(*args), show=False)
+            row[f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_{req}_ms"] = cold_time_ms(run)
+        print(json.dumps(row))
+    return 0
+
+
+def ab_measure(greedy: bool = True) -> None:
+    """For whichever ``tailored_avsr_tpu_torch`` is first on ``sys.path``:
+    bf16 K3's L2-cold time at request (a) and (b) shapes (inputs from seed
+    0), then (``greedy``) the device busy time of one profiled bf16 greedy
+    call of requests (a) and (b) (``greedy_profile``). One JSON line."""
+    from tailored_avsr_tpu_torch.kernels import build
+    from tailored_avsr_tpu_torch.ops import fused_csgu as fc
+
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    build.load()
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
+
+    row = {"package": os.path.dirname(os.path.dirname(os.path.abspath(fc.__file__)))}
+    for name, b, t in (("a", 32, 100), ("b", 24, 500)):
+        args = _csgu_args(randn, b, t, 2048, 31, torch.bfloat16)
+        row[f"k3_{name}_ms"] = cold_time_ms(lambda: fc.fused_csgu(*args))
+    if greedy:
+        engine = _greedy_engine(device, "bfloat16", True)
+        for name, req in (("a", _request(1, 32, 4)), ("b", _request(2, 24, 20))):
+            engine.greedy(req)
+            prof = greedy_profile(engine, req, f"bf16 request ({name})")
+            row[f"greedy_{name}_busy_ms"], row[f"greedy_{name}_wall_ms"] = (
+                prof["device_busy_ms"], prof["median_wall_ms"])
+    print(json.dumps(row))
+
+
+def ab_main(parent: str, greedy: bool = True) -> int:
+    """``ab_measure`` on the package under ``parent`` (a ``git archive`` of
+    another commit) and on this checkout's, in the order parent, change,
+    change, parent, each in its own process on the same card."""
+    code = ("import runpy, sys; sys.path.insert(0, {root!r}); "
+            "runpy.run_path({file!r}, run_name='chip_smoke_ab')['ab_measure']({greedy})")
+    for root in (os.path.abspath(parent), ROOT, ROOT, os.path.abspath(parent)):
+        subprocess.run([sys.executable, "-c", code.format(root=root, file=os.path.abspath(__file__),
+                                                          greedy=greedy)], check=True)
+    return 0
 
 
 def main() -> int:
@@ -1093,4 +1389,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab"]:  # --ab PARENT_ROOT [--no-greedy]
+        sys.exit(ab_main(sys.argv[2], greedy="--no-greedy" not in sys.argv))
+    if sys.argv[1:2] == ["--k3-phases"]:
+        sys.exit(k3_phases_main())
+    if sys.argv[1:2] == ["--heldout"]:  # --heldout SEED [SEED ...]
+        sys.exit(heldout_main([int(a) for a in sys.argv[2:]]))
     sys.exit(main())

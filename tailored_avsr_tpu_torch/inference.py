@@ -75,6 +75,70 @@ def _load_state_dict(path: str) -> Dict[str, torch.Tensor]:
 _DTYPE_NAMES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+# Every inference_conf key the JAX engine (or its avsr_main inference loader)
+# honors, copied from ``tailored_avsr_tpu/inference.py:_INFERENCE_KEYS``: the
+# reference splats inference_conf as keyword arguments, so an unknown key
+# fails loudly there, and so it does here. Keys of choices the port does not
+# run pass this set and are refused by ``_check_inference_conf``.
+_INFERENCE_KEYS = frozenset({
+    "beam_size", "ctc_weight", "lm_weight", "penalty", "maxlenratio",
+    "minlenratio", "nbest", "early_exit", "unroll", "phase_widths",
+    "maskctc_n_iterations", "maskctc_threshold_probability", "decode_mode",
+    "pre_beam", "cache_segments", "fused_group_attend", "cache_protocol",
+    "video_scale", "video_mean", "video_std", "device_normalize",
+    "quantize_asr_model", "quantize_lm", "quantize_dtype",
+    "quantize_min_size", "cache_dtype", "mem_dtype", "ngram_weight",
+    "ngram_file",
+    "ngram_scorer",
+    "data_parallel",
+    "batch_size",  # consumed by the avsr_main inference dataloader
+    "hugging_face_decoder_max_length",  # inert without the gated hf decoder
+})
+
+
+def _normalize_inference_conf(inf: dict, config) -> dict:
+    """Validate and translate the reference's inference_conf keys, as
+    ``tailored_avsr_tpu/inference.py:_normalize_inference_conf`` does:
+    ``time_sync`` becomes ``decode_mode: timesync``; ``transducer_conf``,
+    ``quantize_modules`` beyond Linear / Embedding, ``streaming``,
+    ``enh_s2t_task``, ``multi_asr`` and ``hugging_face_decoder`` raise
+    NotImplementedError; ``dtype``, ``token_type`` and ``bpemodel`` must
+    agree with the top-level config; an unknown key raises ValueError."""
+    inf = dict(inf)
+    if inf.pop("time_sync", False):  # reference name for the timesync beam
+        mode = inf.setdefault("decode_mode", "timesync")
+        if mode != "timesync":
+            raise ValueError(f"time_sync: true conflicts with decode_mode: {mode!r}")
+    scorer = inf.get("ngram_scorer", "full")
+    if scorer not in ("full", "part"):
+        raise ValueError(f"ngram_scorer must be 'full' or 'part', got {scorer!r}")
+    if inf.pop("transducer_conf", None):
+        raise NotImplementedError("transducer_conf options are not configurable")
+    qmods = inf.pop("quantize_modules", None)
+    if qmods is not None and not set(qmods) <= {"Linear", "Embedding"}:
+        raise NotImplementedError(
+            f"quantize_modules {qmods!r}: weight-only quantization covers Dense kernels and embeddings")
+    inf.pop("device", None)  # the engine's device is its constructor's argument
+    dtype = inf.pop("dtype", None)
+    if dtype is not None and dtype != getattr(config, "dtype", "float32"):
+        raise ValueError(
+            f"inference_conf dtype {dtype!r} disagrees with the top-level config dtype "
+            f"{getattr(config, 'dtype', 'float32')!r}: set the top-level key")
+    for key in ("token_type", "bpemodel"):
+        val, cfg_val = inf.pop(key, None), getattr(config, key, None)
+        if val is not None and cfg_val is not None and val != cfg_val:
+            raise ValueError(
+                f"inference_conf {key} {val!r} disagrees with the top-level config ({cfg_val!r})")
+    for key in ("streaming", "enh_s2t_task", "multi_asr", "hugging_face_decoder"):
+        if inf.pop(key, False):
+            raise NotImplementedError(f"inference_conf {key} is not built")
+    unknown = set(inf) - _INFERENCE_KEYS
+    if unknown:
+        raise ValueError(
+            f"unknown inference_conf key(s) {sorted(unknown)}; known keys: {sorted(_INFERENCE_KEYS)}")
+    return inf
+
+
 def _check_inference_conf(inf: dict, ngram_path: Optional[str], dtype: torch.dtype) -> None:
     """Raise for each ``inference_conf`` choice the port does not run; the
     cache and memory dtypes as ``tailored_avsr_tpu/inference.py:218-246``."""
@@ -96,7 +160,7 @@ def _check_inference_conf(inf: dict, ngram_path: Optional[str], dtype: torch.dty
         raise NotImplementedError("mem_dtype: int8 requires cache_protocol: anc")
     if _DTYPE_NAMES.get(cache_dtype, dtype) != dtype:  # needs K4 with mixed query and cache types
         raise not_ported(f"cache_dtype: {cache_dtype} under a {str(dtype).replace('torch.', '')} model", 7)
-    if inf.get("time_sync") or str(inf.get("decode_mode", "label_sync")) != "label_sync":
+    if str(inf.get("decode_mode", "label_sync")) != "label_sync":
         raise not_ported("decode_mode: timesync", 7)
     if protocol == "append":
         raise not_ported("cache_protocol: append", 7)
@@ -131,7 +195,7 @@ class Speech2Text:
         token_type = getattr(config, "token_type", "char")
         if token_type != "char":
             raise not_ported(f"token_type {token_type!r}", 8)
-        inf = dict(getattr(config, "inference_conf", {}) or {})
+        inf = _normalize_inference_conf(dict(getattr(config, "inference_conf", {}) or {}), config)
         self.dtype = (
             torch.bfloat16
             if str(getattr(config, "dtype", "float32")) in ("bfloat16", "bf16")

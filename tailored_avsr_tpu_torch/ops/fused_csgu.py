@@ -10,7 +10,8 @@ the LN output to the input dtype before its conv: the two agree in f32 and
 differ by rounding in bf16.
 
 The wrapper runs ``fused_csgu_plain`` for CPU tensors only; for CUDA tensors
-it launches the kernel or raises. ``fused_csgu.launches`` counts launches.
+it launches the kernel or raises (``check_inputs`` names what the kernel
+refuses). ``fused_csgu.launches`` counts launches.
 """
 
 from __future__ import annotations
@@ -21,7 +22,10 @@ import torch.nn.functional as F
 from tailored_avsr_tpu_torch.ops.backend import check_kernel_input, use_kernel
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_MAX_KERNEL_SIZE = 127  # keeps the block's shared memory under the H100's limit
+_MAX_KERNEL_SIZE = 127  # keeps an f32 block's staged rows under the H100's 227 KB
+TIME_TILE = 32  # output rows of a cluster: the kernel's register accumulators
+CHANNEL_TILE = 256  # channels of a block, one a thread
+_MAX_CHANNELS = 8 * CHANNEL_TILE  # a cluster of at most 8 blocks
 
 LN_EPS = 1e-6
 
@@ -43,6 +47,34 @@ def fused_csgu_plain(
     return (x_r * gate.transpose(1, 2)).to(x.dtype)
 
 
+def check_inputs(x, gamma, beta, conv_w, conv_b) -> None:
+    """Raise on inputs the kernel does not take: a type other than f32 /
+    bf16, an even kernel size or one above ``_MAX_KERNEL_SIZE``, a gate
+    width C that is no multiple of 8 (the rows move in 16-byte copies) or
+    above ``_MAX_CHANNELS`` (a cluster holds at most 8 blocks of 256
+    channels), x not 16-byte aligned, or parameters of another shape, type
+    or layout."""
+    if x.dim() != 3 or x.shape[-1] % 2:
+        raise ValueError(f"fused_csgu: x must be (B, T, U) with even U, got {tuple(x.shape)}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"fused_csgu kernel takes float32 or bfloat16, got {x.dtype}")
+    b, t, u = x.shape
+    c, k = u // 2, conv_w.shape[0]
+    if k % 2 == 0 or k > _MAX_KERNEL_SIZE:
+        raise ValueError(f"fused_csgu kernel takes an odd kernel size <= {_MAX_KERNEL_SIZE}, got {k}")
+    if c % 8 or c > _MAX_CHANNELS:
+        raise ValueError(f"fused_csgu kernel takes a gate width U/2 that is a multiple of 8 and at most "
+                         f"{_MAX_CHANNELS}, got {c}")
+    if t < 1 or b > 65535:
+        raise ValueError(f"fused_csgu kernel: unsupported shape {tuple(x.shape)}")
+    check_kernel_input(x, "x", (b, t, u), x.dtype)
+    for name, p in (("gamma", gamma), ("beta", beta), ("conv_b", conv_b)):
+        check_kernel_input(p, name, (c,), x.dtype)
+    check_kernel_input(conv_w, "conv_w", (k, 1, c), x.dtype)
+    if x.data_ptr() % 16:
+        raise ValueError("fused_csgu kernel: x must be 16-byte aligned")
+
+
 def fused_csgu(
     x: torch.Tensor,
     gamma: torch.Tensor,
@@ -55,20 +87,9 @@ def fused_csgu(
         return fused_csgu_plain(x, gamma, beta, conv_w, conv_b)
     from tailored_avsr_tpu_torch.kernels import build
 
-    if x.dim() != 3 or x.shape[-1] % 2:
-        raise ValueError(f"fused_csgu: x must be (B, T, U) with even U, got {tuple(x.shape)}")
-    if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"fused_csgu kernel takes float32 or bfloat16, got {x.dtype}")
+    check_inputs(x, gamma, beta, conv_w, conv_b)
     b, t, u = x.shape
     c, k = u // 2, conv_w.shape[0]
-    if k % 2 == 0 or k > _MAX_KERNEL_SIZE:
-        raise ValueError(f"fused_csgu kernel takes an odd kernel size <= {_MAX_KERNEL_SIZE}, got {k}")
-    if t < 1 or b > 65535:
-        raise ValueError(f"fused_csgu kernel: unsupported shape {tuple(x.shape)}")
-    check_kernel_input(x, "x", (b, t, u), x.dtype)
-    for name, p in (("gamma", gamma), ("beta", beta), ("conv_b", conv_b)):
-        check_kernel_input(p, name, (c,), x.dtype)
-    check_kernel_input(conv_w, "conv_w", (k, 1, c), x.dtype)
     out = torch.empty(b, t, c, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = build.load().avsr_fused_csgu(

@@ -15,6 +15,8 @@ of magnitude up to ~100). Token ids must be identical.
 """
 
 import copy
+import glob
+import os
 import types
 
 import jax
@@ -28,6 +30,7 @@ from test_torch_port_ops import jax_module, load_port, t
 from test_torch_port_slice import TOKENS, _batch, _random_variables
 
 ATOL = 1e-5
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def close(got, want, atol=ATOL):
@@ -431,6 +434,58 @@ def test_unported_inference_choices_name_their_item(conf, item):
     cfg.inference_conf = dict(cfg.inference_conf, **conf)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Speech2Text(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("conf", [
+    {"beam_szie": 3}, {"streaming": True}, {"dtype": "bfloat16"}, {"token_type": "bpe"},
+    {"time_sync": True, "decode_mode": "label_sync"}, {"transducer_conf": {"beam_size": 2}},
+    {"quantize_modules": ["Conv1d"]}, {"enh_s2t_task": True}, {"multi_asr": True},
+    {"hugging_face_decoder": True}, {"ngram_scorer": "half"},
+], ids=lambda c: ",".join(c))
+def test_inference_conf_is_refused_as_the_jax_engine_refuses_it(conf):
+    """On the f32 tiny config each of these makes the JAX normaliser raise;
+    ``Speech2Text`` raises the same exception type on the same dict (a
+    typo'd key, a dtype or token type that disagrees with the top level,
+    a conflicting ``time_sync``, an unknown n-gram scorer: ValueError; the
+    gated capabilities: NotImplementedError)."""
+    from tailored_avsr_tpu.inference import _normalize_inference_conf as jax_normalize
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+
+    cfg = graft._flagship_cfg(tiny=True)
+    cfg.token_list = TOKENS
+    cfg.inference_conf = dict(cfg.inference_conf, **conf)
+    with pytest.raises((ValueError, NotImplementedError)) as want:
+        jax_normalize(cfg.inference_conf, cfg)
+    with pytest.raises(want.type):
+        Speech2Text(cfg, device="cpu")
+
+
+def test_inference_keys_are_the_jax_engines():
+    from tailored_avsr_tpu.inference import _INFERENCE_KEYS as jax_keys
+    from tailored_avsr_tpu_torch.inference import _INFERENCE_KEYS
+
+    assert _INFERENCE_KEYS == jax_keys
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(ROOT, "configs/AVSR/*.yaml")))
+                         + ["chip_smoke.py"], ids=os.path.basename)
+def test_served_inference_confs_pass_the_normaliser(path):
+    """Every ``inference_conf`` of ``configs/AVSR/`` and every key that
+    ``chip_smoke.py`` sets passes the port's normaliser unchanged, as it
+    passes the JAX one."""
+    from tailored_avsr_tpu.inference import _normalize_inference_conf as jax_normalize
+    from tailored_avsr_tpu_torch.inference import _normalize_inference_conf
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    if path.endswith(".yaml"):
+        cfg = load_config(path)
+        confs = [dict(cfg.inference_conf)]
+    else:
+        cfg = graft._flagship_cfg(tiny=True)
+        confs = [{"nbest": 2, "fused_group_attend": False, "phase_widths": [0.25, 0.5],
+                  "cache_dtype": "int8", "mem_dtype": "int8"}]
+    for conf in confs:
+        assert _normalize_inference_conf(conf, cfg) == conf == jax_normalize(conf, cfg)
 
 
 def test_lm_checkpoint_loads_in_the_lm_grammar(tmp_path):
