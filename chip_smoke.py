@@ -70,11 +70,33 @@ Run from the repository root on a machine with one CUDA card:
    the envelope, and a held-out noise seed is read through it (printed, not
    gated). The share of utterances whose int8 1-best equals the exact bf16
    run's is printed, not gated.
-8. Prints one JSON line of per-kernel results (launches: K1-K3 from the
-   greedy path, K4, K5 (the step write) and K5' from the beam path, K6 from
-   the int8 beam path; P1 counted over both beam paths, where no serving
-   code may launch it), then the result line
-   ``{"ok": true, "device": {...}}`` last.
+8. Train path (``flagship_train_phase``, ``card_vs_cpu_phase``,
+   ``learning_canary``): the flagship at full width with
+   its training settings (4 x 20 s of seeded int16 audio and uint8 video,
+   250-300 characters of seeded text an utterance, Adam + Noam, accum_grad
+   16) takes 32 micro-steps (two updates) in bf16 autocast over f32 master
+   weights: losses and accumulated gradients finite, parameters and
+   BatchNorm statistics moved, and no kernel launched by a train step
+   (counts set to 0 before, read after). It prints the median warm
+   micro-step wall time and its spread, seconds of speech trained per wall
+   second and ``torch.cuda.max_memory_allocated``. The train state saved
+   after update 1 is loaded into a fresh model, which runs update 2: its
+   losses and the eval loss after it must equal the uninterrupted run's
+   (``RESUME_RTOL``); one of its micro-steps runs under ``torch.profiler``
+   (device busy time, idle share, device ms by kind of kernel). One eval
+   step (f32) on the trained weights must launch
+   K1 or K2 and K3, and its greedy ids equal those of the eager eval step on
+   the same weights. Then f32 on the card against f32 on the CPU (2 encoder
+   and 1 decoder layers at 256-d, 2 x 2 s, every rate 0): loss and gradient
+   norm within ``CARD_VS_CPU_RTOL``. Then a learning canary: the 64-d tiny
+   model memorises 4 tone-spelled utterances to greedy CER below the CPU
+   canary's 20 %.
+9. Prints one JSON line of train numbers, one JSON line of per-kernel
+   results (launches: K1-K3 from the greedy path, K4, K5 (the step write)
+   and K5' from the beam path, K6 from the int8 beam path; P1 counted over
+   both beam paths, where no serving code may launch it; beside them the
+   train path's launches in its train steps and in its eval step), then
+   the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises, so the run exits non-zero and prints no result line.
 Nothing here imports JAX.
@@ -100,6 +122,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -1317,6 +1340,395 @@ def ab_main(parent: str, greedy: bool = True) -> int:
     return 0
 
 
+# ------------------------------------------------------------------ training
+#
+# The train slice on the card (``tailored_avsr_tpu_torch/train``): the
+# flagship at full width with its training settings, bf16 autocast over f32
+# master weights; then the checks below. Each train step must launch none
+# of the forward-only kernels (the kernel routes test ``not self.training``);
+# the eval step, the JAX package's ``deterministic=True``, must launch K1 or
+# K2 and K3.
+
+TRAIN_MICRO_STEPS = 32  # accum_grad 16: two optimizer updates
+# f32 loss and gradient norm on the card against the CPU, train mode with
+# every rate at 0, TF32 off: both sum in f32 in other orders, and CUDA's
+# ctc_loss and cuDNN's convolution backward add in a run-dependent order
+# (atomics). Relative.
+CARD_VS_CPU_RTOL = 1e-4
+# Resume: micro-steps 17-32 forward with the same weights and seeds in both
+# runs (bit-equal forwards expected); the eval loss after update 2 moves by
+# the nondeterministic order of update 2's gradient sums. Relative.
+RESUME_RTOL = 1e-4
+CANARY_CER = 20.0  # the CPU canary's threshold (tests/test_torch_port_train.py)
+CANARY_STEPS = 400
+_CANARY_WORDS = ("ABA", "CAD", "BIG", "DIG", "FACE", "HID")
+_CANARY_HZ = {c: 220.0 * 2.0 ** (k / 4.0) for k, c in enumerate(" ABCDEFGHIJ")}
+
+
+def _flagship_train_cfg(**encoder):
+    """The flagship (``_tpu.yaml``: 12 blocks, 256-d, 6 decoder layers) with
+    its training settings, K1-K3 enabled for the eval step."""
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    cfg = load_config(FLAGSHIP)
+    cfg.token_list = os.path.join(ROOT, cfg.token_list)
+    cfg.encoder_conf = dict(cfg.encoder_conf, use_flash=True, use_fused_csgu=True, **encoder)
+    return cfg
+
+
+def _zero_rates(cfg) -> None:
+    """Every dropout, drop and SpecAug rate of ``cfg`` at 0."""
+    zero = {"dropout_rate": 0.0, "positional_dropout_rate": 0.0}
+    cfg.specaug = None
+    cfg.encoder_conf = dict(cfg.encoder_conf, attention_dropout_rate=0.0, stochastic_depth_rate=0.0,
+                            acoustic_branch_drop_rate=0.0, **zero)
+    cfg.decoder_conf = dict(cfg.decoder_conf, self_attention_dropout_rate=0.0,
+                            src_attention_dropout_rate=0.0, **zero)
+    cfg.acoustic_embed_conf = dict(cfg.acoustic_embed_conf, **zero)
+    cfg.visual_embed_conf = dict(cfg.visual_embed_conf, **zero)
+    cfg.audiovisual_fusion_conf = dict(cfg.audiovisual_fusion_conf, dropout_rate=0.0,
+                                       acoustic_branch_drop_rate=0.0)
+    cfg.ctc_conf = dict(cfg.ctc_conf, dropout_rate=0.0)
+
+
+def _train_batch(seed: int, batch: int, seconds: float, vocab: int, chars: tuple, device) -> tuple:
+    """A training batch as the port's loader hands it over: seeded int16
+    audio at 16 kHz and uint8 88x88 crops at 25 fps, dequantised (audio /
+    32768, video (x / 250 - 0.421) / 0.165, -1 past each length), lengths
+    from 85 % to 100 % of the buffer, and ``chars`` = (lo, hi) characters
+    of seeded text (ids 3 .. vocab-2: no blank, unk or sos/eos), -1 padded."""
+    rs = np.random.RandomState(seed)
+    samples, frames = int(seconds * 16000), int(seconds * 25)
+    frac = rs.uniform(0.85, 1.0, batch)
+    frac[0] = 1.0
+    frame_lens = np.ceil(frac * frames).astype(np.int64)
+    audio = torch.from_numpy(np.clip(rs.randn(batch, samples) * 3000, -32768, 32767).astype(np.int16))
+    video = torch.from_numpy(rs.randint(0, 256, (batch, frames, 88, 88)).astype(np.uint8))
+    text_lens = rs.randint(chars[0], chars[1] + 1, batch)
+    text = np.full((batch, int(text_lens.max())), -1, np.int64)
+    for i, n in enumerate(text_lens):
+        text[i, :n] = rs.randint(3, vocab - 1, n)
+    audio_lens = torch.from_numpy(frame_lens * 640)
+    video_lens = torch.from_numpy(frame_lens)
+    audio, video = audio.to(device).float() / 32768.0, (video.to(device).float() / 250.0 - 0.421) / 0.165
+    audio = torch.where(torch.arange(samples, device=device)[None] < audio_lens.to(device)[:, None], audio, -1.0)
+    vmask = torch.arange(frames, device=device)[None] < video_lens.to(device)[:, None]
+    video = torch.where(vmask[..., None, None], video, -1.0)
+    return (audio, audio_lens.to(device), video, video_lens.to(device),
+            torch.from_numpy(text).to(device), torch.from_numpy(text_lens).to(device))
+
+
+def _train_state(cfg, device, seed: int = 0):
+    """(state, token list): the model built on the CPU from ``seed``, moved
+    to ``device`` in f32 (the master weights), with the config's optimizer."""
+    from tailored_avsr_tpu_torch.inference import load_token_list
+    from tailored_avsr_tpu_torch.tasks.avsr import build_model
+    from tailored_avsr_tpu_torch.train.loop import create_train_state
+    from tailored_avsr_tpu_torch.train.optim import set_optimizer
+
+    tokens = load_token_list(cfg.token_list)
+    model = build_model(cfg, tokens, generator=torch.Generator().manual_seed(seed), device=device,
+                        dtype=torch.float32)
+    opt, _ = set_optimizer(cfg.training_settings, int(cfg.encoder_conf.get("output_size", 256)), 1,
+                           model.named_parameters())
+    return create_train_state(model, opt, seed=seed), tokens
+
+
+def _finite(tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def _train_micro_steps(state, step, batches, first: int, last: int, timed: list = None,
+                       profile: dict = None) -> list:
+    """Micro-steps ``first`` .. ``last`` (1-based) over ``batches`` in turn;
+    returns their losses. Each step ends in a host read of its loss. With
+    ``profile``, the step ``profile["step"]`` runs under ``torch.profiler``
+    and its device busy time, idle share and largest kernels land there."""
+    losses = []
+    accum = state.optimizer.accum_grad
+    for i in range(first, last + 1):
+        prof = None
+        if profile is not None and i == profile["step"]:
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, stats = step(state, batches[(i - 1) % len(batches)])
+        loss = float(stats["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+        if timed is not None:
+            timed.append(wall)
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.stop()
+            profile.update(_device_breakdown(prof, wall))
+        if not np.isfinite(loss) or not all(np.isfinite(float(v)) for v in stats.values()):
+            raise AssertionError(f"micro-step {i}: stats not finite: {stats}")
+        if state.optimizer.acc is not None and i % accum == accum - 1 and not _finite(state.optimizer.acc):
+            raise AssertionError(f"micro-step {i}: accumulated gradients are not finite")
+        losses.append(loss)
+    return losses
+
+
+# kernel-name patterns of the train step's device work, first match wins
+# (cuDNN's BatchNorm kernels are named cudnn::bn_*: BatchNorm comes first)
+_TRAIN_KERNEL_KINDS = (
+    ("ctc_loss", ("ctc",)),
+    ("BatchNorm", ("batch_norm", "batchnorm", "bn_")),
+    ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "fprop")),
+    ("matmul (cuBLAS)", ("gemm", "cutlass", "nvjet", "matmul")),
+    ("optimizer (foreach)", ("foreach", "multi_tensor")),
+    ("max-pool", ("max_pool", "pool")),
+    ("copies and casts", ("copy", "memcpy", "memset", "cast")),
+)
+
+
+def _device_breakdown(prof, wall_ms: float) -> dict:
+    """Device busy ms of a profiled step (the sum of its device events; one
+    stream), its idle share of the step's wall time, and busy ms by kind of
+    kernel (``_TRAIN_KERNEL_KINDS``, the rest elementwise and reductions)."""
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    kinds = {}
+    for e in events:
+        name = e.key.lower()
+        kind = next((k for k, pats in _TRAIN_KERNEL_KINDS if any(p in name for p in pats)),
+                    "elementwise and reductions")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "device_ms_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1]))}
+
+
+def _set_kernels(model, on: bool) -> None:
+    """Flash attention (K1/K2) and the fused cgMLP gate (K3) on or off in
+    every layer (the eager path when off)."""
+    from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
+    from tailored_avsr_tpu_torch.ops.cgmlp import ConvolutionalSpatialGatingUnit
+
+    for m in model.modules():
+        if isinstance(m, RelPositionMultiHeadedAttention):
+            m.use_flash = on
+        elif isinstance(m, ConvolutionalSpatialGatingUnit):
+            m.use_fused = on
+
+
+def _valid_ids(out) -> list:
+    ids, lens = out["ctc_argmax"].cpu(), out["ctc_argmax_lens"].cpu()
+    return [ids[i, :n].tolist() for i, n in enumerate(lens.tolist())]
+
+
+def flagship_train_phase(device, smi: str) -> dict:
+    """The full-width train step: 4 x 20 s utterances, 32 micro-steps
+    (accum_grad 16: two updates) in bf16 autocast over f32 master weights,
+    no kernel launched; then the resume check and the eval step with the
+    kernels (f32, greedy ids equal to the eager eval's). Returns the launch
+    counts and the numbers printed."""
+    from tailored_avsr_tpu_torch.train.checkpoint import load_train_state, save_train_state
+    from tailored_avsr_tpu_torch.train.loop import make_eval_step, make_train_step
+
+    cfg = _flagship_train_cfg()
+    ts = cfg.training_settings
+    state, tokens = _train_state(cfg, device)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"train path: flagship (12 blocks, 256-d, 6 decoder layers, {n_params / 1e6:.1f}M parameters), "
+          f"batch {ts['batch_size']} x {ts['nframes'] // 25} s, Adam + Noam (warmup {ts['warmup_steps']}, "
+          f"factor {ts['noam_factor']}), accum_grad {ts['accum_grad']}, bf16 autocast over f32 master weights, "
+          f"seeded weights and data")
+    seconds = ts["nframes"] / 25
+    # 12.5-15 characters a second: 250-300 at 20 s, CTC-feasible at T = 500
+    chars = (int(12.5 * seconds), int(15 * seconds))
+    batches = [_train_batch(10 + k, ts["batch_size"], seconds, len(tokens), chars, device) for k in range(4)]
+    step = make_train_step(torch.bfloat16)
+    params0 = [p.detach().clone() for p in state.model.parameters()]
+    stats0 = {k: v.clone() for k, v in state.model.state_dict().items() if "running" in k}
+    with tempfile.TemporaryDirectory() as tmp:
+        resume_path = os.path.join(tmp, "train_state.pt")
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        walls = []
+        accum = state.optimizer.accum_grad
+        losses = _train_micro_steps(state, step, batches, 1, accum, walls)
+        save_train_state(state, 1, resume_path)  # after update 1
+        losses += _train_micro_steps(state, step, batches, accum + 1, TRAIN_MICRO_STEPS, walls)
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        if any(launches.values()):
+            raise AssertionError(f"a train step launched a forward-only kernel: {launches}")
+        if state.optimizer.count != TRAIN_MICRO_STEPS // accum:
+            raise AssertionError(f"{state.optimizer.count} optimizer updates, expected {TRAIN_MICRO_STEPS // accum}")
+        params = list(state.model.parameters())
+        moved = sum(not torch.equal(a, b) for a, b in zip(params, params0))
+        stats = {k: v for k, v in state.model.state_dict().items() if "running" in k}
+        bn_moved = sum(not torch.equal(stats[k], stats0[k]) for k in stats0)
+        if not _finite(params) or not _finite(state.optimizer.mu) or not _finite(state.optimizer.nu):
+            raise AssertionError("parameters or Adam moments are not finite after the updates")
+        if moved < len(params) * 0.95 or bn_moved != len(stats0):
+            raise AssertionError(f"{moved}/{len(params)} parameters and {bn_moved}/{len(stats0)} BatchNorm "
+                                 "statistics moved")
+        warm = walls[2:]
+        speech = float(batches[0][1].sum() + batches[1][1].sum() + batches[2][1].sum() + batches[3][1].sum()) / 4
+        speech /= 16000
+        med = float(np.median(warm))
+        out = {"micro_step_ms_median": med, "micro_step_ms_min": float(min(warm)),
+               "micro_step_ms_max": float(max(warm)), "micro_step_ms_p10": float(np.percentile(warm, 10)),
+               "micro_step_ms_p90": float(np.percentile(warm, 90)), "warm_steps": len(warm),
+               "speech_s_per_wall_s": speech / (med / 1e3), "peak_bytes": int(peak),
+               "first_loss": losses[0], "last_loss": losses[-1], "card": smi}
+        print(f"  {TRAIN_MICRO_STEPS} micro-steps: losses {losses[0]:.2f} -> {losses[-1]:.2f}, finite; "
+              f"launches over the train steps {launches} (all 0); {moved}/{len(params)} parameters and "
+              f"{bn_moved}/{len(stats0)} BatchNorm statistics moved")
+        print(f"  warm micro-step wall ms over {len(warm)} steps: median {med:.1f}, p10 {out['micro_step_ms_p10']:.1f}, "
+              f"p90 {out['micro_step_ms_p90']:.1f}, min {out['micro_step_ms_min']:.1f}, max {out['micro_step_ms_max']:.1f} "
+              f"(each {accum}-th step adds the optimizer update); {out['speech_s_per_wall_s']:.1f} s of speech trained "
+              f"per wall second; torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; card {smi}")
+
+        # resume: a fresh state from the file written after update 1 runs update 2
+        fresh, _ = _train_state(cfg, device, seed=1)
+        fresh, epoch = load_train_state(fresh, resume_path)
+        loaded_step = fresh.step
+        profile = {"step": accum + 3}  # a warm micro-step that does not update
+        resumed = _train_micro_steps(fresh, step, batches, accum + 1, TRAIN_MICRO_STEPS, profile=profile)
+    profile.pop("step")
+    print(f"  profiled micro-step (torch.profiler): device busy {profile['device_busy_ms']:.1f} ms of "
+          f"{profile['profiled_wall_ms']:.1f} ms wall (idle share {profile['idle_share']:.3f}); device ms by kind: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in profile["device_ms_by_kind"].items()))
+    out["profile"] = profile
+    d_loss = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[accum:]))
+    eval_step = make_eval_step()
+    e_live = float(eval_step(state, batches[0])["loss"])
+    e_res = float(eval_step(fresh, batches[0])["loss"])
+    d_eval = abs(e_res - e_live) / abs(e_live)
+    print(f"  resume after update 1 (epoch {epoch}, step {loaded_step}): micro-steps {accum + 1}-{TRAIN_MICRO_STEPS} losses "
+          f"max rel diff {d_loss:.3e}, eval loss after update 2 {e_res:.6f} vs {e_live:.6f} (rel {d_eval:.3e}); "
+          f"tol {RESUME_RTOL:g} relative")
+    if d_loss > RESUME_RTOL or d_eval > RESUME_RTOL:
+        raise AssertionError("the resumed run disagrees with the uninterrupted one")
+    del fresh
+
+    # eval on the trained weights: the kernels, then the eager path (f32)
+    _reset_counts()
+    got = eval_step(state, batches[0])
+    eval_launches = _counts()
+    if not (eval_launches["K1"] + eval_launches["K2"] > 0 and eval_launches["K3"] > 0):
+        raise AssertionError(f"the eval step did not launch K1/K2 and K3: {eval_launches}")
+    _set_kernels(state.model, False)
+    before = _counts()
+    want = eval_step(state, batches[0])
+    if _counts() != before:
+        raise AssertionError("the eager eval step launched a kernel")
+    _set_kernels(state.model, True)
+    same = _valid_ids(got) == _valid_ids(want)
+    d = abs(float(got["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+    print(f"  eval step (f32, T=500): launches {eval_launches}; greedy ids equal to the eager eval's: {same}; "
+          f"loss {float(got['loss']):.6f} vs eager {float(want['loss']):.6f} (rel {d:.2e})")
+    if not same:
+        raise AssertionError("the eval step's greedy CTC ids differ from the eager eval's")
+    out.update(train_launches=launches, eval_launches=eval_launches, resume_rel=max(d_loss, d_eval))
+    return out
+
+
+def card_vs_cpu_phase(device) -> None:
+    """f32, full width cut to 2 encoder and 1 decoder layers, 2 x 2 s, train
+    mode with every rate at 0, TF32 off: loss and gradient global norm on the
+    card against the CPU on the same weights and inputs."""
+    cfg = _flagship_train_cfg(num_blocks=2, acoustic_use_attn=[False, True], visual_use_attn=[True, True])
+    cfg.decoder_conf = dict(cfg.decoder_conf, num_blocks=1)
+    _zero_rates(cfg)
+    results = {}
+    for dev in (torch.device("cpu"), device):
+        state, tokens = _train_state(cfg, dev)
+        model = state.model.train()
+        batch = _train_batch(20, 2, 2.0, len(tokens), (20, 30), dev)
+        loss, _ = model(*batch)
+        loss.backward()
+        norm = torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in model.parameters()]))
+        results[dev.type] = (float(loss.detach()), float(norm))
+    (l_cpu, n_cpu), (l_gpu, n_gpu) = results["cpu"], results["cuda"]
+    dl, dn = abs(l_gpu - l_cpu) / abs(l_cpu), abs(n_gpu - n_cpu) / abs(n_cpu)
+    print(f"  f32 card vs CPU (2 encoder + 1 decoder layers, 256-d, 2 x 2 s, rates 0, TF32 off): loss "
+          f"{l_gpu:.6f} vs {l_cpu:.6f} (rel {dl:.2e}), gradient norm {n_gpu:.6f} vs {n_cpu:.6f} (rel {dn:.2e}); "
+          f"tol {CARD_VS_CPU_RTOL:g} relative")
+    if dl > CARD_VS_CPU_RTOL or dn > CARD_VS_CPU_RTOL:
+        raise AssertionError("f32 training on the card disagrees with the CPU")
+
+
+def _canary_cfg():
+    """``__graft_entry__._flagship_cfg(tiny=True)``'s shapes (64-d, 2 blocks,
+    2 decoder layers), no SpecAug, constant learning rate."""
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs/AVSR/tailored_transformer+ctc_spanish.yaml"))
+    cfg.token_list = os.path.join(ROOT, cfg.token_list)
+    cfg.encoder_conf = dict(cfg.encoder_conf, output_size=64, linear_units=96, cgmlp_linear_units=96,
+                            cgmlp_conv_kernel=7, num_blocks=2, acoustic_use_attn=[False, True],
+                            visual_use_attn=[True, True])
+    cfg.audiovisual_fusion_conf = dict(cfg.audiovisual_fusion_conf, output_size=64, hidden_units=96)
+    cfg.decoder_conf = dict(cfg.decoder_conf, linear_units=96, num_blocks=2)
+    cfg.specaug = None
+    cfg.training_settings = {"optimizer": "adam", "scheduler": "constant", "learning_rate": 2e-3,
+                             "grad_clip": 5.0, "accum_grad": 1}
+    return cfg
+
+
+def _canary_batch(tokens, device) -> tuple:
+    """4 utterances whose audio spells the transcript (one tone a character,
+    as ``tests/synthetic.py``), random lip crops, seeded."""
+    rs = np.random.RandomState(0)
+    index = {t: i for i, t in enumerate(tokens)}
+    audios, videos, texts = [], [], []
+    for _ in range(4):
+        frames = 12 + rs.randint(-3, 4)
+        text = " ".join(rs.choice(_CANARY_WORDS, size=rs.randint(1, 3)))
+        bounds = np.linspace(0, frames * 640, len(text) + 1).astype(int)
+        wave = np.zeros(frames * 640)
+        for c, lo, hi in zip(text, bounds[:-1], bounds[1:]):
+            wave[lo:hi] = np.sin(2 * np.pi * _CANARY_HZ[c] * np.arange(lo, hi) / 16000)
+        audios.append(0.3 * wave + 0.01 * rs.randn(frames * 640))
+        videos.append((rs.rand(frames, 88, 88) * 250 / 250 - 0.421) / 0.165)
+        texts.append([index["<space>" if c == " " else c] for c in text])
+    pad = lambda xs, v: np.stack([np.concatenate([x, np.full((max(map(len, xs)) - len(x),) + np.shape(x)[1:], v)])  # noqa: E731
+                                  for x in xs])
+    t = lambda x, dt: torch.from_numpy(np.asarray(x, dt)).to(device)  # noqa: E731
+    return (t(pad(audios, -1.0), np.float32), t([len(a) for a in audios], np.int64),
+            t(pad(videos, -1.0), np.float32), t([len(v) for v in videos], np.int64),
+            t(pad(texts, -1), np.int64), t([len(x) for x in texts], np.int64))
+
+
+def learning_canary(device, steps: int = CANARY_STEPS) -> dict:
+    """The tiny model memorises 4 tone-spelled utterances on the card: greedy
+    CTC CER below the CPU canary's threshold, checked every 25 steps."""
+    from tailored_avsr_tpu_torch.decode.greedy import ctc_greedy_collapse
+    from tailored_avsr_tpu_torch.evaluation.wer import cer_from_ids
+    from tailored_avsr_tpu_torch.train.loop import make_eval_step, make_train_step
+
+    cfg = _canary_cfg()
+    state, tokens = _train_state(cfg, device)
+    batch = _canary_batch(tokens, device)
+    step, eval_step = make_train_step(), make_eval_step()
+    refs = [t[:n].tolist() for t, n in zip(batch[4].cpu(), batch[5].cpu())]
+    t0 = time.perf_counter()
+    first = best = None
+    for i in range(1, steps + 1):
+        _, stats = step(state, batch)
+        first = float(stats["loss"]) if first is None else first
+        if i % 25 == 0:
+            out = eval_step(state, batch)
+            hyps = ctc_greedy_collapse(out["ctc_argmax"].cpu().numpy(), out["ctc_argmax_lens"].cpu().numpy())
+            cer = cer_from_ids(refs, hyps)
+            best = cer if best is None else min(best, cer)
+            if best < CANARY_CER:
+                break
+    last = float(stats["loss"])
+    wall = time.perf_counter() - t0
+    print(f"  learning canary (64-d tiny flagship, 4 tone-spelled utterances, Adam at constant lr "
+          f"{cfg.training_settings['learning_rate']:g}): best greedy CER {best:.1f}% after {i} steps "
+          f"(threshold {CANARY_CER:g}%), loss {first:.2f} -> {last:.2f}, {wall:.1f} s")
+    if best >= CANARY_CER:
+        raise AssertionError(f"the canary did not learn: best CER {best}%")
+    return {"steps": i, "best_cer": best, "first_loss": first, "last_loss": last}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU", file=sys.stderr)
@@ -1377,10 +1789,20 @@ def main() -> int:
         "P1": ("stream_abs_sum", "tailored_avsr_tpu_torch/csrc/stream_probe.cu",
                "scripts/bench_int8_stream.py:34"),
     }
+    torch.cuda.empty_cache()
+    train = flagship_train_phase(device, smi)
+    card_vs_cpu_phase(device)
+    canary = learning_canary(device)
+    train_launches, eval_launches = train.pop("train_launches"), train.pop("eval_launches")
+    print(json.dumps({"train": {**train, "canary": canary}}))
+
     kernels = []
     for key, (name, source, replaces) in sources.items():
+        # launches: the serving path's; the train path's beside them (its
+        # train steps, then its one eval step)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[key], **phases[key, "bf16"]})
+                        "launches": launches[key], **phases[key, "bf16"],
+                        "launches_train_steps": train_launches[key], "launches_eval_step": eval_launches[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,20 +6,26 @@ module of the same path and is held against it on the CPU
 AVSR model's serving: greedy CTC, and the joint CTC/attention beam search
 with Transformer-LM fusion over the ancestry KV cache, whose caches and
 cross-attention memory may be stored as int8 (``cache_dtype`` /
-``mem_dtype: int8``):
+``mem_dtype: int8``); and its training (hybrid CTC/attention loss, SpecAug,
+Adam + Noam, checkpoints, the data path and the CLI):
 
 - ``ops/``     : frontends, MVN, subsampling, positional encodings, rel-pos
                  and absolute multi-head attention, cgMLP, FFN, the int8
-                 column quantiser (``kv_quant.py``), plus the wrappers of
-                 the hand-written CUDA kernels (``flash_attention.py``,
-                 ``fused_csgu.py``, ``group_attend.py``,
-                 ``cache_update.py``, ``stream_probe.py``);
+                 column quantiser (``kv_quant.py``), losses, SpecAug, plus
+                 the wrappers of the hand-written CUDA kernels
+                 (``flash_attention.py``, ``fused_csgu.py``,
+                 ``group_attend.py``, ``cache_update.py``,
+                 ``stream_probe.py``);
 - ``models/``  : Conv3D + ResNet-18 visual frontend, AVSR embeddings, the
                  tailored encoder, adaptive fusion, CTC head, the Transformer
                  decoder, the Transformer LM, the AVSR model;
 - ``tasks/``   : config -> model for the flagship combination and its LM;
 - ``decode/``  : greedy CTC collapse, CTC prefix scorer, beam search;
 - ``inference``: ``Speech2Text`` (``greedy``, ``nbest``, ``__call__``);
+- ``train/``   : optimizer and schedules, train and eval steps, checkpoints;
+- ``data/``, ``evaluation/``: tokenizers, transforms, dataset and loader;
+                 WER / CER;
+- ``avsr_main``: the training and inference CLI;
 - ``utils/``   : JAX parameters -> port state dict (the port's own copy of
                  the key-grammar export), seeded initialisation;
 - ``csrc/``    : CUDA C++ sources for ``sm_90a``;
@@ -28,7 +34,8 @@ cross-attention memory may be stored as int8 (``cache_dtype`` /
 Conventions follow the JAX package: arrays are ``(B, T, D)``, masks are bool
 ``(B, T)`` with True = valid frame. Kernels are forward-only: a wrapper runs
 its plain PyTorch version for a CPU tensor and launches the CUDA kernel (or
-raises) for a CUDA tensor. Nothing here imports JAX.
+raises) for a CUDA tensor; training mode takes the plain forms. Nothing
+here imports JAX.
 """
 
 __version__ = "0.2.0"

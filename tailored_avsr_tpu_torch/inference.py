@@ -47,7 +47,8 @@ from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
 from tailored_avsr_tpu_torch.tasks import lm as lm_task
 from tailored_avsr_tpu_torch.tasks.avsr import build_model, resolve_device
-from tailored_avsr_tpu_torch.utils.convert import filter_state_dict, lm_state_dict
+from tailored_avsr_tpu_torch.train.checkpoint import load_model, read_state_dict
+from tailored_avsr_tpu_torch.utils.convert import lm_state_dict
 
 _SPACE = "<space>"
 
@@ -58,18 +59,6 @@ def load_token_list(token_list) -> List[str]:
         with open(token_list, encoding="utf-8") as f:
             return [line.rstrip() for line in f if line.rstrip()]
     return list(token_list)
-
-
-def _load_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    if not path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"{path}: only PyTorch state dicts load into the port; convert a JAX "
-            "checkpoint with tailored_avsr_tpu_torch.utils.convert first"
-        )
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
-        sd = sd["model"]
-    return sd
 
 
 _DTYPE_NAMES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -251,13 +240,11 @@ class Speech2Text:
         """Strict load of a PyTorch state dict (``.pth`` / ``.pt``); keys the
         model has no module for (the decoder of a CTC-only model) are
         dropped and returned."""
-        kept, dropped = filter_state_dict(self.model, _load_state_dict(path))
-        self.model.load_state_dict(kept, strict=True)
-        return dropped
+        return load_model(self.model, path)
 
     def load_lm_checkpoint(self, path: str) -> None:
         """Strict load of an LM state dict in the ``lm.`` key grammar."""
-        self.lm.load_state_dict(lm_state_dict(_load_state_dict(path)), strict=True)
+        self.lm.load_state_dict(lm_state_dict(read_state_dict(path)), strict=True)
 
     def inputs(self, batch: Dict) -> Tuple[torch.Tensor, ...]:
         """(audio, audio_lengths, video, video_lengths) on the device, ready

@@ -1,10 +1,13 @@
-"""CTC head: encoder features -> vocabulary logits
-(counterpart of ``tailored_avsr_tpu/models/ctc.py``, serving part: no loss)."""
+"""CTC head: encoder features -> vocabulary logits, and its loss
+(counterpart of ``tailored_avsr_tpu/models/ctc.py``): input dropout, then
+``ops/losses.ctc_loss``."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from tailored_avsr_tpu_torch.ops.losses import ctc_loss
 
 
 class CTCHead(nn.Module):
@@ -17,6 +20,10 @@ class CTCHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, D) -> (B, T, V) logits."""
         return self.ctc_lo(self.dropout(x))
+
+    def loss(self, x: torch.Tensor, lengths: torch.Tensor, labels: torch.Tensor,
+             label_lengths: torch.Tensor, reduce: bool = True) -> torch.Tensor:
+        return ctc_loss(self(x), lengths, labels, label_lengths, reduce=reduce)
 
     def log_softmax(self, x: torch.Tensor) -> torch.Tensor:
         # f32 log-probs even in a bf16 graph, as in the JAX head

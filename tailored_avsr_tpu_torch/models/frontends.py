@@ -3,10 +3,16 @@
 
 Conv3D 1->64 k=(5,7,7) s=(1,2,2) p=(2,3,3) + BN + activation + MaxPool3d
 k=(1,3,3) s=(1,2,2) p=(0,1,1), then BasicBlock x [2,2,2,2] (64->512 channels)
-and a global average pool: (B, T, 88, 88) -> (B, T, 512). BatchNorm runs in
-eval mode (running statistics). The stem is the plain Conv3d; the JAX
-package's space-to-depth evaluation of it holds the same weights and exists
-only for the TPU.
+and a global average pool: (B, T, 88, 88) -> (B, T, 512). The stem is the
+plain Conv3d; the JAX package's space-to-depth evaluation of it holds the
+same weights and exists only for the TPU.
+
+BatchNorm follows flax's (momentum 0.9 in flax's convention, torch's 0.1;
+eps 1e-5): in training it normalises with the batch statistics over every
+(B*T, H, W) position, padded frames included, and moves the running
+variance with the *biased* batch variance, where torch's ``BatchNorm*d``
+would use the unbiased one (``FlaxBatchNorm2d`` / ``FlaxBatchNorm3d``). In
+eval mode it uses the running statistics.
 """
 
 from __future__ import annotations
@@ -16,9 +22,41 @@ import torch.nn.functional as F
 from torch import nn
 
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.1  # torch's convention: flax's momentum 0.9
 
 # the JAX package maps "prelu" to a parameter-free leaky ReLU
 _ACTIVATIONS = {"relu": F.relu, "swish": F.silu, "prelu": F.leaky_relu}
+
+
+class _BiasedRunningVar:
+    """Mixin for ``nn.BatchNorm*d``: in training, the running variance moves
+    by the biased batch variance, as flax's BatchNorm does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        n = x.numel() // x.shape[1]  # positions per channel
+        # torch moves a running variance to (1-m) old + m n/(n-1) var; it gets
+        # a copy (autograd keeps it), and the buffer (1-m) old + m var
+        moved = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, moved, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.copy_(moved * ((n - 1) / n) + self.running_var * ((1.0 - self.momentum) / n))
+        return y
+
+
+class FlaxBatchNorm2d(_BiasedRunningVar, nn.BatchNorm2d):
+    pass
+
+
+class FlaxBatchNorm3d(_BiasedRunningVar, nn.BatchNorm3d):
+    pass
+
+
+def _bn2d(planes: int, **kw) -> nn.BatchNorm2d:
+    return FlaxBatchNorm2d(planes, eps=_BN_EPS, momentum=_BN_MOMENTUM, **kw)
 
 
 class BasicBlock(nn.Module):
@@ -28,14 +66,14 @@ class BasicBlock(nn.Module):
         kw = {"device": device, "dtype": dtype}
         self.act = _ACTIVATIONS[activation_type]
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False, **kw)
-        self.bn1 = nn.BatchNorm2d(planes, eps=_BN_EPS, **kw)
+        self.bn1 = _bn2d(planes, **kw)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False, **kw)
-        self.bn2 = nn.BatchNorm2d(planes, eps=_BN_EPS, **kw)
+        self.bn2 = _bn2d(planes, **kw)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride, bias=False, **kw),
-                nn.BatchNorm2d(planes, eps=_BN_EPS, **kw),
+                _bn2d(planes, **kw),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -71,7 +109,7 @@ class Conv3dResNet18(nn.Module):
         self.act = _ACTIVATIONS[activation_type]
         self.frontend3D = nn.Sequential(
             nn.Conv3d(1, 64, (5, 7, 7), (1, 2, 2), (2, 3, 3), bias=False, **kw),
-            nn.BatchNorm3d(64, eps=_BN_EPS, **kw),
+            FlaxBatchNorm3d(64, eps=_BN_EPS, momentum=_BN_MOMENTUM, **kw),
         )
         self.trunk = ResNetTrunk(activation_type, **kw)
 

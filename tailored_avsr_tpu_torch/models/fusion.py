@@ -4,7 +4,10 @@
 Merge methods: ``concat``, ``learned_ave`` (attention-pooled per-modality
 scalar logits, softmax over the two modalities) and ``fixed_ave``; the merged
 stream goes through an "upsampling" position-wise FFN (d -> hidden -> d) and
-a final LayerNorm. The output mask is audio OR video.
+a final LayerNorm. The output mask is audio OR video. In training, with
+``acoustic_branch_drop_rate`` > 0, one coin per step (drawn on the CPU from
+the generator passed in) sets the learned weights to (0, 1) for the whole
+batch: the acoustic branch is dropped (``tailored_avsr_tpu/models/fusion.py:89-90``).
 """
 
 from __future__ import annotations
@@ -49,12 +52,14 @@ class AdaptiveAudioVisualFusion(nn.Module):
         activation_type: str = "swish",
         acoustic_weight: float = 0.5,
         dropout_rate: float = 0.1,
+        acoustic_branch_drop_rate: float = 0.0,
         *,
         device=None,
         dtype=None,
     ):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
+        self.acoustic_branch_drop_rate = float(acoustic_branch_drop_rate)
         if audiovisual_layer_type != "upsampling_positionwise":
             raise ValueError("only upsampling_positionwise fusion is supported")
         if merge_method not in ("concat", "learned_ave", "fixed_ave"):
@@ -71,7 +76,7 @@ class AdaptiveAudioVisualFusion(nn.Module):
             self.visual_weight_proj = nn.Linear(output_size, 1, **kw)
         self.norm_final = nn.LayerNorm(output_size, eps=_LN_EPS, **kw)
 
-    def forward(self, audio, audio_mask, video, video_mask):
+    def forward(self, audio, audio_mask, video, video_mask, generator: Optional[torch.Generator] = None):
         """Returns (audiovisual (B, T, D), av_mask (B, T) or None, weights dict)."""
         aux = {}
         if self.merge_method == "concat":
@@ -83,6 +88,9 @@ class AdaptiveAudioVisualFusion(nn.Module):
             wv = attention_pooled_weight(
                 video, video_mask, self.visual_pooling_proj, self.visual_weight_proj, d)
             w = torch.softmax(torch.cat([wa, wv], dim=-1).float(), dim=-1).to(audio.dtype)
+            if self.training and self.acoustic_branch_drop_rate > 0.0:
+                if float(torch.rand((), generator=generator)) < self.acoustic_branch_drop_rate:
+                    w = torch.tensor([0.0, 1.0], dtype=w.dtype, device=w.device).expand_as(w)
             aux["acoustic_weight"], aux["visual_weight"] = w[:, 0], w[:, 1]
             av = self.audiovisual_layer(w[:, 0, None, None] * audio + w[:, 1, None, None] * video)
         else:

@@ -8,13 +8,19 @@ the modalities; per layer and modality: macaron-FFN -> branch -> FFN ->
 LayerNorm. When the streams have the same shape, the shared FFNs run on the
 stacked [audio; video] batch (one GEMM of twice the rows).
 
-Ported for serving: no stochastic depth and no interCTC taps (the flagship
-uses neither).
+Training: stochastic depth skips a whole layer with probability
+``stochastic_depth_rate`` (one coin per layer and step, drawn on the CPU
+from the generator passed in) and scales the kept branch residuals by
+1 / (1 - rate), as ``tailored_avsr_tpu/models/tailored.py:37-40,158-211``.
+``acoustic_branch_drop_rate`` and ``positional_dropout_rate`` are stored and
+unused, as in the JAX encoder (the active acoustic drop is the fusion
+module's; positional dropout is the embeddings'). No interCTC taps (the
+flagship uses none).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -24,6 +30,15 @@ from tailored_avsr_tpu_torch.ops.cgmlp import ConvolutionalGatingMLP
 from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
 
 _LN_EPS = 1e-6  # flax LayerNorm default
+
+
+def _per_layer(value, num_blocks: int, name: str) -> list:
+    """A rate for every layer: one value for all, or one per layer."""
+    if isinstance(value, (int, float)):
+        return [float(value)] * num_blocks
+    if len(value) != num_blocks:
+        raise ValueError(f"{name} needs one entry per block, got {len(value)} for {num_blocks}")
+    return [float(v) for v in value]
 
 
 class TailoredEncoderLayer(nn.Module):
@@ -44,6 +59,7 @@ class TailoredEncoderLayer(nn.Module):
         dropout_rate: float = 0.1,
         use_flash: bool = False,
         use_fused_csgu: bool = False,
+        stochastic_depth_rate: float = 0.0,
         *,
         device=None,
         dtype=None,
@@ -51,6 +67,7 @@ class TailoredEncoderLayer(nn.Module):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.macaron = macaron
+        self.stochastic_depth_rate = float(stochastic_depth_rate)
         if macaron:
             self.feed_forward_macaron = PositionwiseFeedForward(
                 size, linear_units, dropout_rate, ffn_activation, **kw)
@@ -75,7 +92,7 @@ class TailoredEncoderLayer(nn.Module):
             setattr(self, f"{prefix}_norm_{'mha' if attn else 'cgmlp'}",
                     nn.LayerNorm(size, eps=_LN_EPS, **kw))
 
-    def _branch(self, prefix: str, x, pos_emb, mask):
+    def _branch(self, prefix: str, x, pos_emb, mask, coeff: float):
         attn = self.use_attn[prefix]
         norm = getattr(self, f"{prefix}_norm_{'mha' if attn else 'cgmlp'}")
         h = norm(x)
@@ -83,12 +100,18 @@ class TailoredEncoderLayer(nn.Module):
             h = getattr(self, f"{prefix}_attn")(h, h, h, pos_emb, mask)
         else:
             h = getattr(self, f"{prefix}_cgmlp")(h)
-        return x + self.dropout(h)
+        return x + coeff * self.dropout(h)
 
     def _ffn(self, ffn, norm, x):
         return x + 0.5 * self.dropout(ffn(norm(x)))
 
-    def forward(self, audio, audio_pos_emb, audio_mask, video, video_pos_emb, video_mask):
+    def forward(self, audio, audio_pos_emb, audio_mask, video, video_pos_emb, video_mask,
+                generator: Optional[torch.Generator] = None):
+        coeff = 1.0
+        if self.training and self.stochastic_depth_rate > 0.0:
+            if float(torch.rand((), generator=generator)) < self.stochastic_depth_rate:
+                return audio, video  # the layer is skipped this step
+            coeff = 1.0 / (1.0 - self.stochastic_depth_rate)
         stack = audio.shape == video.shape
         b = audio.shape[0]
         a, v = audio, video
@@ -99,8 +122,8 @@ class TailoredEncoderLayer(nn.Module):
             else:
                 a = self._ffn(self.feed_forward_macaron, self.norm_ff_macaron, a)
                 v = self._ffn(self.feed_forward_macaron, self.norm_ff_macaron, v)
-        a = self._branch("acoustic", a, audio_pos_emb, audio_mask)
-        v = self._branch("visual", v, video_pos_emb, video_mask)
+        a = self._branch("acoustic", a, audio_pos_emb, audio_mask, coeff)
+        v = self._branch("visual", v, video_pos_emb, video_mask, coeff)
         if stack:
             av = self.norm_final(self._ffn(self.feed_forward, self.norm_ff, torch.cat([a, v], 0)))
             a, v = av.split(b)
@@ -129,6 +152,9 @@ class TailoredEncoder(nn.Module):
         macaron: bool = True,
         use_flash: bool = False,
         use_fused_csgu: bool = False,
+        stochastic_depth_rate: Union[float, Sequence[float]] = 0.0,
+        acoustic_branch_drop_rate: Union[float, Sequence[float]] = 0.0,
+        positional_dropout_rate: float = 0.1,
         *,
         device=None,
         dtype=None,
@@ -137,13 +163,16 @@ class TailoredEncoder(nn.Module):
         kw = {"device": device, "dtype": dtype}
         if len(acoustic_use_attn) != num_blocks or len(visual_use_attn) != num_blocks:
             raise ValueError("acoustic_use_attn / visual_use_attn need one entry per block")
+        self.positional_dropout_rate = positional_dropout_rate
+        self.acoustic_branch_drop_rate = acoustic_branch_drop_rate
+        sdr = _per_layer(stochastic_depth_rate, num_blocks, "stochastic_depth_rate")
         self.modality_encoding = nn.Embedding(2, output_size, **kw)
         self.encoders = nn.ModuleList(
             TailoredEncoderLayer(
                 output_size, acoustic_use_attn[i], visual_use_attn[i], attention_heads,
                 attention_dropout_rate, cgmlp_linear_units, cgmlp_conv_kernel,
                 use_linear_after_conv, gate_activation, linear_units, ffn_activation_type,
-                macaron, dropout_rate, use_flash, use_fused_csgu, **kw,
+                macaron, dropout_rate, use_flash, use_fused_csgu, sdr[i], **kw,
             )
             for i in range(num_blocks)
         )
@@ -157,11 +186,14 @@ class TailoredEncoder(nn.Module):
         video: torch.Tensor,
         video_pos_emb: torch.Tensor,
         video_mask: Optional[torch.Tensor],
+        generator: Optional[torch.Generator] = None,
     ):
-        """Returns (audio, audio_mask, video, video_mask), both after ``after_norm``."""
+        """Returns (audio, audio_mask, video, video_mask), both after
+        ``after_norm``; ``generator`` (CPU) draws the stochastic-depth coins."""
         mod = self.modality_encoding.weight
         audio = audio + mod[0].to(audio.dtype)
         video = video + mod[1].to(video.dtype)
         for layer in self.encoders:
-            audio, video = layer(audio, audio_pos_emb, audio_mask, video, video_pos_emb, video_mask)
+            audio, video = layer(audio, audio_pos_emb, audio_mask, video, video_pos_emb, video_mask,
+                                 generator)
         return self.after_norm(audio), audio_mask, self.after_norm(video), video_mask

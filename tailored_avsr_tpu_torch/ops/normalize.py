@@ -16,11 +16,12 @@ class UtteranceMVN(nn.Module):
     only (``normalize_conf: norm_means true / norm_vars false``).
     """
 
-    def __init__(self, norm_means: bool = True, norm_vars: bool = False):
+    def __init__(self, norm_means: bool = True, norm_vars: bool = False, eps: float = 1.0e-20):
         super().__init__()
         if norm_vars:
             raise NotImplementedError("UtteranceMVN norm_vars=True is not ported")
         self.norm_means = norm_means
+        self.eps = eps  # read only by the variance normalisation
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor):
         """(B, T, F), (B,) -> normalised over the valid frames of each utterance."""

@@ -4,11 +4,19 @@
 Ported: the default log-mel frontend, utterance MVN, the conv3dresnet18
 visual frontend, default embeddings with rel-pos, the tailored encoder,
 adaptive fusion, the CTC head, the ``transformer`` attention decoder
-(built unless ``model_conf.ctc_weight`` is 1.0, as in the JAX task) and the
-``espnet`` model. Any other choice raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item ("Modules to port") that will port it. Training-only
-settings (SpecAug, loss weights) are not read; dropout rates are kept and
-inert in eval mode.
+(built unless ``model_conf.ctc_weight`` is 1.0, as in the JAX task), SpecAug
+and the ``espnet`` model with its loss settings (``model_conf``). Any other
+choice raises ``NotImplementedError`` naming the ``ROADMAP.md`` item
+("Modules to port") that will port it.
+
+A config key reaches a constructor as in ``tailored_avsr_tpu/tasks/common.py``
+(``filter_conf``): a key the port's constructor takes is passed; a key the
+JAX constructor takes and the port's does not is listed in the section's
+``*_FIXED`` table and must hold a value the port builds (else it raises
+naming its item); any other key is one the JAX constructor drops too, and is
+dropped here after the same check of ``positionwise_layer_type`` and
+``ctc_type``. ``tests/test_torch_port_train.py`` holds the tables to the JAX
+constructors' fields.
 """
 
 from __future__ import annotations
@@ -28,20 +36,37 @@ from tailored_avsr_tpu_torch.models.fusion import AdaptiveAudioVisualFusion
 from tailored_avsr_tpu_torch.models.tailored import TailoredEncoder
 from tailored_avsr_tpu_torch.ops.frontend_audio import LogMelFrontend
 from tailored_avsr_tpu_torch.ops.normalize import UtteranceMVN
+from tailored_avsr_tpu_torch.ops.specaug import SpecAug
 from tailored_avsr_tpu_torch.utils.initialize import init_params_
 
-# encoder_conf keys whose other values are not ported (ROADMAP item 8)
-_ENCODER_FIXED = {
-    "attention_layer_type": ("rel_selfattn",),
-    "zero_triu": (False,),
-    "normalize_before": (True,),
-    "interctc_use_conditioning": (False,),
-    "audiovisual_interctc_conditioning": (False,),
-    "interctc_layer_idx": ((),),
-    "positionwise_layer_type": (None, "linear"),
+# Keys a JAX constructor takes and the port's does not: (values the port
+# builds, ROADMAP item that ports the others).
+ENCODER_FIXED = {
+    "attention_layer_type": (("rel_selfattn",), 8),
+    "zero_triu": ((False,), 8),
+    "normalize_before": ((True,), 8),
+    "interctc_use_conditioning": ((False,), 8),
+    "audiovisual_interctc_conditioning": ((False,), 8),
+    "interctc_layer_idx": (((),), 8),
 }
-# decoder_conf keys whose other values are not ported (ROADMAP item 8)
-_DECODER_FIXED = {"use_output_layer": (True,), "layer_variant": ("transformer",)}
+DECODER_FIXED = {
+    "use_output_layer": ((True,), 8),
+    "layer_variant": (("transformer",), 8),
+    # read only by the conv layer variants
+    "conv_kernel_length": (None, 8),
+    "conv_wshare": (None, 8),
+    "conv_usebias": (None, 8),
+}
+VISUAL_FRONTEND_FIXED = {
+    "bn_axis_name": ((None,), 9),  # cross-replica BatchNorm: data parallel
+    "stem_s2d": (None, 8),  # the TPU's evaluation of the same stem weights
+}
+# keys that both packages drop, and the values they may hold
+# (``tailored_avsr_tpu/tasks/common.py:_DROPPED_KEY_ALLOWED``)
+DROPPED_KEY_ALLOWED = {
+    "positionwise_layer_type": (None, "linear"),
+    "ctc_type": ("builtin", "builtin2"),
+}
 
 
 def _not_ported(what: str, value, item: int) -> NotImplementedError:
@@ -53,10 +78,18 @@ def _require(what: str, value, allowed, item: int) -> None:
         raise _not_ported(what, value, item)
 
 
+def check_dropped_key(owner: str, key: str, value) -> None:
+    allowed = DROPPED_KEY_ALLOWED.get(key)
+    if allowed is not None and value not in allowed:
+        raise NotImplementedError(
+            f"{owner} config key {key}={value!r} is not supported (supported values: {allowed})")
+
+
 def _conf(cls, conf: Optional[Dict], fixed: Optional[Dict] = None, **extra) -> Dict:
-    """Constructor arguments of ``cls`` from a config section; keys in
-    ``fixed`` must hold one of its values, other keys (training-only) are
-    dropped."""
+    """Constructor arguments of ``cls`` from a config section. A key of
+    ``fixed`` (one the JAX constructor takes and the port's does not) must
+    hold one of its values (None: any); other keys unknown to ``cls`` are
+    dropped, as the JAX task drops them."""
     names = set(inspect.signature(cls.__init__).parameters) - {"self", "device", "dtype"}
     kept = {}
     for k, v in {**(conf or {}), **extra}.items():
@@ -64,7 +97,11 @@ def _conf(cls, conf: Optional[Dict], fixed: Optional[Dict] = None, **extra) -> D
         if k in names:
             kept[k] = v
         elif fixed and k in fixed:
-            _require(f"{cls.__name__} {k}", v, fixed[k], 8)
+            allowed, item = fixed[k]
+            if allowed is not None:
+                _require(f"{cls.__name__} {k}", v, allowed, item)
+        else:
+            check_dropped_key(cls.__name__, k, v)
     return kept
 
 
@@ -126,7 +163,7 @@ def build_model(
     acoustic_frontend = LogMelFrontend(**_conf(LogMelFrontend, _cfg(config, "acoustic_frontend_conf", {})))
     normalize = UtteranceMVN(**_conf(UtteranceMVN, _cfg(config, "normalize_conf", {})))
     visual_frontend = Conv3dResNet18(
-        **_conf(Conv3dResNet18, _cfg(config, "visual_frontend_conf", {})), **kw)
+        **_conf(Conv3dResNet18, _cfg(config, "visual_frontend_conf", {}), VISUAL_FRONTEND_FIXED), **kw)
     encoder_conf = dict(_cfg(config, "encoder_conf", {}))
     size = int(encoder_conf.get("output_size", 256))
     acoustic_embed = DefaultEmbeddingLayerForAVSR(
@@ -139,17 +176,22 @@ def build_model(
                 input_size=visual_frontend.output_size(), output_size=size,
                 input_layer=_cfg(config, "visual_embed_conf", {}).get("input_layer", "linear")),
         **kw)
-    encoder = TailoredEncoder(**_conf(TailoredEncoder, encoder_conf, _ENCODER_FIXED), **kw)
+    encoder = TailoredEncoder(**_conf(TailoredEncoder, encoder_conf, ENCODER_FIXED), **kw)
     fusion = AdaptiveAudioVisualFusion(
         **_conf(AdaptiveAudioVisualFusion, _cfg(config, "audiovisual_fusion_conf", {}),
                 output_size=size), **kw)
-    ctc = CTCHead(size, len(token_list),
-                  float(_cfg(config, "ctc_conf", {}).get("dropout_rate", 0.0)), **kw)
+    ctc_conf = dict(_cfg(config, "ctc_conf", {}))
+    check_dropped_key("ctc_conf", "ctc_type", ctc_conf.get("ctc_type", "builtin"))
+    ctc = CTCHead(size, len(token_list), float(ctc_conf.get("dropout_rate", 0.0)), **kw)
+    specaug = None
+    if _cfg(config, "specaug", "none") != "none":
+        _require("specaug", config.specaug, ("specaug",), 8)
+        specaug = SpecAug(**_conf(SpecAug, _cfg(config, "specaug_conf", {})))
     decoder = None
     if float(model_conf.get("ctc_weight", 0.5)) < 1.0:
         _require("decoder", _cfg(config, "decoder", "transformer") or "transformer", ("transformer",), 8)
         decoder = TransformerDecoder(
-            **_conf(TransformerDecoder, _cfg(config, "decoder_conf", {}), _DECODER_FIXED,
+            **_conf(TransformerDecoder, _cfg(config, "decoder_conf", {}), DECODER_FIXED,
                     vocab_size=len(token_list), encoder_output_size=size), **kw)
     model = AVSRModel(
         vocab_size=len(token_list),
@@ -163,6 +205,11 @@ def build_model(
         normalize=normalize,
         ignore_id=int(model_conf.get("ignore_id", -1)),
         decoder=decoder,
+        specaug=specaug,
+        # model_conf interctc_weight weighs interCTC taps, which are refused
+        ctc_weight=float(model_conf.get("ctc_weight", 0.5)),
+        lsm_weight=float(model_conf.get("lsm_weight", 0.0)),
+        length_normalized_loss=bool(model_conf.get("length_normalized_loss", False)),
     )
     return materialize(model, generator, resolve_device(device, "build_model"), dtype)
 
