@@ -91,12 +91,32 @@ Run from the repository root on a machine with one CUDA card:
    norm within ``CARD_VS_CPU_RTOL``. Then a learning canary: the 64-d tiny
    model memorises 4 tone-spelled utterances to greedy CER below the CPU
    canary's 20 %.
-9. Prints one JSON line of train numbers, one JSON line of per-kernel
-   results (launches: K1-K3 from the greedy path, K4, K5 (the step write)
-   and K5' from the beam path, K6 from the int8 beam path; P1 counted over
-   both beam paths, where no serving code may launch it; beside them the
-   train path's launches in its train steps and in its eval step), then
-   the result line ``{"ok": true, "device": {...}}`` last.
+9. Branchformer family (``branchformer_phase``), the paper's own models at
+   full width (12 blocks, 256-d, 6 decoder layers; seeded weights;
+   ``use_flash`` and ``use_fused_csgu`` on), each path with its counts set
+   to 0 before it and read after: the ASR Branchformer
+   (``configs/ASR/branchformer_transformer+ctc_spanish.yaml``, int16
+   audio) serves greedy requests (a) 32 x 4 s (T = 99: K2 and K3 12 times a
+   call) and (b) 24 x 20 s (T = 499: K1 and K3 12 times a call), then the
+   beam + LM at (a) (beam 10, ctc 0.1, lm 0.4: the flagship beam phase's,
+   not the config's beam 30), f32 through K4 held to the plain group attend
+   (1-best equal, scores within 1e-3); the VSR Branchformer (uint8 lip
+   crops, 100 frames) and the conventional AVSR encoder (two Branchformer
+   stacks: K2 and K3 24 times a call) serve greedy request (a). Each
+   greedy request in f32 runs through the kernels and on the eager path of
+   the same engine: ids identical, CTC log-probs within 1e-3, every
+   layer's learned branch weights within 1e-4. bf16 walls (five warm
+   calls) and one profiled call each. Then 16 ASR training micro-steps at
+   the config's settings (4 x 20 s, accum_grad 16: one update) in bf16
+   autocast: no kernel launched, finite, every parameter moved.
+10. Prints one JSON line of train numbers, one of the Branchformer
+   family's numbers, one JSON line of per-kernel results (launches: K1-K3
+   from the greedy path, K4, K5 (the step write) and K5' from the beam
+   path, K6 from the int8 beam path; P1 counted over both beam paths,
+   where no serving code may launch it; beside them the train path's
+   launches in its train steps and in its eval step, and each
+   Branchformer path's), then the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 Any failed phase raises, so the run exits non-zero and prints no result line.
 Nothing here imports JAX.
@@ -807,9 +827,21 @@ def _serve(engine, name: str, batch: dict) -> list:
     after = _counts()
     launched = {k: after[k] - before[k] for k in ("K1", "K2", "K3")}
     print(f"  {name}: {wall * 1e3:.1f} ms wall, launches {launched}")
-    if len(hyps) != len(batch["audio"]):
-        raise AssertionError(f"{name}: {len(hyps)} transcripts for {len(batch['audio'])} utterances")
+    if len(hyps) != _utterances(batch):
+        raise AssertionError(f"{name}: {len(hyps)} transcripts for {_utterances(batch)} utterances")
     return hyps
+
+
+def _utterances(batch: dict) -> int:
+    return len(batch["audio_lengths" if "audio_lengths" in batch else "speech_lengths"])
+
+
+def _speech_seconds(batch: dict) -> float:
+    """Seconds of speech in a request: audio samples at 16 kHz, or (a VSR
+    request) lip frames at 25 fps."""
+    if "audio_lengths" in batch:
+        return float(np.sum(batch["audio_lengths"])) / 16000
+    return float(np.sum(batch["speech_lengths"])) / (16000 if batch["speech"].ndim == 2 else 25)
 
 
 def _ctc(engine, batch: dict):
@@ -946,15 +978,15 @@ def _nbest(engine, name: str, batch: dict) -> list:
     wall = time.perf_counter() - t0
     after = _counts()
     k4, steps, k5_layer, k5p, k6 = (after[k] - before[k] for k in ("K4", "K5", "K5 layer", "K5'", "K6"))
-    speech = float(np.sum(batch["audio_lengths"])) / 16000
+    speech = _speech_seconds(batch)
     print(f"  {name}: {wall * 1e3:.1f} ms wall, {steps} beam steps, "
           f"{speech / wall:.1f} s of speech per wall second, launches K4 {k4} K5 (step write) {steps} K6 {k6}")
     if k5_layer or k5p or steps <= 0 or (k4 or k6) and k4 + k6 != layers * steps:
         raise AssertionError(f"{name}: the cache writes took {k5_layer} per-layer K5 and {k5p} K5' launches "
                              f"and {steps} step writes for {k4 + k6} group attends over {layers} layers")
     nbest = engine.beam_config.nbest
-    if len(hyps) != len(batch["audio"]) or any(len(h) != nbest for h in hyps):
-        raise AssertionError(f"{name}: expected {len(batch['audio'])} n-best lists of {nbest}")
+    if len(hyps) != _utterances(batch) or any(len(h) != nbest for h in hyps):
+        raise AssertionError(f"{name}: expected {_utterances(batch)} n-best lists of {nbest}")
     if not all(np.isfinite(h[3]) for hs in hyps for h in hs):
         raise AssertionError(f"{name}: a hypothesis has no finite score")
     return hyps
@@ -1729,6 +1761,286 @@ def learning_canary(device, steps: int = CANARY_STEPS) -> dict:
     return {"steps": i, "best_cer": best, "first_loss": first, "last_loss": last}
 
 
+# ---------------------------------------------------------------- the Branchformer family
+# The paper's own models at full width (12 blocks, 256-d, 6 decoder layers),
+# seeded weights, use_flash and use_fused_csgu on as in the flagship phase:
+# the audio-only ASR and video-only VSR Branchformers (learned_ave merges:
+# the branch scores) and the conventional AVSR encoder (two Branchformer
+# stacks). Each path's launch counts are set to 0 before it and read after.
+
+ASR_CONFIG = os.path.join(ROOT, "configs/ASR/branchformer_transformer+ctc_spanish.yaml")
+VSR_CONFIG = os.path.join(ROOT, "configs/VSR/conv3dresnet18_branchformer_transformer+ctc_spanish.yaml")
+CONVENTIONAL_CONFIG = os.path.join(ROOT, "configs/AVSR/conventional_transformer+ctc_spanish.yaml")
+# f32 through the kernels against the eager path on the same engine: greedy
+# ids identical, CTC log-probs as the flagship's gate, every layer's learned
+# branch weights (softmaxes of pooled f32 logits: the kernels move them by
+# f32 rounding, ~1e-6)
+FAMILY_LOGP_ATOL = 1e-3
+FAMILY_WEIGHT_ATOL = 1e-4
+ASR_TRAIN_MICRO_STEPS = 16  # the config's accum_grad: one optimizer update
+
+
+def _family_engine(path: str, device, dtype: str, lm: bool = False, **inference_conf):
+    """A Branchformer-family serving engine from the repo's config, seeded
+    weights, the encoder kernels on; with ``lm`` the 16-layer LM too."""
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    cfg = load_config(path)
+    cfg.token_list = os.path.join(ROOT, cfg.token_list)
+    cfg.dtype = dtype
+    cfg.encoder_conf = dict(cfg.encoder_conf, use_flash=True, use_fused_csgu=True)
+    cfg.inference_conf = dict(cfg.inference_conf, **inference_conf)
+    lm_cfg = None
+    if lm:
+        lm_cfg = load_config(LM_CONFIG)
+        lm_cfg.token_list = os.path.join(ROOT, lm_cfg.token_list)
+    return Speech2Text(cfg, lm_config=lm_cfg, rng_seed=0, device=device)
+
+
+def _speech_request(seed: int, batch: int, seconds: int, kind: str) -> dict:
+    """A single-stream request as a client sends it: int16 audio at 16 kHz
+    (``asr``) or uint8 88x88 lip crops at 25 fps (``vsr``), lengths between
+    60 % and 100 % of the buffer."""
+    rs = np.random.RandomState(seed)
+    frac = rs.uniform(0.6, 1.0, batch)
+    frac[0] = 1.0
+    if kind == "asr":
+        samples = seconds * 16000
+        return {"speech": np.clip(rs.randn(batch, samples) * 3000, -32768, 32767).astype(np.int16),
+                "speech_lengths": (frac * samples).astype(np.int32)}
+    frames = seconds * 25
+    return {"speech": rs.randint(0, 256, (batch, frames, 88, 88)).astype(np.uint8),
+            "speech_lengths": np.ceil(frac * frames).astype(np.int32)}
+
+
+def _flat_weights(branch_weights) -> dict:
+    """``[(layer, aux)]`` (aux per modality for the conventional encoder) ->
+    {"layer l [modality] weight_*": (B,) tensor}."""
+    flat = {}
+    for layer, aux in branch_weights:
+        for key, value in aux.items():
+            for sub, w in (value.items() if isinstance(value, dict) else [("", value)]):
+                flat[f"layer {layer} {key} {sub}".strip()] = w
+    return flat
+
+
+def _family_outputs(engine, batch: dict):
+    """(greedy ids, CTC log-probs, encoder lengths, flat branch weights) of
+    one request; the encoder output must be a finite (B, T, d_model)."""
+    with torch.inference_mode():
+        enc, lens, aux = engine.model.encode(*engine.inputs(batch))
+        logp = engine.model.ctc.log_softmax(enc)
+        ids = engine.model.ctc.argmax(enc)
+    want = (_utterances(batch), engine.model.ctc.ctc_lo.in_features)
+    if (enc.shape[0], enc.shape[2]) != want or not bool(torch.isfinite(logp).all()):
+        raise AssertionError(f"encoder output {tuple(enc.shape)} is not a finite (B, T, D) with (B, D) {want}")
+    return ids, logp, lens, _flat_weights(aux.get("branch_weights", []))
+
+
+def _family_serve(engine, name: str, batch: dict, expect: dict) -> list:
+    """One ``Speech2Text.greedy`` call whose K1-K3 launches must be ``expect``."""
+    before = _counts()
+    hyps = _serve(engine, name, batch)
+    launched = {k: _counts()[k] - before[k] for k in expect}
+    if launched != expect:
+        raise AssertionError(f"{name}: launches {launched}, expected {expect}")
+    return hyps
+
+
+def _family_gate(engine, name: str, batch: dict, expect: dict) -> None:
+    """An f32 engine's request through the kernels (launches ``expect``), then
+    on the eager path (kernels off, no launch) on the same weights: greedy
+    ids identical, CTC log-probs within FAMILY_LOGP_ATOL, every learned
+    branch weight within FAMILY_WEIGHT_ATOL."""
+    _family_serve(engine, f"f32 {name}", batch, expect)
+    ids_k, logp_k, lens_k, w_k = _family_outputs(engine, batch)
+    _set_kernels(engine.model, False)
+    try:
+        _family_serve(engine, f"f32 eager {name}", batch, dict.fromkeys(expect, 0))
+        ids_e, logp_e, lens_e, w_e = _family_outputs(engine, batch)
+    finally:
+        _set_kernels(engine.model, True)
+    valid = torch.arange(ids_k.shape[1], device=ids_k.device)[None] < lens_k[:, None]
+    same = bool(torch.equal(lens_k, lens_e)) and bool((ids_k == ids_e)[valid].all())
+    dlogp = float((logp_k - logp_e).abs()[valid].max())
+    dw = max((float((w_k[k].float() - w_e[k].float()).abs().max()) for k in w_e), default=0.0)
+    print(f"  f32 {name}: greedy ids identical to the eager path: {same}; max |CTC log-prob diff| {dlogp:.3e} "
+          f"(tol {FAMILY_LOGP_ATOL:g}); {len(w_e)} learned branch weights, max |diff| {dw:.3e} "
+          f"(tol {FAMILY_WEIGHT_ATOL:g})")
+    if not same or dlogp > FAMILY_LOGP_ATOL or set(w_k) != set(w_e) or not w_e or dw > FAMILY_WEIGHT_ATOL:
+        raise AssertionError(f"f32 {name}: the kernel path disagrees with the eager path")
+
+
+def _path_counts(what: str, required: tuple) -> dict:
+    """The counts of a path (set to 0 before it); each ``required`` kernel
+    must have launched."""
+    counts = _counts()
+    print(f"  launches over the {what} path: {counts}")
+    if min(counts[k] for k in required) <= 0:
+        raise AssertionError(f"a kernel of the {what} path never launched: {counts}")
+    return counts
+
+
+def asr_phase(device) -> dict:
+    """ASR greedy at (a) 32 x 4 s (T = 99: K2, K3) and (b) 24 x 20 s (T = 499:
+    K1, K3), 12 launches of each a call; the f32 gate at both; bf16 walls and
+    a profiled call; then the ASR beam + LM at (a), f32 through K4 held to
+    the plain group attend, one bf16 call timed."""
+    out = {}
+    req_a, req_b = _speech_request(1, 32, 4, "asr"), _speech_request(2, 24, 20, "asr")
+    expect_a, expect_b = {"K1": 0, "K2": 12, "K3": 12}, {"K1": 12, "K2": 0, "K3": 12}
+    # the beam phase's settings (beam 10, ctc 0.1, lm 0.4); the config's
+    # beam_size 30 is not what the flagship's beam phase serves
+    bf16 = _family_engine(ASR_CONFIG, device, "bfloat16", lm=True, beam_size=10)
+    f32 = _family_engine(ASR_CONFIG, device, "float32", lm=True, beam_size=10, nbest=2)
+    print("ASR path: Branchformer (12 blocks, 256-d, learned_ave), log-mel + conv2d, seeded weights, int16 audio")
+    _reset_counts()
+    hyp_a = _family_serve(bf16, "bf16 ASR request (a) 32 x 4 s, T=99 (first call)", req_a, expect_a)
+    hyp_b = _family_serve(bf16, "bf16 ASR request (b) 24 x 20 s, T=499 (first call)", req_b, expect_b)
+    print(f"  sample transcripts: (a) {hyp_a[0][:40]!r}  (b) {hyp_b[0][:40]!r}")
+    _family_gate(f32, "ASR request (a)", req_a, expect_a)
+    _family_gate(f32, "ASR request (b)", req_b, expect_b)
+    out["greedy_a"] = greedy_profile(bf16, req_a, "bf16 ASR request (a) 32 x 4 s")
+    out["greedy_b"] = greedy_profile(bf16, req_b, "bf16 ASR request (b) 24 x 20 s")
+    out["greedy_launches"] = _path_counts("ASR greedy", ("K1", "K2", "K3"))
+
+    print("ASR beam path: + 16-layer 512-d LM, beam 10, ctc 0.1, lm 0.4, request (a)")
+    _reset_counts()
+    _nbest(bf16, "bf16 ASR beam (first call)", req_a)
+    hyp_bf16 = _nbest(bf16, "bf16 ASR beam", req_a)
+    hyp_f32 = _nbest(f32, "f32 ASR beam", req_a)
+    before = _counts()["K4"]
+    f32.fused_group_attend = False  # the plain group attend on the card
+    hyp_plain = _nbest(f32, "f32 ASR beam, plain group attend", req_a)
+    f32.fused_group_attend = None
+    if _counts()["K4"] != before:
+        raise AssertionError("fused_group_attend: false launched the group-attend kernel")
+    _held_against_plain(hyp_f32, hyp_plain, "K4")
+    print(f"  sample 1-best: bf16 {hyp_bf16[0][0][0][:40]!r}  f32 {hyp_f32[0][0][0][:40]!r}")
+    out["beam_launches"] = _path_counts("ASR beam", ("K2", "K3", "K4", "K5"))
+    return out
+
+
+def vsr_phase(device) -> dict:
+    """VSR greedy at (a): 32 x 100 uint8 lip frames (T = 100: K2, K3, 12 a
+    call), the f32 gate, bf16 walls and a profiled call."""
+    req = _speech_request(1, 32, 4, "vsr")
+    expect = {"K1": 0, "K2": 12, "K3": 12}
+    bf16 = _family_engine(VSR_CONFIG, device, "bfloat16")
+    f32 = _family_engine(VSR_CONFIG, device, "float32")
+    print("VSR path: Conv3D + ResNet-18, Branchformer (12 blocks, 256-d, learned_ave), seeded weights, uint8 video")
+    _reset_counts()
+    hyp = _family_serve(bf16, "bf16 VSR request (a) 32 x 100 frames, T=100 (first call)", req, expect)
+    print(f"  sample transcript: {hyp[0][:40]!r}")
+    _family_gate(f32, "VSR request (a)", req, expect)
+    out = {"greedy_a": greedy_profile(bf16, req, "bf16 VSR request (a) 32 x 100 frames")}
+    out["greedy_launches"] = _path_counts("VSR greedy", ("K2", "K3"))
+    return out
+
+
+def conventional_phase(device) -> dict:
+    """Conventional AVSR greedy at (a) (two 12-layer Branchformer stacks:
+    K2 24 and K3 24 a call), the f32 gate, bf16 walls and a profiled call."""
+    req = _request(1, 32, 4)
+    expect = {"K1": 0, "K2": 24, "K3": 24}
+    bf16 = _family_engine(CONVENTIONAL_CONFIG, device, "bfloat16")
+    f32 = _family_engine(CONVENTIONAL_CONFIG, device, "float32")
+    print("conventional AVSR path: two Branchformer stacks (12 blocks each, 256-d, learned_ave), adaptive fusion")
+    _reset_counts()
+    hyp = _family_serve(bf16, "bf16 conventional request (a) 32 x 4 s, T=100 (first call)", req, expect)
+    print(f"  sample transcript: {hyp[0][:40]!r}")
+    _family_gate(f32, "conventional request (a)", req, expect)
+    out = {"greedy_a": greedy_profile(bf16, req, "bf16 conventional request (a) 32 x 4 s")}
+    out["greedy_launches"] = _path_counts("conventional greedy", ("K2", "K3"))
+    return out
+
+
+def _asr_train_batch(seed: int, batch: int, seconds: float, vocab: int, chars: tuple, device) -> tuple:
+    """An ASR training batch as the port's loader hands it over: seeded int16
+    audio / 32768, -1 past each length (85-100 % of the buffer), ``chars``
+    characters of seeded text, -1 padded."""
+    rs = np.random.RandomState(seed)
+    samples = int(seconds * 16000)
+    frac = rs.uniform(0.85, 1.0, batch)
+    frac[0] = 1.0
+    lens = torch.from_numpy((frac * samples).astype(np.int64) // 640 * 640).to(device)
+    audio = torch.from_numpy(np.clip(rs.randn(batch, samples) * 3000, -32768, 32767).astype(np.int16))
+    audio = audio.to(device).float() / 32768.0
+    audio = torch.where(torch.arange(samples, device=device)[None] < lens[:, None], audio, -1.0)
+    text_lens = rs.randint(chars[0], chars[1] + 1, batch)
+    text = np.full((batch, int(text_lens.max())), -1, np.int64)
+    for i, n in enumerate(text_lens):
+        text[i, :n] = rs.randint(3, vocab - 1, n)
+    return audio, lens, torch.from_numpy(text).to(device), torch.from_numpy(text_lens).to(device)
+
+
+def asr_train_phase(device) -> dict:
+    """ASR training micro-steps at the config's settings (4 x 20 s, Adam +
+    Noam, accum_grad 16: one update) in bf16 autocast over f32 master
+    weights: no kernel launched, losses and gradients finite, every
+    parameter moved by the update."""
+    from tailored_avsr_tpu_torch.inference import load_token_list
+    from tailored_avsr_tpu_torch.tasks.asr import build_model
+    from tailored_avsr_tpu_torch.train.loop import create_train_state, make_train_step
+    from tailored_avsr_tpu_torch.train.optim import set_optimizer
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    cfg = load_config(ASR_CONFIG)
+    cfg.token_list = os.path.join(ROOT, cfg.token_list)
+    cfg.encoder_conf = dict(cfg.encoder_conf, use_flash=True, use_fused_csgu=True)
+    ts = cfg.training_settings
+    tokens = load_token_list(cfg.token_list)
+    model = build_model(cfg, tokens, generator=torch.Generator().manual_seed(0), device=device, dtype=torch.float32)
+    opt, _ = set_optimizer(ts, int(cfg.encoder_conf["output_size"]), 1, model.named_parameters())
+    state = create_train_state(model, opt)
+    if ASR_TRAIN_MICRO_STEPS != state.optimizer.accum_grad:
+        raise AssertionError(f"accum_grad {state.optimizer.accum_grad}: the phase runs one update")
+    seconds = ts["nframes"] / 25
+    chars = (int(12.5 * seconds), int(15 * seconds))  # 250-300: CTC-feasible at T = 499
+    batches = [_asr_train_batch(30 + k, ts["batch_size"], seconds, len(tokens), chars, device) for k in range(4)]
+    params0 = [p.detach().clone() for p in model.parameters()]
+    print(f"ASR train path: {sum(p.numel() for p in params0) / 1e6:.1f}M parameters, batch {ts['batch_size']} x "
+          f"{seconds:g} s, Adam + Noam, accum_grad {ts['accum_grad']}, bf16 autocast over f32 master weights")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    walls = []
+    losses = _train_micro_steps(state, make_train_step(torch.bfloat16), batches, 1, ASR_TRAIN_MICRO_STEPS, walls)
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"an ASR train step launched a forward-only kernel: {launches}")
+    names = [n for n, _ in model.named_parameters()]
+    still = [n for n, p, p0 in zip(names, model.parameters(), params0) if torch.equal(p, p0)]
+    if state.optimizer.count != 1 or still or not _finite(model.parameters()):
+        raise AssertionError(f"{state.optimizer.count} updates; parameters not moved: {still[:8]}")
+    warm = walls[2:]
+    med = float(np.median(warm))
+    speech = float(sum(b[1].sum() for b in batches)) / len(batches) / 16000
+    out = {"micro_step_ms_median": med, "micro_step_ms_p10": float(np.percentile(warm, 10)),
+           "micro_step_ms_p90": float(np.percentile(warm, 90)), "speech_s_per_wall_s": speech / (med / 1e3),
+           "peak_bytes": int(torch.cuda.max_memory_allocated()), "first_loss": losses[0], "last_loss": losses[-1],
+           "launches": launches}
+    print(f"  {ASR_TRAIN_MICRO_STEPS} micro-steps: losses {losses[0]:.2f} -> {losses[-1]:.2f}, finite; launches "
+          f"{launches} (all 0); all {len(names)} parameters moved by the update; warm micro-step wall ms median "
+          f"{med:.1f} (p10 {out['micro_step_ms_p10']:.1f}, p90 {out['micro_step_ms_p90']:.1f}); "
+          f"{out['speech_s_per_wall_s']:.1f} s of speech trained per wall second; max_memory_allocated "
+          f"{out['peak_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+def branchformer_phase(device) -> dict:
+    """The family's paths in turn, the engines freed between them; returns
+    each path's numbers and launch counts."""
+    out = {}
+    for name, phase in (("asr", asr_phase), ("vsr", vsr_phase), ("conventional", conventional_phase),
+                        ("asr_train", asr_train_phase)):
+        t0 = time.perf_counter()
+        out[name] = phase(device)
+        torch.cuda.empty_cache()
+        print(f"  ({name} phase: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU", file=sys.stderr)
@@ -1795,14 +2107,25 @@ def main() -> int:
     canary = learning_canary(device)
     train_launches, eval_launches = train.pop("train_launches"), train.pop("eval_launches")
     print(json.dumps({"train": {**train, "canary": canary}}))
+    torch.cuda.empty_cache()
+    family = branchformer_phase(device)
+    family_launches = {
+        "asr_greedy": family["asr"].pop("greedy_launches"), "asr_beam": family["asr"].pop("beam_launches"),
+        "vsr_greedy": family["vsr"].pop("greedy_launches"),
+        "conventional_greedy": family["conventional"].pop("greedy_launches"),
+        "asr_train_steps": family["asr_train"].pop("launches"),
+    }
+    print(json.dumps({"branchformer": family}))
 
     kernels = []
     for key, (name, source, replaces) in sources.items():
-        # launches: the serving path's; the train path's beside them (its
-        # train steps, then its one eval step)
+        # launches: the flagship serving path's; the train path's beside them
+        # (its train steps, then its one eval step); then the Branchformer
+        # family's paths
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[key], **phases[key, "bf16"],
-                        "launches_train_steps": train_launches[key], "launches_eval_step": eval_launches[key]})
+                        "launches_train_steps": train_launches[key], "launches_eval_step": eval_launches[key],
+                        "launches_branchformer": {path: c[key] for path, c in family_launches.items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

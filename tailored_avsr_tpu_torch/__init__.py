@@ -6,8 +6,11 @@ module of the same path and is held against it on the CPU
 AVSR model's serving: greedy CTC, and the joint CTC/attention beam search
 with Transformer-LM fusion over the ancestry KV cache, whose caches and
 cross-attention memory may be stored as int8 (``cache_dtype`` /
-``mem_dtype: int8``); and its training (hybrid CTC/attention loss, SpecAug,
-Adam + Noam, checkpoints, the data path and the CLI):
+``mem_dtype: int8``); its training (hybrid CTC/attention loss, SpecAug,
+Adam + Noam, checkpoints, the data path and the CLI); and the same serving
+and training for the Branchformer family: the audio-only ASR and
+video-only VSR Branchformers, whose learned branch scores
+``study_branches`` reads, and the conventional AVSR encoder:
 
 - ``ops/``     : frontends, MVN, subsampling, positional encodings, rel-pos
                  and absolute multi-head attention, cgMLP, FFN, the int8
@@ -17,15 +20,18 @@ Adam + Noam, checkpoints, the data path and the CLI):
                  ``group_attend.py``, ``cache_update.py``,
                  ``stream_probe.py``);
 - ``models/``  : Conv3D + ResNet-18 visual frontend, AVSR embeddings, the
-                 tailored encoder, adaptive fusion, CTC head, the Transformer
-                 decoder, the Transformer LM, the AVSR model;
-- ``tasks/``   : config -> model for the flagship combination and its LM;
+                 tailored, Branchformer and conventional encoders, adaptive
+                 fusion, CTC head, the Transformer decoder, the Transformer
+                 LM, the AVSR and ASR / VSR models;
+- ``tasks/``   : config -> model for the avsr, asr and vsr tasks and the LM,
+                 over one registry (``tasks/common.py``);
 - ``decode/``  : greedy CTC collapse, CTC prefix scorer, beam search;
 - ``inference``: ``Speech2Text`` (``greedy``, ``nbest``, ``__call__``);
 - ``train/``   : optimizer and schedules, train and eval steps, checkpoints;
 - ``data/``, ``evaluation/``: tokenizers, transforms, dataset and loader;
                  WER / CER;
 - ``avsr_main``: the training and inference CLI;
+- ``study_branches``: the per-layer branch scores of an ASR / VSR model;
 - ``utils/``   : JAX parameters -> port state dict (the port's own copy of
                  the key-grammar export), seeded initialisation;
 - ``csrc/``    : CUDA C++ sources for ``sm_90a``;

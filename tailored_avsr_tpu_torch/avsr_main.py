@@ -20,10 +20,11 @@ decodes the test set with ``Speech2Text`` and the config's
 SIGTERM / SIGINT stop training at the next step; ``--resume`` re-trains the
 interrupted epoch from the last completed one.
 
-Refused, naming their ``ROADMAP.md`` item: tasks other than avsr (item 8),
-``--ngram-file`` (item 7), training_settings ``data_parallel`` /
-``model_parallel`` > 1 (item 9), ``remat`` and a config ``init`` scheme
-(item 12).
+The config's ``task`` picks the model and the batch keys: ``avsr``
+(audio + video), ``asr`` (audio) or ``vsr`` (video), each a ``speech``
+stream. Refused, naming their ``ROADMAP.md`` item: ``--ngram-file``
+(item 7), training_settings ``data_parallel`` / ``model_parallel`` > 1
+(item 9), ``remat`` and a config ``init`` scheme (item 12).
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ from tailored_avsr_tpu_torch.data.transforms_video import TimeMasking as VideoTi
 from tailored_avsr_tpu_torch.decode.greedy import ctc_greedy_collapse
 from tailored_avsr_tpu_torch.evaluation.wer import cer_from_ids, compute_bootstrap_wer, write_inf_file
 from tailored_avsr_tpu_torch.inference import Speech2Text
-from tailored_avsr_tpu_torch.tasks.avsr import build_model, resolve_device
+from tailored_avsr_tpu_torch.tasks.common import build_model, resolve_device, task_of
 from tailored_avsr_tpu_torch.train.checkpoint import (
     average_models,
     freeze_mask,
@@ -69,17 +70,16 @@ from tailored_avsr_tpu_torch.train.loop import create_train_state, make_eval_ste
 from tailored_avsr_tpu_torch.train.optim import set_optimizer
 from tailored_avsr_tpu_torch.utils.config import load_config, security_checks
 
-BATCH_KEYS = ("audio", "audio_lengths", "video", "video_lengths", "text", "text_lengths")
+BATCH_KEYS = {
+    "asr": ("speech", "speech_lengths", "text", "text_lengths"),
+    "vsr": ("speech", "speech_lengths", "text", "text_lengths"),
+    "avsr": ("audio", "audio_lengths", "video", "video_lengths", "text", "text_lengths"),
+}
 
 
-def batch_tuple(batch: Dict, device: torch.device, mask: str = "none") -> Tuple[torch.Tensor, ...]:
-    """The model's inputs on ``device``; ``mask`` zeroes the audio or video."""
-    arrs = [torch.as_tensor(np.asarray(batch[k])).to(device) for k in BATCH_KEYS]
-    if mask == "audio":
-        arrs[0] = arrs[0] * 0.0
-    if mask == "video":
-        arrs[2] = arrs[2] * 0.0
-    return tuple(arrs)
+def batch_tuple(batch: Dict, task: str, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The model's inputs of ``task`` on ``device``."""
+    return tuple(torch.as_tensor(np.asarray(batch[k])).to(device) for k in BATCH_KEYS[task])
 
 
 def collapse_refs(text, text_lengths) -> List[List[int]]:
@@ -104,16 +104,16 @@ def _check_training_settings(config) -> None:
 
 def run_training(args, config, tokenizer, converter, transforms, device) -> bool:
     """The epoch loop; returns False when a signal stopped it early."""
-    ts = config.training_settings
+    ts, task = config.training_settings, task_of(config)
     _check_training_settings(config)
     model = build_model(config, converter.token_list,
                         generator=torch.Generator().manual_seed(int(ts.get("seed", 0))),
                         device=device, dtype=torch.float32)  # f32 master weights
 
     def loader(path, is_training, audio_tf, video_tf):
-        ds = AVSRDataset(path, task="avsr", nframes_limit=ts.get("nframes") if is_training else None,
+        ds = AVSRDataset(path, task=task, nframes_limit=ts.get("nframes") if is_training else None,
                          is_training=is_training)
-        return AVSRDataLoader(ds, ts["batch_size"], task="avsr", audio_transforms=audio_tf,
+        return AVSRDataLoader(ds, ts["batch_size"], task=task, audio_transforms=audio_tf,
                               video_transforms=video_tf, tokenizer=tokenizer, converter=converter,
                               is_training=is_training, workers=int(ts.get("num_workers", 0) or 0))
 
@@ -140,7 +140,7 @@ def run_training(args, config, tokenizer, converter, transforms, device) -> bool
     def validation(loader):
         tot_loss, n, refs, hyps = 0.0, 0, [], []
         for batch in loader:
-            out = eval_step(state, batch_tuple(batch, device))
+            out = eval_step(state, batch_tuple(batch, task, device))
             tot_loss += float(out["loss"])
             n += 1
             hyps.extend(ctc_greedy_collapse(out["ctc_argmax"].cpu().numpy(),
@@ -176,7 +176,7 @@ def run_training(args, config, tokenizer, converter, transforms, device) -> bool
             sums: Dict[str, float] = {}
             n = 0
             for batch in train_loader:
-                state, stats = train_step(state, batch_tuple(batch, device))
+                state, stats = train_step(state, batch_tuple(batch, task, device))
                 for k in ("loss", "loss_att", "loss_ctc", "acc"):
                     if k in stats:
                         sums[k] = sums.get(k, 0.0) + float(stats[k])
@@ -224,6 +224,7 @@ def run_training(args, config, tokenizer, converter, transforms, device) -> bool
 
 def run_inference(args, config, tokenizer, converter, transforms, device) -> None:
     print("\nINFERENCE PHASE\n")
+    task = task_of(config)
     lm_config = load_config(args.lm_config_file) if args.lm_config_file else None
     s2t = Speech2Text(config, ckpt_path=args.load_checkpoint or None, lm_config=lm_config,
                       lm_ckpt_path=args.load_lm or None, device=device)
@@ -234,8 +235,8 @@ def run_inference(args, config, tokenizer, converter, transforms, device) -> Non
         # affine normalisation), dequantised on the device
         video_tf = Compose([CenterCrop((88, 88)), QuantizeUint8()])
     loader = AVSRDataLoader(
-        AVSRDataset(args.test_dataset, task="avsr", is_training=False),
-        int(inf_conf.get("batch_size", 1)), task="avsr", audio_transforms=transforms["eval_audio"],
+        AVSRDataset(args.test_dataset, task=task, is_training=False),
+        int(inf_conf.get("batch_size", 1)), task=task, audio_transforms=transforms["eval_audio"],
         video_transforms=video_tf, tokenizer=tokenizer, converter=converter, is_training=False,
         workers=int((getattr(config, "training_settings", {}) or {}).get("num_workers", 0) or 0))
     n_best = int(inf_conf.get("nbest", 1))
@@ -249,7 +250,7 @@ def run_inference(args, config, tokenizer, converter, transforms, device) -> Non
         profiler = torch.profiler.profile(activities=acts)
         profiler.start()
     for batch in loader:
-        if args.mask in ("audio", "video"):
+        if task == "avsr" and args.mask in ("audio", "video"):
             batch[args.mask] = batch[args.mask] * 0.0
         results = s2t.nbest(batch) if n_best > 1 else s2t(batch)
         if profiler is not None:
@@ -336,8 +337,7 @@ def main(argv=None) -> None:
     args = get_parser().parse_args(argv)
     config = load_config(args.config_file, args.yaml_overrides)
     security_checks(config)
-    if getattr(config, "task", "avsr") != "avsr":
-        raise not_ported(f"task {config.task!r}", 8)
+    task_of(config)  # avsr, asr or vsr
     if args.ngram_file:
         raise not_ported("n-gram fusion (--ngram-file)", 7)
     if args.mode not in ("training", "inference", "both"):

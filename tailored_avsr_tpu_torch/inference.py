@@ -1,7 +1,10 @@
 """Speech2Text: config + weights -> batched serving on one device
 (counterpart of ``tailored_avsr_tpu/inference.py:133``): greedy CTC and the
 label-synchronous joint CTC/attention beam search with Transformer-LM
-shallow fusion over the ancestry KV cache.
+shallow fusion over the ancestry KV cache, for the AVSR models (``task:
+avsr``: tailored or conventional encoder) and the Branchformer ASR / VSR
+models (``task: asr | vsr``: one ``speech`` stream), the model picked by
+the task as the JAX engine picks it.
 
 The constructor takes the JAX engine's arguments plus ``device``; the
 weights come from ``ckpt_path`` / ``lm_ckpt_path`` (PyTorch state dicts in
@@ -12,7 +15,7 @@ Under ``dtype: bfloat16`` both run in bf16.
 
 ``greedy(batch) -> List[str]`` follows ``inference.py:1051``, including the
 dequantisation of uint8 video and int16 audio on the device
-(``inference.py:247-255``). ``nbest`` / ``__call__`` follow
+(``inference.py:412-423``). ``nbest`` / ``__call__`` follow
 ``inference.py:954-982`` with the beam of ``inference.py:580-771``: the
 decoder and the LM score each step through their never-reordered group
 caches (``score_step_anc``, group attend K4), the step's columns are written
@@ -46,7 +49,7 @@ from tailored_avsr_tpu_torch.decode.greedy import ctc_greedy_collapse
 from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
 from tailored_avsr_tpu_torch.tasks import lm as lm_task
-from tailored_avsr_tpu_torch.tasks.avsr import build_model, resolve_device
+from tailored_avsr_tpu_torch.tasks.common import build_model, resolve_device, task_of
 from tailored_avsr_tpu_torch.train.checkpoint import load_model, read_state_dict
 from tailored_avsr_tpu_torch.utils.convert import lm_state_dict
 
@@ -178,9 +181,7 @@ class Speech2Text:
     ):
         if mesh is not None:
             raise not_ported("mesh-parallel decoding", 9)
-        task = getattr(config, "task", "avsr")
-        if task != "avsr":
-            raise not_ported(f"task {task!r}", 8)
+        self.task = task_of(config)
         token_type = getattr(config, "token_type", "char")
         if token_type != "char":
             raise not_ported(f"token_type {token_type!r}", 8)
@@ -247,15 +248,15 @@ class Speech2Text:
         self.lm.load_state_dict(lm_state_dict(read_state_dict(path)), strict=True)
 
     def inputs(self, batch: Dict) -> Tuple[torch.Tensor, ...]:
-        """(audio, audio_lengths, video, video_lengths) on the device, ready
-        for the model: uint8 video -> (x / video_scale - video_mean) /
-        video_std and int16 audio -> x / 32768, with -1 past each utterance's
-        length (the pad value of the float path); every float stream in the
-        model's dtype."""
-        args = [
-            torch.as_tensor(batch[k], device=self.device)
-            for k in ("audio", "audio_lengths", "video", "video_lengths")
-        ]
+        """The model's inputs on the device, (audio, audio_lengths, video,
+        video_lengths) for avsr and (speech, speech_lengths) for asr / vsr
+        (``tailored_avsr_tpu/inference.py:372-380``), ready for the model:
+        uint8 video -> (x / video_scale - video_mean) / video_std and int16
+        audio -> x / 32768, with -1 past each utterance's length (the pad
+        value of the float path); every float stream in the model's dtype."""
+        keys = ("audio", "audio_lengths", "video", "video_lengths") if self.task == "avsr" else (
+            "speech", "speech_lengths")
+        args = [torch.as_tensor(batch[k], device=self.device) for k in keys]
         for i, a in enumerate(args):
             if a.dim() < 2:
                 continue  # length vectors

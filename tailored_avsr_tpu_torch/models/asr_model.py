@@ -1,0 +1,131 @@
+"""Hybrid CTC/attention model for ASR (audio) and VSR (video)
+(counterpart of ``ASRModel`` in ``tailored_avsr_tpu/models/asr_model.py``).
+
+encode: frontend (log-mel, or the Conv3D + ResNet-18 lip frontend) ->
+SpecAug (training only) -> normalisation -> encoder (the Branchformer).
+``forward`` is the hybrid loss ``ctc_weight * ctc + (1 - ctc_weight) *
+att`` with its stats (``loss``, ``loss_ctc``, ``loss_att``, ``acc``, with
+``return_ctc_argmax`` the greedy ids, and the encoder's ``branch_weights``);
+``hybrid_loss`` computes it for this model and for ``AVSRModel``.
+``model.train()`` is the JAX ``deterministic=False`` (dropout, SpecAug, the
+coins, BatchNorm batch statistics), ``model.eval()`` is
+``deterministic=True``. The host-side draws come from the CPU
+``generator`` passed to ``forward`` / ``encode``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from tailored_avsr_tpu_torch.ops.losses import add_sos_eos, label_smoothing_loss, token_accuracy
+from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
+
+
+def hybrid_loss(model: nn.Module, enc_out, enc_lens, text, text_lengths,
+                return_ctc_argmax: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``model``'s hybrid loss over its encoder output (f32) and its stats
+    (``tailored_avsr_tpu/models/asr_model.py:117-198`` without the interCTC
+    and transducer terms, which the port refuses). ``text`` is (B, L)
+    padded with ``ignore_id``."""
+    stats: Dict[str, Any] = {}
+    loss_ctc = None
+    if model.ctc_weight != 0.0:
+        loss_ctc = model.ctc.loss(enc_out, enc_lens, text, text_lengths)
+        stats["loss_ctc"] = loss_ctc
+    if model.ctc_weight == 1.0 or model.decoder is None:
+        loss = loss_ctc
+    else:
+        ys_in, ys_out = add_sos_eos(text, model.sos, model.eos, model.ignore_id)
+        logits = model.decoder(enc_out, make_valid_mask(enc_lens, enc_out.shape[1]), ys_in, text_lengths + 1)
+        loss_att = label_smoothing_loss(
+            logits, ys_out, model.lsm_weight, model.ignore_id, model.length_normalized_loss)
+        stats["loss_att"], stats["acc"] = loss_att, token_accuracy(logits, ys_out, model.ignore_id)
+        loss = loss_att if loss_ctc is None else model.ctc_weight * loss_ctc + (1 - model.ctc_weight) * loss_att
+    stats["loss"] = loss
+    if return_ctc_argmax:
+        stats["ctc_argmax"] = model.ctc.argmax(enc_out)
+        stats["ctc_argmax_lens"] = enc_lens
+    return loss, stats
+
+
+class ASRModel(nn.Module):
+    def __init__(
+        self,
+        vocab_size: int,
+        encoder: nn.Module,
+        ctc: nn.Module,
+        decoder: Optional[nn.Module] = None,
+        frontend: Optional[nn.Module] = None,
+        specaug: Optional[nn.Module] = None,
+        normalize: Optional[nn.Module] = None,
+        ctc_weight: float = 0.5,
+        ignore_id: int = -1,
+        lsm_weight: float = 0.0,
+        length_normalized_loss: bool = False,
+    ):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.frontend = frontend
+        self.specaug = specaug
+        self.normalize = normalize
+        self.encoder = encoder
+        self.decoder = decoder  # None for a CTC-only model (ctc_weight 1.0)
+        self.ctc = ctc
+        self.ctc_weight = float(ctc_weight)
+        self.ignore_id = ignore_id
+        self.lsm_weight = float(lsm_weight)
+        self.length_normalized_loss = bool(length_normalized_loss)
+
+    @property
+    def sos(self) -> int:
+        return self.vocab_size - 1
+
+    @property
+    def eos(self) -> int:
+        return self.vocab_size - 1
+
+    def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
+               generator: Optional[torch.Generator] = None):
+        """Returns (encoder_out (B, T, D), encoder_out_lens (B,), aux with
+        the encoder's ``branch_weights``)."""
+        feats, lens = speech, speech_lengths
+        if self.frontend is not None:  # the lip frontend's BatchNorm follows the train flag
+            feats, lens = self.frontend(speech, speech_lengths)
+        if self.specaug is not None and self.training:
+            feats, lens = self.specaug(feats, lens, generator)
+        if self.normalize is not None:
+            feats, lens = self.normalize(feats, lens)
+        return self.encoder(feats, lens, generator)
+
+    def forward(
+        self,
+        speech: torch.Tensor,
+        speech_lengths: torch.Tensor,
+        text: torch.Tensor,
+        text_lengths: torch.Tensor,
+        return_ctc_argmax: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        enc_out, enc_lens, enc_aux = self.encode(speech, speech_lengths, generator)
+        loss, stats = hybrid_loss(self, enc_out, enc_lens, text, text_lengths, return_ctc_argmax)
+        if enc_aux.get("branch_weights"):
+            stats["branch_weights"] = enc_aux["branch_weights"]
+        return loss, stats
+
+    def ctc_greedy(self, speech, speech_lengths):
+        """Best-path CTC ids (B, T) and encoder lengths (B,)."""
+        enc_out, enc_lens, _ = self.encode(speech, speech_lengths)
+        return self.ctc.argmax(enc_out), enc_lens
+
+    def ctc_logprobs(self, speech, speech_lengths):
+        """f32 CTC log-probs (B, T, V) and encoder lengths (B,)."""
+        enc_out, enc_lens, _ = self.encode(speech, speech_lengths)
+        return self.ctc.log_softmax(enc_out), enc_lens
+
+    def decoder_score_step(self, memory, memory_mask, ys, pos):
+        """The full-prefix decoder step; the port's beam steps through
+        ``score_step_anc`` instead, and this raises naming item 7."""
+        return self.decoder.score_step(memory, memory_mask, ys, pos)

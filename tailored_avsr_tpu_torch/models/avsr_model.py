@@ -4,11 +4,11 @@
 encode: per-modality frontends, SpecAug on the audio features (training
 only), utterance MVN on the audio, embed layers, alignment of the two
 streams by padding the shorter one (pad value = ignore_id), per-modality
-pos-enc, the tailored encoder, adaptive fusion.
+pos-enc, the tailored or the conventional encoder, adaptive fusion.
 
 ``forward`` is the hybrid CTC/attention loss of
-``tailored_avsr_tpu/models/avsr_model.py:155-237`` with the attention loss
-of ``models/asr_model.py:104-115``: ``(loss, stats)`` with ``loss``,
+``tailored_avsr_tpu/models/avsr_model.py:155-237`` (``models/asr_model.py``
+``hybrid_loss``, shared with the ASR model): ``(loss, stats)`` with ``loss``,
 ``loss_ctc``, ``loss_att``, ``acc`` and, with ``return_ctc_argmax``,
 ``ctc_argmax`` / ``ctc_argmax_lens``. ``model.train()`` is the JAX
 ``deterministic=False`` (dropout, SpecAug, stochastic depth, branch drop,
@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tailored_avsr_tpu_torch.ops.losses import add_sos_eos, label_smoothing_loss, token_accuracy
+from tailored_avsr_tpu_torch.models.asr_model import hybrid_loss
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask, mask_lengths
 
 
@@ -89,7 +89,9 @@ class AVSRModel(nn.Module):
 
     def encode(self, audio, audio_lengths, video, video_lengths,
                generator: Optional[torch.Generator] = None):
-        """Returns (encoder_out (B, T, D), encoder_out_lens (B,) int32, fusion weights)."""
+        """Returns (encoder_out (B, T, D), encoder_out_lens (B,) int32, aux):
+        aux holds ``fusion_weights`` and, for the conventional encoder, its
+        ``branch_weights``."""
         a_feats, a_lens = audio, audio_lengths
         if self.acoustic_frontend is not None:
             a_feats, a_lens = self.acoustic_frontend(audio, audio_lengths)
@@ -110,20 +112,11 @@ class AVSRModel(nn.Module):
         a_feats, a_pos = self.acoustic_embed.apply_pos_enc(a_feats)
         v_feats, v_pos = self.visual_embed.apply_pos_enc(v_feats)
 
-        a_out, a_mask, v_out, v_mask = self.encoder(
+        a_out, a_mask, v_out, v_mask, enc_aux = self.encoder(
             a_feats, a_pos, a_mask, v_feats, v_pos, v_mask, generator)
         enc_out, av_mask, fusion_weights = self.audiovisual_fusion(
             a_out, a_mask, v_out, v_mask, generator)
-        enc_lens = mask_lengths(av_mask)
-        return enc_out, enc_lens, fusion_weights
-
-    def _calc_att_loss(self, enc_out, enc_lens, text, text_lengths):
-        ys_in, ys_out = add_sos_eos(text, self.sos, self.eos, self.ignore_id)
-        memory_mask = make_valid_mask(enc_lens, enc_out.shape[1])
-        logits = self.decoder(enc_out, memory_mask, ys_in, text_lengths + 1)
-        loss_att = label_smoothing_loss(
-            logits, ys_out, self.lsm_weight, self.ignore_id, self.length_normalized_loss)
-        return loss_att, token_accuracy(logits, ys_out, self.ignore_id)
+        return enc_out, mask_lengths(av_mask), dict(enc_aux, fusion_weights=fusion_weights)
 
     def forward(
         self,
@@ -137,29 +130,12 @@ class AVSRModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Hybrid loss ``ctc_weight * ctc + (1 - ctc_weight) * att`` (f32) and
-        its stats. ``text`` is (B, L) padded with ``ignore_id``."""
-        enc_out, enc_lens, fusion_weights = self.encode(
-            audio, audio_lengths, video, video_lengths, generator)
-        stats: Dict[str, Any] = {}
-        loss_ctc = None
-        if self.ctc_weight != 0.0:
-            loss_ctc = self.ctc.loss(enc_out, enc_lens, text, text_lengths)
-            stats["loss_ctc"] = loss_ctc
-        if self.ctc_weight == 1.0 or self.decoder is None:
-            loss = loss_ctc
-        else:
-            loss_att, acc = self._calc_att_loss(enc_out, enc_lens, text, text_lengths)
-            stats["loss_att"], stats["acc"] = loss_att, acc
-            if loss_ctc is None:
-                loss = loss_att
-            else:
-                loss = self.ctc_weight * loss_ctc + (1 - self.ctc_weight) * loss_att
-        stats["loss"] = loss
-        if return_ctc_argmax:
-            stats["ctc_argmax"] = self.ctc.argmax(enc_out)
-            stats["ctc_argmax_lens"] = enc_lens
-        if fusion_weights:
-            stats["fusion_weights"] = fusion_weights
+        its stats (``models/asr_model.hybrid_loss``). ``text`` is (B, L)
+        padded with ``ignore_id``."""
+        enc_out, enc_lens, enc_aux = self.encode(audio, audio_lengths, video, video_lengths, generator)
+        loss, stats = hybrid_loss(self, enc_out, enc_lens, text, text_lengths, return_ctc_argmax)
+        if enc_aux["fusion_weights"]:
+            stats["fusion_weights"] = enc_aux["fusion_weights"]
         return loss, stats
 
     def ctc_greedy(self, audio, audio_lengths, video, video_lengths):

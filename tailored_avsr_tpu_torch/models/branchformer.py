@@ -1,0 +1,315 @@
+"""Branchformer encoder: parallel rel-pos attention and cgMLP branches with a
+learned, fixed or concatenating merge
+(counterpart of ``tailored_avsr_tpu/models/branchformer.py``).
+
+A layer is: macaron FFN (half-scale) -> attention branch (rel-pos MHA, K1 or
+K2 under ``use_flash``) beside the cgMLP branch (K3 under ``use_fused_csgu``)
+-> merge -> FFN (half-scale) -> final LayerNorm. Merges: ``concat`` (Linear
+over [attn; cgmlp]), ``learned_ave`` (each branch attention-pooled over time
+to one logit per utterance; an f32 softmax over the two, cast back to the
+activation dtype, weighs them; the weights are returned as the layer's
+``weight_global`` (attention) / ``weight_local`` (cgMLP) aux) and
+``fixed_ave`` (``1 - cgmlp_weight`` : ``cgmlp_weight``). A ``fixed_ave``
+layer whose weight is 0.0 or 1.0 builds one branch and keeps its
+``merge_proj``, as ``tailored_avsr_tpu/models/branchformer.py:111-118,195``.
+
+The encoder takes per-layer ``cgmlp_weight`` / ``attn_branch_drop_rate`` /
+``stochastic_depth_rate`` lists, an input layer (``conv2d`` and its
+x1/x2/x6/x8 variants, ``linear``, ``conv1d`` / ``conv3dresnet18`` (a 512->d
+Linear) or none), the "latest" rel-pos encoding and a final LayerNorm, and
+returns ``branch_weights`` as ``[(layer, aux)]``.
+
+Training: stochastic depth skips a whole layer (its input returned, its
+aux empty) with probability ``stochastic_depth_rate`` and scales the kept
+merge residual by 1 / (1 - rate); with ``attn_branch_drop_rate`` one coin
+sets the learned weights to (0, 1) for the whole batch. The coins are
+drawn on the CPU from the generator passed in, one per layer and step, as
+the tailored encoder draws its own; the JAX package draws them from its
+``skip`` RNG, so the two compare by their statistics.
+
+Refused, naming ``ROADMAP.md`` item 8: the E-Branchformer merge
+(``merge_conv_kernel > 0``), ``zero_triu``, the ``selfattn`` /
+``fast_selfattn`` / legacy attention types and the abs / legacy positional
+encodings, the ``conv1d2`` / ``conv1d3`` / ``embed`` input layers, and
+interCTC taps and conditioning.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import torch
+from torch import nn
+
+from tailored_avsr_tpu_torch import not_ported
+from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
+from tailored_avsr_tpu_torch.ops.cgmlp import ConvolutionalGatingMLP
+from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
+from tailored_avsr_tpu_torch.ops.masking import MASK_MIN, make_valid_mask
+from tailored_avsr_tpu_torch.ops.posenc import RelPositionalEncoding
+from tailored_avsr_tpu_torch.ops.subsampling import Conv2dSubsampling, subsampled_length
+
+_LN_EPS = 1e-6  # flax LayerNorm default
+CONV2D_FACTORS = {"conv2d": 4, "conv2d1": 1, "conv2d2": 2, "conv2d6": 6, "conv2d8": 8}
+
+
+def attention_pooled_weight(
+    x: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    pooling_proj: nn.Linear,
+    weight_proj: nn.Linear,
+    size: int,
+) -> torch.Tensor:
+    """Attention-pool a branch (or stream) over time and project it to one
+    logit per utterance. The score is f32 over sqrt(size); padded frames
+    score ``MASK_MIN`` and get weight 0 after the softmax, so a fully
+    masked utterance pools to 0. Returns (B, 1)."""
+    score = pooling_proj(x).squeeze(-1).float() / size ** 0.5  # (B, T)
+    if mask is not None:
+        w = torch.softmax(score.masked_fill(~mask, MASK_MIN), dim=-1).masked_fill(~mask, 0.0)
+    else:
+        w = torch.softmax(score, dim=-1)
+    pooled = torch.einsum("bt,btd->bd", w.to(x.dtype), x)
+    return weight_proj(pooled)
+
+
+def coin(rate: float, training: bool, generator: Optional[torch.Generator]) -> bool:
+    """One bernoulli(rate) draw on the CPU; False outside training."""
+    if not training or rate <= 0.0:
+        return False
+    return float(torch.rand((), generator=generator)) < rate
+
+
+def per_layer(value, num_blocks: int, name: str) -> list:
+    """A value for every layer: one for all, or one per layer."""
+    if isinstance(value, (int, float)):
+        return [float(value)] * num_blocks
+    if len(value) != num_blocks:
+        raise ValueError(f"{name} needs one entry per block, got {len(value)} for {num_blocks}")
+    return [float(v) for v in value]
+
+
+class BranchformerEncoderLayer(nn.Module):
+    def __init__(
+        self,
+        size: int,
+        attention_heads: int = 4,
+        attention_dropout_rate: float = 0.0,
+        use_attn: bool = True,
+        use_cgmlp: bool = True,
+        cgmlp_linear_units: int = 2048,
+        cgmlp_conv_kernel: int = 31,
+        use_linear_after_conv: bool = False,
+        gate_activation: str = "identity",
+        linear_units: int = 2048,
+        ffn_activation: str = "swish",
+        macaron: bool = True,
+        dropout_rate: float = 0.1,
+        merge_method: str = "learned_ave",
+        cgmlp_weight: float = 0.5,
+        attn_branch_drop_rate: float = 0.0,
+        stochastic_depth_rate: float = 0.0,
+        use_flash: bool = False,
+        use_fused_csgu: bool = False,
+        *,
+        device=None,
+        dtype=None,
+    ):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        if merge_method not in ("concat", "learned_ave", "fixed_ave"):
+            raise ValueError(merge_method)
+        both = use_attn and use_cgmlp
+        if merge_method == "fixed_ave" and both and cgmlp_weight in (0.0, 1.0):
+            # degenerate weights collapse to one branch; merge_proj stays
+            use_attn, use_cgmlp = cgmlp_weight == 0.0, cgmlp_weight == 1.0
+        if not (use_attn or use_cgmlp):
+            raise ValueError("a Branchformer layer needs at least one branch")
+        self.size = size
+        self.use_attn, self.use_cgmlp = use_attn, use_cgmlp
+        self.merge_method = merge_method
+        self.cgmlp_weight = float(cgmlp_weight)
+        self.attn_branch_drop_rate = float(attn_branch_drop_rate)
+        self.stochastic_depth_rate = float(stochastic_depth_rate)
+        self.ff_scale = 0.5 if macaron else 1.0
+        if macaron:
+            self.feed_forward_macaron = PositionwiseFeedForward(
+                size, linear_units, dropout_rate, ffn_activation, **kw)
+            self.norm_ff_macaron = nn.LayerNorm(size, eps=_LN_EPS, **kw)
+        else:
+            self.feed_forward_macaron = None
+        if use_attn:
+            self.attn = RelPositionMultiHeadedAttention(
+                size, attention_heads, attention_dropout_rate, use_flash, **kw)
+            self.norm_mha = nn.LayerNorm(size, eps=_LN_EPS, **kw)
+        if use_cgmlp:
+            self.cgmlp = ConvolutionalGatingMLP(
+                size, cgmlp_linear_units, cgmlp_conv_kernel, dropout_rate,
+                use_linear_after_conv, gate_activation, use_fused_csgu, **kw)
+            self.norm_mlp = nn.LayerNorm(size, eps=_LN_EPS, **kw)
+        self.feed_forward = PositionwiseFeedForward(size, linear_units, dropout_rate, ffn_activation, **kw)
+        self.norm_ff = nn.LayerNorm(size, eps=_LN_EPS, **kw)
+        self.norm_final = nn.LayerNorm(size, eps=_LN_EPS, **kw)
+        self.dropout = nn.Dropout(dropout_rate)
+        self.merge_proj = None
+        if use_attn and use_cgmlp:
+            self.merge_proj = nn.Linear(2 * size if merge_method == "concat" else size, size, **kw)
+            if merge_method == "learned_ave":
+                for name in ("pooling_proj1", "pooling_proj2", "weight_proj1", "weight_proj2"):
+                    setattr(self, name, nn.Linear(size, 1, **kw))
+        elif merge_method == "fixed_ave" and both:
+            self.merge_proj = nn.Linear(size, size, **kw)
+
+    def forward(self, x: torch.Tensor, pos_emb: torch.Tensor, mask: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """Returns (x, aux); aux holds the learned merge weights, (B,) each."""
+        if coin(self.stochastic_depth_rate, self.training, generator):
+            return x, {}  # the layer is skipped this step
+        coeff = 1.0 / (1.0 - self.stochastic_depth_rate) if self.training else 1.0
+        aux = {}
+        if self.feed_forward_macaron is not None:
+            x = x + self.ff_scale * self.dropout(self.feed_forward_macaron(self.norm_ff_macaron(x)))
+        x1 = x2 = x
+        if self.use_attn:
+            h = self.norm_mha(x)
+            x1 = self.dropout(self.attn(h, h, h, pos_emb, mask))
+        if self.use_cgmlp:
+            x2 = self.dropout(self.cgmlp(self.norm_mlp(x)))
+        if self.use_attn and self.use_cgmlp:
+            if self.merge_method == "concat":
+                merged = self.merge_proj(torch.cat([x1, x2], dim=-1))
+            elif self.merge_method == "learned_ave":
+                w1l = attention_pooled_weight(x1, mask, self.pooling_proj1, self.weight_proj1, self.size)
+                w2l = attention_pooled_weight(x2, mask, self.pooling_proj2, self.weight_proj2, self.size)
+                w = torch.softmax(torch.cat([w1l, w2l], dim=-1).float(), dim=-1).to(x.dtype)
+                w1, w2 = w[:, 0], w[:, 1]
+                if coin(self.attn_branch_drop_rate, self.training, generator):
+                    w1, w2 = torch.zeros_like(w1), torch.ones_like(w2)
+                aux["weight_global"], aux["weight_local"] = w1, w2
+                merged = self.merge_proj(w1[:, None, None] * x1 + w2[:, None, None] * x2)
+            else:  # fixed_ave
+                merged = self.merge_proj((1.0 - self.cgmlp_weight) * x1 + self.cgmlp_weight * x2)
+        else:
+            merged = x1 if self.use_attn else x2
+            if self.merge_proj is not None:
+                merged = self.merge_proj(merged)
+        x = x + coeff * self.dropout(merged)
+        x = x + self.ff_scale * self.dropout(self.feed_forward(self.norm_ff(x)))
+        return self.norm_final(x), aux
+
+
+def check_rel_pos_pairing(attention_layer_type: str, pos_enc_layer_type: str, rel_pos_type: str,
+                          use_attn_branch: bool = True) -> None:
+    """The JAX encoder's type resolution and pairing check
+    (``tailored_avsr_tpu/models/branchformer.py:320-345``: ValueError for a
+    mismatched pair), then the port's refusal of every pair but the
+    "latest" rel-pos attention with its table (item 8)."""
+    att, pos = attention_layer_type, pos_enc_layer_type
+    if rel_pos_type == "legacy":
+        att = "legacy_rel_selfattn" if att == "rel_selfattn" else att
+        pos = "legacy_rel_pos" if pos == "rel_pos" else pos
+    pairs = {
+        "rel_selfattn": ("rel_pos",),
+        "legacy_rel_selfattn": ("legacy_rel_pos",),
+        "selfattn": ("abs_pos", "scaled_abs_pos"),
+        "fast_selfattn": ("abs_pos", "scaled_abs_pos"),
+    }
+    if use_attn_branch and pos not in pairs.get(att, (pos,)):
+        raise ValueError(f"attention_layer_type {att!r} requires pos_enc_layer_type in {pairs[att]} "
+                         f"(got {pos!r})")
+    if use_attn_branch and att != "rel_selfattn":
+        raise not_ported(f"attention_layer_type {att!r}", 8)
+    if pos != "rel_pos":
+        raise not_ported(f"pos_enc_layer_type {pos!r}", 8)
+
+
+class BranchformerEncoder(nn.Module):
+    def __init__(
+        self,
+        output_size: int = 256,
+        input_size: Optional[int] = None,  # feature dim before the input layer
+        attention_heads: int = 4,
+        attention_layer_type: str = "rel_selfattn",
+        pos_enc_layer_type: str = "rel_pos",
+        rel_pos_type: str = "latest",
+        ffn_activation_type: str = "swish",
+        linear_units: int = 2048,
+        cgmlp_linear_units: int = 2048,
+        cgmlp_conv_kernel: int = 31,
+        use_linear_after_conv: bool = False,
+        gate_activation: str = "identity",
+        num_blocks: int = 12,
+        dropout_rate: float = 0.1,
+        positional_dropout_rate: float = 0.1,
+        attention_dropout_rate: float = 0.0,
+        input_layer: Optional[str] = "conv2d",
+        merge_method: str = "learned_ave",
+        use_attn_branch: bool = True,
+        use_cgmlp_branch: bool = True,
+        cgmlp_weight: Union[float, Sequence[float]] = 0.5,
+        attn_branch_drop_rate: Union[float, Sequence[float]] = 0.0,
+        stochastic_depth_rate: Union[float, Sequence[float]] = 0.0,
+        normalize_before: bool = True,
+        use_flash: bool = False,
+        use_fused_csgu: bool = False,
+        *,
+        device=None,
+        dtype=None,
+    ):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        check_rel_pos_pairing(attention_layer_type, pos_enc_layer_type, rel_pos_type, use_attn_branch)
+        self.output_size = output_size
+        self.input_layer = input_layer
+        if input_layer in CONV2D_FACTORS:
+            self.embed = Conv2dSubsampling(input_size, output_size, CONV2D_FACTORS[input_layer],
+                                           pos_enc_slot=True, **kw)
+        elif input_layer == "linear":
+            self.embed = nn.Sequential(nn.Linear(input_size, output_size, **kw),
+                                       nn.LayerNorm(output_size, eps=_LN_EPS, **kw), nn.Dropout(dropout_rate))
+        elif input_layer in ("conv1d", "conv3dresnet18"):  # 512-d frontend features -> d
+            self.embed = nn.Sequential(nn.Linear(input_size, output_size, **kw))
+        elif input_layer is None:
+            self.embed = None
+        elif input_layer in ("conv1d2", "conv1d3", "embed"):
+            raise not_ported(f"BranchformerEncoder input_layer {input_layer!r}", 8)
+        else:
+            raise ValueError(f"unknown input_layer: {input_layer}")
+        self.pos_enc = RelPositionalEncoding(positional_dropout_rate)
+        cgw = per_layer(cgmlp_weight, num_blocks, "cgmlp_weight")
+        abd = per_layer(attn_branch_drop_rate, num_blocks, "attn_branch_drop_rate")
+        sdr = per_layer(stochastic_depth_rate, num_blocks, "stochastic_depth_rate")
+        self.encoders = nn.ModuleList(
+            BranchformerEncoderLayer(
+                output_size, attention_heads, attention_dropout_rate, use_attn_branch, use_cgmlp_branch,
+                cgmlp_linear_units, cgmlp_conv_kernel, use_linear_after_conv, gate_activation,
+                linear_units, ffn_activation_type, True, dropout_rate, merge_method, cgw[i], abd[i],
+                sdr[i], use_flash, use_fused_csgu, **kw,
+            )
+            for i in range(num_blocks)
+        )
+        self.after_norm = nn.LayerNorm(output_size, eps=_LN_EPS, **kw) if normalize_before else None
+
+    def embed_frames(self, xs: torch.Tensor, ilens: torch.Tensor):
+        """The input layer and the positional encoding: (x, lengths, pos_emb)."""
+        if self.embed is not None:
+            xs = self.embed(xs)
+        if self.input_layer in CONV2D_FACTORS:
+            ilens = subsampled_length(ilens, CONV2D_FACTORS[self.input_layer])
+        xs, pos_emb = self.pos_enc(xs)
+        return xs, ilens, pos_emb
+
+    def forward(self, xs: torch.Tensor, ilens: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """Returns (xs, olens, aux); aux holds ``intermediate_outs`` (always
+        empty: interCTC taps are refused) and ``branch_weights`` as
+        ``[(layer, {weight_global, weight_local})]``, layers from 1."""
+        xs, ilens, pos_emb = self.embed_frames(xs, ilens)
+        mask = make_valid_mask(ilens, xs.shape[1])
+        branch_weights = []
+        for i, layer in enumerate(self.encoders):
+            xs, aux = layer(xs, pos_emb, mask, generator)
+            if aux:
+                branch_weights.append((i + 1, aux))
+        if self.after_norm is not None:
+            xs = self.after_norm(xs)
+        return xs, ilens, {"intermediate_outs": [], "branch_weights": branch_weights}

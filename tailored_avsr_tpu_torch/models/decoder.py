@@ -7,7 +7,7 @@ the vocabulary projection. Ported: the full forward, ``precompute_memory``,
 ``init_cache_group`` (exact cache) and ``score_step_anc``, the step the
 label-synchronous beam runs. The other beam-step protocols raise, naming
 their ``ROADMAP.md`` item; the other layer variants are refused by
-``tasks/avsr.build_model``.
+``tasks/common.build_decoder_and_ctc``.
 """
 
 from __future__ import annotations

@@ -17,29 +17,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from tailored_avsr_tpu_torch.models.branchformer import attention_pooled_weight, coin
 from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
-from tailored_avsr_tpu_torch.ops.masking import MASK_MIN
 
 _LN_EPS = 1e-6  # flax LayerNorm default
-
-
-def attention_pooled_weight(
-    x: torch.Tensor,
-    mask: Optional[torch.Tensor],
-    pooling_proj: nn.Linear,
-    weight_proj: nn.Linear,
-    size: int,
-) -> torch.Tensor:
-    """Attention-pool a stream over time and project it to one logit per
-    utterance (counterpart of ``tailored_avsr_tpu/models/branchformer.py:53``).
-    Returns (B, 1)."""
-    score = pooling_proj(x).squeeze(-1).float() / size ** 0.5  # (B, T)
-    if mask is not None:
-        w = torch.softmax(score.masked_fill(~mask, MASK_MIN), dim=-1).masked_fill(~mask, 0.0)
-    else:
-        w = torch.softmax(score, dim=-1)
-    pooled = torch.einsum("bt,btd->bd", w.to(x.dtype), x)
-    return weight_proj(pooled)
 
 
 class AdaptiveAudioVisualFusion(nn.Module):
@@ -88,9 +69,8 @@ class AdaptiveAudioVisualFusion(nn.Module):
             wv = attention_pooled_weight(
                 video, video_mask, self.visual_pooling_proj, self.visual_weight_proj, d)
             w = torch.softmax(torch.cat([wa, wv], dim=-1).float(), dim=-1).to(audio.dtype)
-            if self.training and self.acoustic_branch_drop_rate > 0.0:
-                if float(torch.rand((), generator=generator)) < self.acoustic_branch_drop_rate:
-                    w = torch.tensor([0.0, 1.0], dtype=w.dtype, device=w.device).expand_as(w)
+            if coin(self.acoustic_branch_drop_rate, self.training, generator):
+                w = torch.tensor([0.0, 1.0], dtype=w.dtype, device=w.device).expand_as(w)
             aux["acoustic_weight"], aux["visual_weight"] = w[:, 0], w[:, 1]
             av = self.audiovisual_layer(w[:, 0, None, None] * audio + w[:, 1, None, None] * video)
         else:

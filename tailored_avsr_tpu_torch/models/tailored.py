@@ -25,20 +25,12 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
+from tailored_avsr_tpu_torch.models.branchformer import coin, per_layer
 from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
 from tailored_avsr_tpu_torch.ops.cgmlp import ConvolutionalGatingMLP
 from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
 
 _LN_EPS = 1e-6  # flax LayerNorm default
-
-
-def _per_layer(value, num_blocks: int, name: str) -> list:
-    """A rate for every layer: one value for all, or one per layer."""
-    if isinstance(value, (int, float)):
-        return [float(value)] * num_blocks
-    if len(value) != num_blocks:
-        raise ValueError(f"{name} needs one entry per block, got {len(value)} for {num_blocks}")
-    return [float(v) for v in value]
 
 
 class TailoredEncoderLayer(nn.Module):
@@ -107,11 +99,9 @@ class TailoredEncoderLayer(nn.Module):
 
     def forward(self, audio, audio_pos_emb, audio_mask, video, video_pos_emb, video_mask,
                 generator: Optional[torch.Generator] = None):
-        coeff = 1.0
-        if self.training and self.stochastic_depth_rate > 0.0:
-            if float(torch.rand((), generator=generator)) < self.stochastic_depth_rate:
-                return audio, video  # the layer is skipped this step
-            coeff = 1.0 / (1.0 - self.stochastic_depth_rate)
+        if coin(self.stochastic_depth_rate, self.training, generator):
+            return audio, video  # the layer is skipped this step
+        coeff = 1.0 / (1.0 - self.stochastic_depth_rate) if self.training else 1.0
         stack = audio.shape == video.shape
         b = audio.shape[0]
         a, v = audio, video
@@ -165,7 +155,7 @@ class TailoredEncoder(nn.Module):
             raise ValueError("acoustic_use_attn / visual_use_attn need one entry per block")
         self.positional_dropout_rate = positional_dropout_rate
         self.acoustic_branch_drop_rate = acoustic_branch_drop_rate
-        sdr = _per_layer(stochastic_depth_rate, num_blocks, "stochastic_depth_rate")
+        sdr = per_layer(stochastic_depth_rate, num_blocks, "stochastic_depth_rate")
         self.modality_encoding = nn.Embedding(2, output_size, **kw)
         self.encoders = nn.ModuleList(
             TailoredEncoderLayer(
@@ -188,12 +178,14 @@ class TailoredEncoder(nn.Module):
         video_mask: Optional[torch.Tensor],
         generator: Optional[torch.Generator] = None,
     ):
-        """Returns (audio, audio_mask, video, video_mask), both after
-        ``after_norm``; ``generator`` (CPU) draws the stochastic-depth coins."""
+        """Returns (audio, audio_mask, video, video_mask, aux), both streams
+        after ``after_norm``, aux's ``intermediate_outs`` empty (no interCTC
+        taps), as the JAX encoder returns them; ``generator`` (CPU) draws the
+        stochastic-depth coins."""
         mod = self.modality_encoding.weight
         audio = audio + mod[0].to(audio.dtype)
         video = video + mod[1].to(video.dtype)
         for layer in self.encoders:
             audio, video = layer(audio, audio_pos_emb, audio_mask, video, video_pos_emb, video_mask,
                                  generator)
-        return self.after_norm(audio), audio_mask, self.after_norm(video), video_mask
+        return self.after_norm(audio), audio_mask, self.after_norm(video), video_mask, {"intermediate_outs": []}

@@ -29,9 +29,13 @@ def subsampled_length(length, factor: int):
 
 class Conv2dSubsampling(nn.Module):
     """(B, T, F) -> (B, T', D): 2-D convs over (time, freq), ReLU, then Linear
-    over the flattened (channel, freq) axis (``conv.{2j}``, ``out``)."""
+    over the flattened (channel, freq) axis (``conv.{2j}``, ``out``). With
+    ``pos_enc_slot`` the Linear is ``out.0``: an encoder's subsampling keeps
+    its positional encoding as ``out.1`` in the reference key grammar (it
+    holds no weights, and the encoder applies it)."""
 
-    def __init__(self, input_size: int, output_size: int, factor: int = 4, *, device=None, dtype=None):
+    def __init__(self, input_size: int, output_size: int, factor: int = 4, pos_enc_slot: bool = False,
+                 *, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         layers = []
@@ -40,7 +44,8 @@ class Conv2dSubsampling(nn.Module):
             layers += [nn.Conv2d(in_ch, output_size, k, s, **kw), nn.ReLU()]
             in_ch, freq = output_size, (freq - k) // s + 1
         self.conv = nn.Sequential(*layers)
-        self.out = nn.Linear(output_size * freq, output_size, **kw)
+        out = nn.Linear(output_size * freq, output_size, **kw)
+        self.out = nn.Sequential(out) if pos_enc_slot else out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv(x[:, None])  # (B, D, T', F')

@@ -1,0 +1,244 @@
+"""Shared pieces of the config -> model builders
+(counterpart of ``tailored_avsr_tpu/tasks/common.py``): the registries of
+frontends, SpecAug, normalisation, encoders and decoders for the names the
+port builds, the config-key rule, seeded materialisation and the device
+rule.
+
+A config key reaches a constructor as in the JAX ``filter_conf``: a key the
+port's constructor takes is passed; a key the JAX constructor takes and
+the port's does not is listed in the section's ``*_FIXED`` table and must
+hold a value the port builds (else it raises naming its item); any other
+key is one the JAX constructor drops too, and is dropped here after the
+same check of ``positionwise_layer_type`` and ``ctc_type``.
+``tests/test_torch_port_train.py`` and ``tests/test_torch_port_asr.py`` hold
+the tables to the JAX constructors' fields. A name the port does not build
+raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that will
+port it.
+"""
+
+from __future__ import annotations
+
+import inspect
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from tailored_avsr_tpu_torch import not_ported
+from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoder
+from tailored_avsr_tpu_torch.models.conventional import ConventionalEncoder
+from tailored_avsr_tpu_torch.models.ctc import CTCHead
+from tailored_avsr_tpu_torch.models.decoder import TransformerDecoder
+from tailored_avsr_tpu_torch.models.frontends import Conv3dResNet18
+from tailored_avsr_tpu_torch.models.tailored import TailoredEncoder
+from tailored_avsr_tpu_torch.ops.frontend_audio import LogMelFrontend
+from tailored_avsr_tpu_torch.ops.normalize import UtteranceMVN
+from tailored_avsr_tpu_torch.ops.specaug import SpecAug
+from tailored_avsr_tpu_torch.utils.initialize import init_params_
+
+# Keys a JAX constructor takes and the port's does not: (values the port
+# builds, ROADMAP item that ports the others); None: any value.
+ENCODER_FIXED = {  # TailoredEncoder
+    "attention_layer_type": (("rel_selfattn",), 8),
+    "zero_triu": ((False,), 8),
+    "normalize_before": ((True,), 8),
+    "interctc_use_conditioning": ((False,), 8),
+    "audiovisual_interctc_conditioning": ((False,), 8),
+    "interctc_layer_idx": (((),), 8),
+}
+BRANCHFORMER_FIXED = {
+    "zero_triu": ((False,), 8),
+    "merge_conv_kernel": ((0,), 8),  # the E-Branchformer merge
+    "interctc_use_conditioning": ((False,), 8),
+    "interctc_layer_idx": (((),), 8),
+    "vocab_size": (None, 8),  # read only by interCTC conditioning
+}
+CONVENTIONAL_FIXED = {
+    "encoder_class_type": (("branchformer",), 8),
+    "cnn_module_kernel": (None, 8),  # read only by Conformer stacks
+    "interctc_use_conditioning": ((False,), 8),
+    "audiovisual_interctc_conditioning": ((False,), 8),
+    "interctc_layer_idx": (((),), 8),
+}
+DECODER_FIXED = {
+    "use_output_layer": ((True,), 8),
+    "layer_variant": (("transformer",), 8),
+    # read only by the conv layer variants
+    "conv_kernel_length": (None, 8),
+    "conv_wshare": (None, 8),
+    "conv_usebias": (None, 8),
+}
+VISUAL_FRONTEND_FIXED = {
+    "bn_axis_name": ((None,), 9),  # cross-replica BatchNorm: data parallel
+    "stem_s2d": (None, 8),  # the TPU's evaluation of the same stem weights
+}
+# keys that both packages drop, and the values they may hold
+# (``tailored_avsr_tpu/tasks/common.py:_DROPPED_KEY_ALLOWED``)
+DROPPED_KEY_ALLOWED = {
+    "positionwise_layer_type": (None, "linear"),
+    "ctc_type": ("builtin", "builtin2"),
+}
+NONE = (None, "none", "")
+
+
+def refuse(what: str, value, item: int) -> NotImplementedError:
+    return not_ported(f"{what}={value!r}", item)
+
+
+def require(what: str, value, allowed, item: int) -> None:
+    if value not in allowed:
+        raise refuse(what, value, item)
+
+
+def check_dropped_key(owner: str, key: str, value) -> None:
+    allowed = DROPPED_KEY_ALLOWED.get(key)
+    if allowed is not None and value not in allowed:
+        raise NotImplementedError(
+            f"{owner} config key {key}={value!r} is not supported (supported values: {allowed})")
+
+
+def conf_args(cls, conf: Optional[Dict], fixed: Optional[Dict] = None, **extra) -> Dict:
+    """Constructor arguments of ``cls`` from a config section. A key of
+    ``fixed`` (one the JAX constructor takes and the port's does not) must
+    hold one of its values (None: any); other keys unknown to ``cls`` are
+    dropped, as the JAX task drops them."""
+    names = set(inspect.signature(cls.__init__).parameters) - {"self", "device", "dtype"}
+    kept = {}
+    for k, v in {**(conf or {}), **extra}.items():
+        v = tuple(v) if isinstance(v, list) else v
+        if k in names:
+            kept[k] = v
+        elif fixed and k in fixed:
+            allowed, item = fixed[k]
+            if allowed is not None:
+                require(f"{cls.__name__} {k}", v, allowed, item)
+        else:
+            check_dropped_key(cls.__name__, k, v)
+    return kept
+
+
+def cfg_value(config, key: str, default=None):
+    value = getattr(config, key, default)
+    return default if value is None else value
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``device``, or the CUDA card when it is None; raises when the card is
+    asked for and the host has none (no silent CPU)."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} runs on the CUDA card and this host has no CUDA device; "
+            "pass device='cpu' to run it on the CPU")
+    return device
+
+
+def materialize(module: nn.Module, generator: Optional[torch.Generator], device,
+                dtype: Optional[torch.dtype]) -> nn.Module:
+    """A module built on the meta device -> its weights drawn from
+    ``generator`` (seed 0 when None) on the CPU, moved to ``device`` /
+    ``dtype``, in eval mode."""
+    module = module.to_empty(device="cpu")
+    init_params_(module, generator if generator is not None else torch.Generator().manual_seed(0))
+    return module.to(device=device, dtype=dtype).eval()
+
+
+META = {"device": "meta"}  # no memory, no RNG: weights come from the generator later
+
+
+def build_frontend(name, conf: Optional[Dict]):
+    """``default`` (log-mel), ``conv3dresnet18`` or none."""
+    if name in NONE:
+        return None
+    if name == "default":
+        return LogMelFrontend(**conf_args(LogMelFrontend, conf))
+    if name == "conv3dresnet18":
+        return Conv3dResNet18(**conf_args(Conv3dResNet18, conf, VISUAL_FRONTEND_FIXED), **META)
+    raise refuse("frontend", name, 8)
+
+
+def build_specaug(name, conf: Optional[Dict]):
+    if name in NONE:
+        return None
+    require("specaug", name, ("specaug",), 8)
+    return SpecAug(**conf_args(SpecAug, conf))
+
+
+def build_normalize(name, conf: Optional[Dict]):
+    if name in NONE:
+        return None
+    require("normalize", name, ("utterance_mvn",), 8)
+    return UtteranceMVN(**conf_args(UtteranceMVN, conf))
+
+
+def build_encoder(name: str, conf: Optional[Dict], input_size: Optional[int] = None) -> nn.Module:
+    """The encoder registry for the names the port builds: ``branchformer``
+    (ASR / VSR; ``input_size`` is the frontend's feature width), and the
+    AVSR encoders ``tailored`` and ``conventional``. The other names of the
+    JAX registries raise naming item 8."""
+    if name == "branchformer":
+        return BranchformerEncoder(**conf_args(BranchformerEncoder, conf, BRANCHFORMER_FIXED,
+                                               input_size=input_size), **META)
+    if name == "tailored":
+        return TailoredEncoder(**conf_args(TailoredEncoder, conf, ENCODER_FIXED), **META)
+    if name == "conventional":
+        return ConventionalEncoder(**conf_args(ConventionalEncoder, conf, CONVENTIONAL_FIXED), **META)
+    raise refuse("encoder", name, 8)
+
+
+def is_transducer(decoder_name) -> bool:
+    return bool(decoder_name) and "transducer" in str(decoder_name)
+
+
+def build_decoder_and_ctc(config, vocab_size: int, encoder_size: int):
+    """(decoder, CTC head): the ``transformer`` attention decoder, built
+    unless ``model_conf.ctc_weight`` is 1.0 (as the JAX tasks build none),
+    and the CTC head. Transducer decoders and multi-blank vocabularies
+    raise naming item 8."""
+    decoder_name = cfg_value(config, "decoder", "transformer") or "transformer"
+    if is_transducer(decoder_name):
+        raise refuse("decoder", decoder_name, 8)
+    model_conf = dict(cfg_value(config, "model_conf", {}))
+    if model_conf.get("transducer_multi_blank_durations"):
+        raise refuse("transducer_multi_blank_durations", model_conf["transducer_multi_blank_durations"], 8)
+    decoder = None
+    if float(model_conf.get("ctc_weight", 0.5)) < 1.0:
+        require("decoder", decoder_name, ("transformer",), 8)
+        decoder = TransformerDecoder(
+            **conf_args(TransformerDecoder, cfg_value(config, "decoder_conf", {}), DECODER_FIXED,
+                        vocab_size=vocab_size, encoder_output_size=encoder_size), **META)
+    ctc_conf = dict(cfg_value(config, "ctc_conf", {}))
+    check_dropped_key("ctc_conf", "ctc_type", ctc_conf.get("ctc_type", "builtin"))
+    ctc = CTCHead(encoder_size, vocab_size, float(ctc_conf.get("dropout_rate", 0.0)), **META)
+    return decoder, ctc
+
+
+def loss_settings(config) -> Dict:
+    """The model's loss settings from ``model_conf`` (``interctc_weight``
+    weighs interCTC taps, which are refused)."""
+    model_conf = dict(cfg_value(config, "model_conf", {}))
+    return {
+        "ctc_weight": float(model_conf.get("ctc_weight", 0.5)),
+        "ignore_id": int(model_conf.get("ignore_id", -1)),
+        "lsm_weight": float(model_conf.get("lsm_weight", 0.0)),
+        "length_normalized_loss": bool(model_conf.get("length_normalized_loss", False)),
+    }
+
+
+def task_of(config) -> str:
+    task = getattr(config, "task", "avsr") or "avsr"
+    if task not in ("avsr", "asr", "vsr"):
+        raise ValueError(f"unknown task: {task!r} (avsr, asr or vsr)")
+    return task
+
+
+def build_model(config, token_list: List[str], *, generator: Optional[torch.Generator] = None,
+                device=None, dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """The model of ``config.task`` (``tasks/avsr.py`` for avsr,
+    ``tasks/asr.py`` for asr and vsr), as the JAX engine picks its task
+    (``tailored_avsr_tpu/inference.py:154``)."""
+    if task_of(config) == "avsr":
+        from tailored_avsr_tpu_torch.tasks import avsr as task
+    else:
+        from tailored_avsr_tpu_torch.tasks import asr as task
+    return task.build_model(config, token_list, generator=generator, device=device, dtype=dtype)

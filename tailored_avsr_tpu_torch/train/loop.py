@@ -66,8 +66,10 @@ def _scalars(stats: Dict) -> Dict[str, torch.Tensor]:
 
 def make_train_step(compute_dtype: Optional[torch.dtype] = None, remat: bool = False) -> Callable:
     """Returns ``step(state, batch) -> (state, scalar stats)``; ``batch`` is
-    the model's (audio, audio_lengths, video, video_lengths, text,
-    text_lengths) on its device. Stats stay on the device (0-dim tensors)."""
+    the model's inputs and targets on its device: (audio, audio_lengths,
+    video, video_lengths, text, text_lengths) for the AVSR model, (speech,
+    speech_lengths, text, text_lengths) for the ASR / VSR model. Stats
+    stay on the device (0-dim tensors)."""
     if remat:
         raise not_ported("training_settings remat (activation recomputation)", 12)
 

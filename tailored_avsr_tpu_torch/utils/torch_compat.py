@@ -2,15 +2,18 @@
 
 The port's own copy of the export half of
 ``tailored_avsr_tpu/utils/torch_compat.py`` (``export_torch_state_dict`` and
-the key grammar it needs), cut to the models the port builds: the flagship
-tailored AVSR model and the Transformer LM. The JAX package's branches for
-the transducer's LSTM prediction network and the conventional
-acoustic/visual encoders are left out. numpy only.
+the key grammar it needs), cut to the models the port builds: the tailored and the
+conventional AVSR models, the Branchformer ASR / VSR models and the
+Transformer LM. The JAX package's branches for the transducer's LSTM
+prediction network are left out. numpy only.
 ``tests/test_torch_port_int8.py`` holds it equal to the JAX package's
 export, key for key and array for array.
 
 Key mapping (flax path -> torch dotted key), by component:
-- encoders: ``layer_{i}`` -> ``encoders.{i}``; embed stacks
+- encoders: ``layer_{i}`` -> ``encoders.{i}``; conventional
+  ``acoustic_layer_{i}`` -> ``acoustic_encoder.encoders.{i}`` and
+  ``acoustic_after_norm`` -> ``acoustic_encoder.after_norm`` (visual
+  likewise); embed stacks
   ``embed_conv/conv_{j}`` -> ``embed.conv.{2j}``, ``embed_conv/out`` ->
   ``embed.out.0`` (with pos-enc) or ``embed.out`` (AVSR embeds),
   ``embed_linear``/``embed_norm`` -> ``embed.0``/``embed.1``;
@@ -64,6 +67,11 @@ def _rename_segments(path: List[str], tree_root: Dict) -> List[str]:
             out.extend(["encoder", "after_norm"])
         elif is_lm and seg == "output_layer":
             out.append("decoder")
+        elif re.fullmatch(r"(acoustic|visual)_layer_(\d+)", seg):
+            modality, _, i = seg.split("_")
+            out.extend([f"{modality}_encoder", "encoders", i])
+        elif seg in ("acoustic_after_norm", "visual_after_norm"):
+            out.extend([f"{seg.split('_')[0]}_encoder", "after_norm"])
         elif seg in ("embed_tok", "embed_linear"):
             out.extend(["embed", "0"])
         elif seg == "embed_norm":

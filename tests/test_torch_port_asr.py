@@ -1,0 +1,295 @@
+"""The port's ASR / VSR / conventional builders, refusals, checkpoints, CLI
+and ``study_branches`` against the JAX package, on the CPU.
+
+- Every config under ``configs/ASR``, ``configs/VSR`` and ``configs/AVSR``
+  that the port builds does so at full width on the meta device, with the
+  parameter names and shapes of the JAX model's export (``jax.eval_shape``
+  of its init); the others raise naming their ``ROADMAP.md`` item.
+- A port checkpoint of each family loads into the JAX ``load_model`` with
+  every array equal.
+- The training CLI trains and decodes a tiny ASR and a tiny VSR model on
+  the synthetic corpus.
+- ``study_branches``' per-layer means equal, within 1e-5, those of the JAX
+  model's ``branch_weights`` on the same batches and weights.
+"""
+
+import csv
+import dataclasses
+import glob
+import inspect
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from tailored_avsr_tpu.utils.config import load_config
+from tailored_avsr_tpu.utils.torch_compat import export_torch_state_dict
+from tailored_avsr_tpu_torch.tasks import common
+from test_torch_port_branchformer import ASR, CONVENTIONAL, TOKEN_LIST, VSR, speech_batch, tiny_cfg
+from test_torch_port_slice import _random_variables
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(p for d in ("ASR", "VSR", "AVSR") for p in glob.glob(os.path.join(ROOT, "configs", d, "*.yaml")))
+REFUSED = {"branchformer_transducer_spanish.yaml": 8, "tailored_maskctc_spanish.yaml": 7}
+
+
+@pytest.fixture(autouse=True)
+def _two_torch_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _tokens(cfg):
+    path = os.path.join(ROOT, cfg.token_list)
+    return [line.rstrip() for line in open(path) if line.rstrip()]
+
+
+def _jax_model(cfg, tokens):
+    from tailored_avsr_tpu.tasks.asr import ASRTask
+    from tailored_avsr_tpu.tasks.avsr import AVSRTask
+
+    return (AVSRTask if cfg.task == "avsr" else ASRTask).build_model(cfg, list(tokens))
+
+
+def _jax_shapes(jm, task):
+    """The JAX variables' shapes, from an init traced on a 4-frame batch."""
+    audio = (np.zeros((1, 2560), np.float32), np.array([2560], np.int32))
+    video = (np.zeros((1, 4, 88, 88), np.float32), np.array([4], np.int32))
+    args = {"avsr": audio + video, "asr": audio, "vsr": video}[task]
+    return jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0), "mlm": jax.random.PRNGKey(1)},
+                                          *args, np.ones((1, 3), np.int32), np.array([3], np.int32)))
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+def test_config_builds_with_the_jax_parameter_names(path):
+    """Full width, on the meta device: the port's state dict has the JAX
+    export's keys and shapes; the refused configs name their item."""
+    cfg = load_config(path)
+    tokens = _tokens(cfg)
+    name = os.path.basename(path)
+    if name in REFUSED:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md 'Modules to port' item {REFUSED[name]}"):
+            common.build_model(cfg, tokens, device="cpu")
+        return
+    task = "avsr" if cfg.task == "avsr" else "asr"
+    port = __import__(f"tailored_avsr_tpu_torch.tasks.{task}", fromlist=["build_meta"]).build_meta(cfg, tokens)
+    shapes = _jax_shapes(_jax_model(cfg, tokens), cfg.task)
+    zeros = jax.tree_util.tree_map(lambda s: np.broadcast_to(np.zeros((), s.dtype), s.shape), shapes)
+    want = {k: v.shape for k, v in export_torch_state_dict(zeros).items()}
+    got = {k: tuple(v.shape) for k, v in port.state_dict().items() if not k.endswith("num_batches_tracked")}
+    assert got == want
+    assert type(port.encoder).__name__ == {"branchformer": "BranchformerEncoder", "tailored": "TailoredEncoder",
+                                           "conventional": "ConventionalEncoder"}[cfg.encoder]
+
+
+@pytest.mark.parametrize("path,section,value,item", [
+    (ASR, "model", "maskctc", 7),
+    (ASR, "model", "pit_espnet", 8),
+    (ASR, "encoder", "e_branchformer", 8),
+    (ASR, "encoder", "conformer", 8),
+    (ASR, "frontend", "sliding_window", 8),
+    (ASR, "normalize", "global_mvn", 8),
+    (ASR, "preencoder", "linear", 8),
+    (ASR, "encoder_conf", {"merge_conv_kernel": 3}, 8),
+    (ASR, "encoder_conf", {"zero_triu": True}, 8),
+    (ASR, "encoder_conf", {"interctc_layer_idx": [1]}, 8),
+    (ASR, "encoder_conf", {"input_layer": "conv1d2"}, 8),
+    (ASR, "encoder_conf", {"rel_pos_type": "legacy"}, 8),
+    (ASR, "encoder_conf", {"attention_layer_type": "selfattn", "pos_enc_layer_type": "abs_pos"}, 8),
+    (VSR, "decoder", "rnn", 8),
+    (CONVENTIONAL, "encoder_conf", {"encoder_class_type": "conformer"}, 8),
+    (CONVENTIONAL, "encoder_conf", {"interctc_layer_idx": [2]}, 8),
+])
+def test_unported_choices_name_their_item(path, section, value, item):
+    cfg = tiny_cfg(path)
+    if isinstance(value, dict):
+        value = dict(getattr(cfg, section), **value)
+    setattr(cfg, section, value)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md 'Modules to port' item {item}"):
+        common.build_model(cfg, TOKEN_LIST, device="cpu")
+
+
+def test_mismatched_attention_and_positional_encoding_raise_as_in_jax():
+    """The JAX encoder's pairing check (rel-pos attention needs the rel-pos
+    table): ValueError in both packages, before any refusal."""
+    cfg = tiny_cfg(ASR, pos_enc_layer_type="abs_pos")
+    with pytest.raises(ValueError, match="requires pos_enc_layer_type"):
+        common.build_model(cfg, TOKEN_LIST, device="cpu")
+    with pytest.raises(ValueError, match="requires pos_enc_layer_type"):
+        _jax_shapes(_jax_model(cfg, TOKEN_LIST), "asr")
+
+
+def test_constructor_tables_cover_the_jax_fields():
+    """Each key the JAX Branchformer and conventional encoders take is a port
+    constructor argument or in the builder's ``*_FIXED`` table."""
+    from tailored_avsr_tpu.models.branchformer import BranchformerEncoder as JB
+    from tailored_avsr_tpu.models.conventional import ConventionalEncoder as JC
+    from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoder
+    from tailored_avsr_tpu_torch.models.conventional import ConventionalEncoder
+
+    for jcls, pcls, fixed in ((JB, BranchformerEncoder, common.BRANCHFORMER_FIXED),
+                              (JC, ConventionalEncoder, common.CONVENTIONAL_FIXED)):
+        jfields = {f.name for f in dataclasses.fields(jcls)} - {"parent", "name"}
+        pnames = set(inspect.signature(pcls.__init__).parameters)
+        assert jfields <= pnames | set(fixed), (jcls.__name__, sorted(jfields - pnames - set(fixed)))
+        assert set(fixed) <= jfields - pnames, (jcls.__name__, sorted(set(fixed) - jfields))
+
+
+def test_build_model_picks_the_task_and_needs_the_card(monkeypatch):
+    """``tasks.common.build_model`` builds the task's model; without
+    ``device=`` it needs the card, as every builder of the port."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        common.build_model(tiny_cfg(ASR), TOKEN_LIST)
+    kinds = {p: type(common.build_model(tiny_cfg(p), TOKEN_LIST, device="cpu")).__name__
+             for p in (ASR, VSR, CONVENTIONAL)}
+    assert list(kinds.values()) == ["ASRModel", "ASRModel", "AVSRModel"]
+    cfg = tiny_cfg(ASR)
+    cfg.task = "lm"
+    with pytest.raises(ValueError, match="unknown task"):
+        common.build_model(cfg, TOKEN_LIST, device="cpu")
+
+
+@pytest.mark.parametrize("path", [ASR, VSR, CONVENTIONAL], ids=["asr", "vsr", "conventional"])
+def test_port_checkpoint_loads_into_the_jax_package(path, tmp_path):
+    """A port ``.pth`` (BatchNorm statistics moved by a train-mode forward)
+    read by the JAX ``load_model`` gives every array exactly."""
+    from tailored_avsr_tpu.train.checkpoint import load_model as jax_load_model
+    from tailored_avsr_tpu_torch.train.checkpoint import save_model
+
+    cfg = tiny_cfg(path)
+    model = common.build_model(cfg, TOKEN_LIST, generator=torch.Generator().manual_seed(3), device="cpu")
+    if cfg.task == "vsr":
+        b = speech_batch("vsr")
+        model.train()(*(torch.from_numpy(b[k]) for k in ("speech", "speech_lengths", "text", "text_lengths")))
+    save = str(tmp_path / "port.pth")
+    save_model(model, save)
+    template = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                      _jax_shapes(_jax_model(cfg, TOKEN_LIST), cfg.task))
+    loaded = export_torch_state_dict(jax_load_model(template, save))
+    state = model.state_dict()
+    assert set(loaded) == {k for k in state if not k.endswith("num_batches_tracked")}
+    for k, v in loaded.items():
+        np.testing.assert_array_equal(v, state[k].numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("path", [ASR, VSR, CONVENTIONAL], ids=["asr", "vsr", "conventional"])
+def test_port_export_equals_the_jax_export(path):
+    """The port's numpy-only copy of ``export_torch_state_dict`` against the
+    JAX package's on each family's tree (the conventional stacks' keys
+    among them): the same keys, and each array equal with its dtype."""
+    from tailored_avsr_tpu_torch.utils.torch_compat import export_torch_state_dict as pexport
+
+    cfg = tiny_cfg(path)
+    shapes = _jax_shapes(_jax_model(cfg, TOKEN_LIST), cfg.task)
+    variables = _random_variables(shapes, seed=6)
+    want, got = export_torch_state_dict(variables), pexport(variables)
+    assert list(got) == list(want) and len(got) > 50
+    assert any(".encoders.1." in k for k in got)
+    for key, w in want.items():
+        assert got[key].dtype == w.dtype and got[key].shape == w.shape, key
+        np.testing.assert_array_equal(got[key], w, err_msg=key)
+
+
+# ---------------------------------------------------------------- CLI and study_branches
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    from tests.synthetic import make_synthetic_corpus
+
+    return make_synthetic_corpus(str(tmp_path_factory.mktemp("corpus")), n=3, nframes=10)
+
+
+def _cli_config(tmp_path, path, token_path, **encoder):
+    """A repo config cut to 32-d, 2 + 1 blocks, one epoch, beam 2."""
+    with open(path) as f:
+        c = yaml.safe_load(f)
+    c["token_list"] = token_path
+    c["encoder_conf"].update(output_size=32, linear_units=48, cgmlp_linear_units=48, cgmlp_conv_kernel=7,
+                             num_blocks=2, **encoder)
+    c["decoder_conf"].update(linear_units=48, num_blocks=1)
+    c["inference_conf"].update(beam_size=2, batch_size=2)
+    c["training_settings"].update(batch_size=3, epochs=1, average_epochs=1, accum_grad=1, warmup_steps=10,
+                                  num_workers=0)
+    out = str(tmp_path / os.path.basename(path))
+    with open(out, "w") as f:
+        yaml.safe_dump(c, f)
+    return out
+
+
+@pytest.mark.parametrize("path", [ASR, VSR], ids=["asr", "vsr"])
+def test_cli_trains_and_decodes(corpus, tmp_path, path):
+    from tailored_avsr_tpu_torch import avsr_main
+
+    csv_path, token_path = corpus
+    cfg = _cli_config(tmp_path, path, token_path)
+    out = str(tmp_path / "exp")
+    avsr_main.main(["--config-file", cfg, "--training-dataset", csv_path, "--validation-dataset", csv_path,
+                    "--test-dataset", csv_path, "--mode", "both", "--output-dir", out, "--output-name", "t",
+                    "--device", "cpu"])
+    assert sorted(os.listdir(os.path.join(out, "models"))) == ["model_001.pth", "model_average.pth",
+                                                               "train_state.pt"]
+    with open(os.path.join(out, "inference", "t.inf")) as f:
+        assert len(f.readlines()) == 3
+    with open(os.path.join(out, "inference", "t.wer")) as f:
+        assert f.readline().startswith("WER: ")
+
+
+def test_study_branches_matches_the_jax_branch_weights(corpus, tmp_path):
+    """The CSV of a port checkpoint: per-layer means within 1e-5 of the JAX
+    model's ``branch_weights`` on the same weights and batches, std and
+    ``use_attn`` as the JAX script computes them; an encoder without a
+    ``learned_ave`` layer exits with the JAX script's message."""
+    from tailored_avsr_tpu.tasks.asr import ASRTask
+    from tailored_avsr_tpu_torch import study_branches
+    from tailored_avsr_tpu_torch.data.dataloader import AVSRDataLoader
+    from tailored_avsr_tpu_torch.data.dataset import AVSRDataset
+    from tailored_avsr_tpu_torch.data.tokenizer import get_tokenizer_converter
+    from tailored_avsr_tpu_torch.tasks.asr import build_model
+    from tailored_avsr_tpu_torch.train.checkpoint import save_model
+    from tailored_avsr_tpu_torch.utils.config import load_config as port_load_config
+    from tailored_avsr_tpu_torch.utils.convert import convert_jax_variables
+
+    csv_path, token_path = corpus
+    cfg_path = _cli_config(tmp_path, ASR, token_path, dropout_rate=0.0)
+    cfg = port_load_config(cfg_path)
+    tokenizer, converter = get_tokenizer_converter(cfg)
+    batches = list(AVSRDataLoader(AVSRDataset(csv_path, task="asr", is_training=False), 4, task="asr",
+                                  tokenizer=tokenizer, converter=converter, is_training=False))
+    jm = ASRTask.build_model(load_config(cfg_path), list(converter.token_list))
+    args = [batches[0][k] for k in ("speech", "speech_lengths", "text", "text_lengths")]
+    variables = _random_variables(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), *args)), seed=8)
+    forward = jax.jit(lambda v, *a: jm.apply(v, *a)[1]["branch_weights"])
+    want = {}
+    for batch in batches:
+        for layer, aux in forward(variables, *(batch[k] for k in ("speech", "speech_lengths", "text",
+                                                                  "text_lengths"))):
+            want.setdefault(int(layer), []).append(np.asarray(aux["weight_global"]))
+    model = build_model(cfg, converter.token_list, device="cpu")
+    model.load_state_dict(convert_jax_variables(variables, model)[0], strict=True)
+    ckpt = str(tmp_path / "asr.pth")
+    save_model(model, ckpt)
+    out = str(tmp_path / "scores")
+    study_branches.main(["--config-file", cfg_path, "--load-checkpoint", ckpt, "--dataset", csv_path,
+                         "--output-dir", out, "--device", "cpu"])
+    with open(os.path.join(out, "branch_scores.csv")) as f:
+        rows = list(csv.DictReader(f))
+    assert list(rows[0]) == ["layer", "mean_attn_weight", "std_attn_weight", "use_attn"]
+    assert [int(r["layer"]) for r in rows] == sorted(want) == [1, 2]
+    for r in rows:
+        w = np.concatenate(want[int(r["layer"])])
+        assert w.shape == (3,)
+        np.testing.assert_allclose(float(r["mean_attn_weight"]), w.mean(), atol=1e-5)
+        np.testing.assert_allclose(float(r["std_attn_weight"]), w.std(), atol=1e-5)
+        assert r["use_attn"] == str(bool(w.mean() > 0.5))
+
+    concat = _cli_config(tmp_path, ASR, token_path, merge_method="concat")
+    with pytest.raises(SystemExit, match="no learned_ave branch weights found"):
+        study_branches.main(["--config-file", concat, "--dataset", csv_path, "--output-dir", out,
+                             "--device", "cpu"])

@@ -683,7 +683,7 @@ def test_constructor_tables_cover_the_jax_fields():
     from tailored_avsr_tpu_torch.models.tailored import TailoredEncoder
     from tailored_avsr_tpu_torch.ops.normalize import UtteranceMVN
     from tailored_avsr_tpu_torch.ops.specaug import SpecAug
-    from tailored_avsr_tpu_torch.tasks import avsr as task
+    from tailored_avsr_tpu_torch.tasks import common as task
     from tailored_avsr_tpu.ops.normalize import UtteranceMVN as JU
 
     pairs = [(JT, TailoredEncoder, task.ENCODER_FIXED), (JD, TransformerDecoder, task.DECODER_FIXED),
