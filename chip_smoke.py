@@ -109,14 +109,32 @@ Run from the repository root on a machine with one CUDA card:
    calls) and one profiled call each. Then 16 ASR training micro-steps at
    the config's settings (4 x 20 s, accum_grad 16: one update) in bf16
    autocast: no kernel launched, finite, every parameter moved.
-10. Prints one JSON line of train numbers, one of the Branchformer
-   family's numbers, one JSON line of per-kernel results (launches: K1-K3
+10. Mask-CTC and the transducer (``maskctc_transducer_phase``), at full
+   width with seeded weights and the encoder kernels on, every call's
+   launches asserted exactly: Mask-CTC on the tailored AVSR encoder
+   (``configs/AVSR/tailored_maskctc_spanish.yaml``) serves request (a)
+   32 x 4 s through ``Speech2Text.nbest`` (K2 19, K3 5 a call, 10 MLM
+   rounds with no kernel), bf16 twice and f32; the f32 call gives the
+   eager path's ids, CTC log-probs within 1e-3; the tokens masked before
+   the rounds are printed. The RNN-T transducer on the ASR Branchformer
+   (``configs/ASR/branchformer_transducer_spanish.yaml``) serves greedy
+   (beam 1) requests (a) (K2 12, K3 12) and (b) 24 x 20 s (K1 12, K3 12),
+   f32 ids equal to the eager path's, then the config's beam 30 at (a)
+   (ALSD, 198 steps), the f32 1-best held to the eager run by
+   ``envelope_gate`` (scores within 1e-3; a near-tied swap of the top two
+   passes with its margin printed). bf16 walls (five warm calls) and a
+   profiled call of each path. Then 16 training micro-steps of each
+   config (4 x 20 s, accum_grad 16: one update) in bf16 autocast: no
+   kernel, finite, every parameter moved, peak memory printed.
+11. Prints one JSON line of train numbers, one of the Branchformer
+   family's numbers, one of the Mask-CTC and transducer paths' numbers,
+   one JSON line of per-kernel results (launches: K1-K3
    from the greedy path, K4, K5 (the step write) and K5' from the beam
    path, K6 from the int8 beam path; P1 counted over both beam paths,
    where no serving code may launch it; beside them the train path's
-   launches in its train steps and in its eval step, and each
-   Branchformer path's), then the result line ``{"ok": true, "device":
-   {...}}`` last.
+   launches in its train steps and in its eval step, each
+   Branchformer path's and each Mask-CTC and transducer path's), then the
+   result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises, so the run exits non-zero and prints no result line.
 Nothing here imports JAX.
@@ -138,6 +156,7 @@ times K3 with its phases taken out one at a time (``K3_PHASE_CUTS``).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -895,11 +914,21 @@ def greedy_profile(engine, batch: dict, name: str, repeats: int = 5) -> dict:
     of its kernels' and copies' times; one stream, so they do not overlap),
     its idle share of that call's wall time, and the flash-attention
     kernels' part of the busy time."""
-    walls = _walls(lambda: engine.greedy(batch), repeats)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    return call_profile(lambda: engine.greedy(batch), name, repeats)
+
+
+def call_profile(call, name: str, repeats: int = 5, host_events: bool = True) -> dict:
+    """``greedy_profile`` of any serving call (one that returns host data);
+    without ``host_events`` the profiler records the device's events alone
+    (a call of tens of thousands of launches takes it tens of seconds to
+    sum otherwise)."""
+    walls = _walls(call, repeats)
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host_events:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        engine.greedy(batch)
+        call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # the device's own events (kernels, copies, sets); a CPU op's device
@@ -1777,7 +1806,6 @@ CONVENTIONAL_CONFIG = os.path.join(ROOT, "configs/AVSR/conventional_transformer+
 # f32 rounding, ~1e-6)
 FAMILY_LOGP_ATOL = 1e-3
 FAMILY_WEIGHT_ATOL = 1e-4
-ASR_TRAIN_MICRO_STEPS = 16  # the config's accum_grad: one optimizer update
 
 
 def _family_engine(path: str, device, dtype: str, lm: bool = False, **inference_conf):
@@ -1839,12 +1867,11 @@ def _family_outputs(engine, batch: dict):
 
 
 def _family_serve(engine, name: str, batch: dict, expect: dict) -> list:
-    """One ``Speech2Text.greedy`` call whose K1-K3 launches must be ``expect``."""
-    before = _counts()
-    hyps = _serve(engine, name, batch)
-    launched = {k: _counts()[k] - before[k] for k in expect}
-    if launched != expect:
-        raise AssertionError(f"{name}: launches {launched}, expected {expect}")
+    """One ``Speech2Text.greedy`` call whose launches must be ``expect``
+    (``_exact_call``)."""
+    hyps = _exact_call(name, lambda: engine.greedy(batch), expect)
+    if len(hyps) != _utterances(batch):
+        raise AssertionError(f"{name}: {len(hyps)} transcripts for {_utterances(batch)} utterances")
     return hyps
 
 
@@ -1980,13 +2007,23 @@ def asr_train_phase(device) -> dict:
     Noam, accum_grad 16: one update) in bf16 autocast over f32 master
     weights: no kernel launched, losses and gradients finite, every
     parameter moved by the update."""
+    return family_train_phase("ASR", ASR_CONFIG, device, seed=30)
+
+
+def family_train_phase(name: str, path: str, device, seed: int) -> dict:
+    """``accum_grad`` training micro-steps (one update) of the config at
+    ``path`` at its settings (batch x 20 s, 250-300 characters an
+    utterance, Adam + Noam) in bf16 autocast over f32 master weights: no
+    kernel launched, losses and gradients finite, every parameter moved by
+    the update; the median warm micro-step, speech trained per wall second
+    and ``torch.cuda.max_memory_allocated``."""
     from tailored_avsr_tpu_torch.inference import load_token_list
-    from tailored_avsr_tpu_torch.tasks.asr import build_model
+    from tailored_avsr_tpu_torch.tasks.common import build_model
     from tailored_avsr_tpu_torch.train.loop import create_train_state, make_train_step
     from tailored_avsr_tpu_torch.train.optim import set_optimizer
     from tailored_avsr_tpu_torch.utils.config import load_config
 
-    cfg = load_config(ASR_CONFIG)
+    cfg = load_config(path)
     cfg.token_list = os.path.join(ROOT, cfg.token_list)
     cfg.encoder_conf = dict(cfg.encoder_conf, use_flash=True, use_fused_csgu=True)
     ts = cfg.training_settings
@@ -1994,21 +2031,21 @@ def asr_train_phase(device) -> dict:
     model = build_model(cfg, tokens, generator=torch.Generator().manual_seed(0), device=device, dtype=torch.float32)
     opt, _ = set_optimizer(ts, int(cfg.encoder_conf["output_size"]), 1, model.named_parameters())
     state = create_train_state(model, opt)
-    if ASR_TRAIN_MICRO_STEPS != state.optimizer.accum_grad:
-        raise AssertionError(f"accum_grad {state.optimizer.accum_grad}: the phase runs one update")
+    micro_steps = state.optimizer.accum_grad
     seconds = ts["nframes"] / 25
     chars = (int(12.5 * seconds), int(15 * seconds))  # 250-300: CTC-feasible at T = 499
-    batches = [_asr_train_batch(30 + k, ts["batch_size"], seconds, len(tokens), chars, device) for k in range(4)]
+    make_batch = _train_batch if cfg.task == "avsr" else _asr_train_batch
+    batches = [make_batch(seed + k, ts["batch_size"], seconds, len(tokens), chars, device) for k in range(4)]
     params0 = [p.detach().clone() for p in model.parameters()]
-    print(f"ASR train path: {sum(p.numel() for p in params0) / 1e6:.1f}M parameters, batch {ts['batch_size']} x "
+    print(f"{name} train path: {sum(p.numel() for p in params0) / 1e6:.1f}M parameters, batch {ts['batch_size']} x "
           f"{seconds:g} s, Adam + Noam, accum_grad {ts['accum_grad']}, bf16 autocast over f32 master weights")
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     walls = []
-    losses = _train_micro_steps(state, make_train_step(torch.bfloat16), batches, 1, ASR_TRAIN_MICRO_STEPS, walls)
+    losses = _train_micro_steps(state, make_train_step(torch.bfloat16), batches, 1, micro_steps, walls)
     launches = _counts()
     if any(launches.values()):
-        raise AssertionError(f"an ASR train step launched a forward-only kernel: {launches}")
+        raise AssertionError(f"a {name} train step launched a forward-only kernel: {launches}")
     names = [n for n, _ in model.named_parameters()]
     still = [n for n, p, p0 in zip(names, model.parameters(), params0) if torch.equal(p, p0)]
     if state.optimizer.count != 1 or still or not _finite(model.parameters()):
@@ -2020,7 +2057,7 @@ def asr_train_phase(device) -> dict:
            "micro_step_ms_p90": float(np.percentile(warm, 90)), "speech_s_per_wall_s": speech / (med / 1e3),
            "peak_bytes": int(torch.cuda.max_memory_allocated()), "first_loss": losses[0], "last_loss": losses[-1],
            "launches": launches}
-    print(f"  {ASR_TRAIN_MICRO_STEPS} micro-steps: losses {losses[0]:.2f} -> {losses[-1]:.2f}, finite; launches "
+    print(f"  {micro_steps} micro-steps: losses {losses[0]:.2f} -> {losses[-1]:.2f}, finite; launches "
           f"{launches} (all 0); all {len(names)} parameters moved by the update; warm micro-step wall ms median "
           f"{med:.1f} (p10 {out['micro_step_ms_p10']:.1f}, p90 {out['micro_step_ms_p90']:.1f}); "
           f"{out['speech_s_per_wall_s']:.1f} s of speech trained per wall second; max_memory_allocated "
@@ -2034,6 +2071,206 @@ def branchformer_phase(device) -> dict:
     out = {}
     for name, phase in (("asr", asr_phase), ("vsr", vsr_phase), ("conventional", conventional_phase),
                         ("asr_train", asr_train_phase)):
+        t0 = time.perf_counter()
+        out[name] = phase(device)
+        torch.cuda.empty_cache()
+        print(f"  ({name} phase: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------- Mask-CTC and the transducer
+# The repo's last two model configs at full width, seeded weights, the
+# encoder kernels on: Mask-CTC on the tailored AVSR encoder (K2 19, K3 5 a
+# call at request (a)) and the RNN-T transducer on the ASR Branchformer
+# (K2 or K1 12, K3 12 a call). Their searches (the MLM rounds, the greedy
+# transducer decode, the ALSD beam) and their train steps launch no kernel:
+# every call's launches are asserted exactly.
+
+MASKCTC_CONFIG = os.path.join(ROOT, "configs/AVSR/tailored_maskctc_spanish.yaml")
+TRANSDUCER_CONFIG = os.path.join(ROOT, "configs/ASR/branchformer_transducer_spanish.yaml")
+# f32 through the kernels against the eager path of the same engine: ids
+# identical, CTC log-probs within this; the transducer beam's 1-best held by
+# ``envelope_gate`` to the eager run (its 1-best at its score within this,
+# or a near-tied swap of the top two, whose margin is printed)
+MT_ATOL = 1e-3
+
+
+def _exact_call(name: str, call, expect: dict):
+    """One serving call whose launches of every kernel must be ``expect``
+    (0 for a kernel not named); prints its wall time."""
+    before = _counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    wall = (time.perf_counter() - t0) * 1e3
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    want = {k: expect.get(k, 0) for k in launched}
+    print(f"  {name}: {wall:.1f} ms wall, launches {({k: v for k, v in launched.items() if v})}")
+    if launched != want:
+        raise AssertionError(f"{name}: launches {launched}, expected {want}")
+    return out
+
+
+def _ids(hyps) -> list:
+    return [h[0][2] for h in hyps]
+
+
+def _kernel_vs_eager(engine, name: str, call, expect: dict):
+    """``call`` of an f32 engine through the kernels (launches ``expect``),
+    then on the eager path (kernels off, no launch); returns both results."""
+    got = _exact_call(f"f32 {name}", call, expect)
+    _set_kernels(engine.model, False)
+    try:
+        want = _exact_call(f"f32 eager {name}", call, {})
+    finally:
+        _set_kernels(engine.model, True)
+    return got, want
+
+
+def _masked_tokens(engine, batch: dict) -> tuple:
+    """(tokens masked before the MLM rounds, tokens, the largest CTC
+    posterior on a valid frame) of one Mask-CTC request."""
+    from tailored_avsr_tpu_torch.decode.maskctc import collapse_rows
+
+    with torch.inference_mode():
+        enc, lens, _ = engine.model.encode(*engine.inputs(batch))
+        best, ids = engine.model.ctc.log_softmax(enc).max(dim=-1)
+    _, probs, n = collapse_rows(best.exp(), ids, lens, 0, engine.model.mask_token)
+    valid = torch.arange(probs.shape[1], device=probs.device)[None] < n[:, None]
+    frames = torch.arange(best.shape[1], device=best.device)[None] < lens[:, None]
+    masked = int(((probs < engine.maskctc_threshold) & valid).sum())
+    return masked, int(n.sum()), float(best.exp()[frames].max())
+
+
+def maskctc_phase(device) -> dict:
+    """Mask-CTC nbest at request (a) 32 x 4 s (T = 100): K2 19, K3 5 a call
+    and no kernel in the 10 MLM rounds, bf16 and f32; f32 ids identical to
+    the eager path's, CTC log-probs within MT_ATOL; the tokens masked; bf16
+    walls and a profiled call."""
+    req = _request(1, 32, 4)
+    expect = {"K2": 19, "K3": 5}
+    bf16 = _family_engine(MASKCTC_CONFIG, device, "bfloat16")
+    f32 = _family_engine(MASKCTC_CONFIG, device, "float32")
+    rounds = [0]
+    for engine in (bf16, f32):
+        engine.model.decoder.register_forward_hook(lambda *_: rounds.__setitem__(0, rounds[0] + 1))
+    n_iter = bf16.maskctc_n_iterations
+    print(f"Mask-CTC path: tailored AVSR encoder (12 blocks, 256-d) + 6-layer MLM decoder over V + 1 tokens, "
+          f"{n_iter} rounds, threshold {bf16.maskctc_threshold}, seeded weights, request (a) 32 x 4 s")
+    _reset_counts()
+    for dtype, engine in (("bf16", bf16), ("bf16", bf16), ("f32", f32)):
+        rounds[0] = 0
+        hyps = _exact_call(f"{dtype} Mask-CTC nbest (a)", lambda: engine.nbest(req), expect)
+        if rounds[0] != n_iter or len(hyps) != 32 or any(len(h) != 1 or h[0][3] != 0.0 for h in hyps):
+            raise AssertionError(f"{rounds[0]} MLM rounds, {len(hyps)} n-best lists: expected {n_iter}, 32 of one")
+    print(f"  sample transcripts: bf16 {hyps[0][0][0][:40]!r}")
+    launches = _path_counts("Mask-CTC", ("K2", "K3"))
+    out = {"launches": launches}
+    for dtype, engine in (("bf16", bf16), ("f32", f32)):
+        masked, tokens, top = _masked_tokens(engine, req)
+        print(f"  {dtype}: {masked} of {tokens} tokens masked before the MLM rounds (largest CTC posterior "
+              f"{top:.4f} < {engine.maskctc_threshold}: every round runs)")
+        out[f"masked_{dtype}"] = [masked, tokens]
+    hyp_k, hyp_e = _kernel_vs_eager(f32, "Mask-CTC nbest (a)", lambda: f32.nbest(req), expect)
+    ids_k, logp_k, lens_k = _ctc(f32, req)
+    _set_kernels(f32.model, False)
+    try:
+        _, logp_e, lens_e = _ctc(f32, req)
+    finally:
+        _set_kernels(f32.model, True)
+    valid = torch.arange(ids_k.shape[1], device=device)[None] < lens_k[:, None]
+    same = _ids(hyp_k) == _ids(hyp_e) and bool(torch.equal(lens_k, lens_e))
+    dlogp = float((logp_k - logp_e).abs()[valid].max())
+    print(f"  f32 Mask-CTC (a): ids identical to the eager path: {same}; max |CTC log-prob diff| {dlogp:.3e} "
+          f"(tol {MT_ATOL:g})")
+    if not same or dlogp > MT_ATOL:
+        raise AssertionError("f32 Mask-CTC through the kernels disagrees with the eager path")
+    out["nbest_a"] = call_profile(lambda: bf16.nbest(req), "bf16 Mask-CTC nbest (a) 32 x 4 s", host_events=False)
+    return out
+
+
+def _set_beam(engine, beam: int) -> None:
+    engine.beam_config = dataclasses.replace(engine.beam_config, beam_size=beam)
+
+
+def _beam_margins(hyp, hyp_eager) -> None:
+    """Print the 1-best / 2-best margin of each utterance whose 1-best
+    differs between the two runs."""
+    for u, (g, w) in enumerate(zip(hyp, hyp_eager)):
+        if g[0][2] != w[0][2]:
+            print(f"    utterance {u}: 1-best differs; margins kernel {g[0][3] - g[1][3]:.3e}, "
+                  f"eager {w[0][3] - w[1][3]:.3e}")
+
+
+def transducer_phase(device) -> dict:
+    """The RNN-T transducer ASR: greedy (beam 1) at (a) 32 x 4 s (T = 99: K2
+    12, K3 12 a call) and (b) 24 x 20 s (T = 499: K1 12, K3 12), f32 ids
+    identical to the eager path's; the config's beam 30 at (a) (ALSD,
+    T + max_symbols = 198 steps), f32 1-best held to the eager run by
+    ``envelope_gate``; bf16 walls and a profiled call of each."""
+    out = {}
+    req_a, req_b = _speech_request(1, 32, 4, "asr"), _speech_request(2, 24, 20, "asr")
+    expect_a, expect_b = {"K2": 12, "K3": 12}, {"K1": 12, "K3": 12}
+    bf16 = _family_engine(TRANSDUCER_CONFIG, device, "bfloat16")
+    f32 = _family_engine(TRANSDUCER_CONFIG, device, "float32")
+    beam = bf16.beam_config.beam_size
+    print(f"transducer path: Branchformer (12 blocks, 256-d) + 1-layer 256-d LSTM prediction network + "
+          f"320-d joint, seeded weights, int16 audio; greedy (beam 1) and the config's beam {beam}")
+    for engine in (bf16, f32):
+        _set_beam(engine, 1)
+    _reset_counts()
+    hyp_a = _exact_call("bf16 transducer greedy (a) 32 x 4 s, T=99 (first call)", lambda: bf16.nbest(req_a),
+                        expect_a)
+    hyp_b = _exact_call("bf16 transducer greedy (b) 24 x 20 s, T=499 (first call)", lambda: bf16.nbest(req_b),
+                        expect_b)
+    print(f"  sample transcripts: (a) {hyp_a[0][0][0][:40]!r}  (b) {hyp_b[0][0][0][:40]!r}")
+    for name, req, expect in (("(a)", req_a, expect_a), ("(b)", req_b, expect_b)):
+        got, want = _kernel_vs_eager(f32, f"transducer greedy {name}", lambda: f32.nbest(req), expect)
+        same = _ids(got) == _ids(want)
+        print(f"  f32 transducer greedy {name}: ids identical to the eager path: {same} "
+              f"({sum(len(i) for i in _ids(got))} tokens)")
+        if not same:
+            raise AssertionError(f"f32 transducer greedy {name} through the kernels disagrees with the eager path")
+    out["greedy_a"] = call_profile(lambda: bf16.nbest(req_a), "bf16 transducer greedy (a) 32 x 4 s",
+                                   host_events=False)
+    out["greedy_b"] = call_profile(lambda: bf16.nbest(req_b), "bf16 transducer greedy (b) 24 x 20 s",
+                                   host_events=False)
+    out["greedy_launches"] = _path_counts("transducer greedy", ("K1", "K2", "K3"))
+
+    for engine in (bf16, f32):
+        _set_beam(engine, beam)
+    print(f"transducer beam path: ALSD beam {beam}, prune 4, prefix merge, max_symbols = T, request (a)")
+    _reset_counts()
+    _exact_call(f"bf16 transducer beam {beam} (a) (first call)", lambda: bf16.nbest(req_a), expect_a)
+    hyp = _exact_call(f"bf16 transducer beam {beam} (a)", lambda: bf16.nbest(req_a), expect_a)
+    if len(hyp) != 32 or any(len(h) != beam or not np.isfinite(h[0][3]) for h in hyp):
+        raise AssertionError(f"expected 32 n-best lists of {beam} with a finite 1-best score")
+    hyp_k, hyp_e = _kernel_vs_eager(f32, f"transducer beam {beam} (a)", lambda: f32.nbest(req_a), expect_a)
+    stable, bad = envelope_gate(hyp_k, [hyp_e], MT_ATOL)
+    _beam_margins(hyp_k, hyp_e)
+    for u, reason in bad:
+        print(f"    utterance {u}: {reason}")
+    worst = max((abs(g[0][3] - w[0][3]) for g, w in zip(hyp_k, hyp_e) if g[0][2] == w[0][2]), default=0.0)
+    print(f"  f32 transducer beam (a): 1-best equal to the eager path's on "
+          f"{sum(g == w for g, w in zip(_ids(hyp_k), _ids(hyp_e)))}/32, max |1-best score diff| {worst:.3e}; "
+          f"{len(bad)} beyond the gate ({MT_ATOL:g} or 8 ulps, near-tied swaps allowed)")
+    if bad:
+        raise AssertionError("f32 transducer beam through the kernels disagrees with the eager path")
+    print(f"  sample 1-best: bf16 {hyp[0][0][0][:40]!r} ({hyp[0][0][3]:.3f})")
+    out["beam_a"] = call_profile(lambda: bf16.nbest(req_a), f"bf16 transducer beam {beam} (a) 32 x 4 s",
+                                 host_events=False)
+    out["beam_launches"] = _path_counts("transducer beam", ("K2", "K3"))
+    return out
+
+
+def maskctc_transducer_phase(device) -> dict:
+    """Mask-CTC, the transducer, then each one's train micro-steps, the
+    engines freed between them; returns each path's numbers and counts."""
+    out = {}
+    for name, phase in (("maskctc", maskctc_phase), ("transducer", transducer_phase),
+                        ("maskctc_train", lambda d: family_train_phase("Mask-CTC", MASKCTC_CONFIG, d, seed=50)),
+                        ("transducer_train", lambda d: family_train_phase("transducer", TRANSDUCER_CONFIG, d,
+                                                                          seed=60))):
         t0 = time.perf_counter()
         out[name] = phase(device)
         torch.cuda.empty_cache()
@@ -2116,6 +2353,16 @@ def main() -> int:
         "asr_train_steps": family["asr_train"].pop("launches"),
     }
     print(json.dumps({"branchformer": family}))
+    torch.cuda.empty_cache()
+    mt = maskctc_transducer_phase(device)
+    mt_launches = {
+        "maskctc_nbest": mt["maskctc"].pop("launches"),
+        "transducer_greedy": mt["transducer"].pop("greedy_launches"),
+        "transducer_beam": mt["transducer"].pop("beam_launches"),
+        "maskctc_train_steps": mt["maskctc_train"].pop("launches"),
+        "transducer_train_steps": mt["transducer_train"].pop("launches"),
+    }
+    print(json.dumps({"maskctc_transducer": {**mt, "card": smi}}))
 
     kernels = []
     for key, (name, source, replaces) in sources.items():
@@ -2125,7 +2372,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[key], **phases[key, "bf16"],
                         "launches_train_steps": train_launches[key], "launches_eval_step": eval_launches[key],
-                        "launches_branchformer": {path: c[key] for path, c in family_launches.items()}})
+                        "launches_branchformer": {path: c[key] for path, c in family_launches.items()},
+                        "launches_maskctc_transducer": {path: c[key] for path, c in mt_launches.items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,22 +10,31 @@ cross-attention memory may be stored as int8 (``cache_dtype`` /
 Adam + Noam, checkpoints, the data path and the CLI); and the same serving
 and training for the Branchformer family: the audio-only ASR and
 video-only VSR Branchformers, whose learned branch scores
-``study_branches`` reads, and the conventional AVSR encoder:
+``study_branches`` reads, and the conventional AVSR encoder; and the same
+for Mask-CTC (the MLM decoder and its iterative decode, on the tailored
+AVSR encoder of ``configs/AVSR/tailored_maskctc_spanish.yaml``) and the
+RNN-T transducer (loss, prediction and joint networks, greedy,
+multi-blank and ALSD beam decoding, on the ASR Branchformer of
+``configs/ASR/branchformer_transducer_spanish.yaml``), so every model
+config of ``configs/`` builds, serves and trains:
 
 - ``ops/``     : frontends, MVN, subsampling, positional encodings, rel-pos
                  and absolute multi-head attention, cgMLP, FFN, the int8
-                 column quantiser (``kv_quant.py``), losses, SpecAug, plus
+                 column quantiser (``kv_quant.py``), losses, SpecAug, the
+                 RNN-T loss, networks and greedy decoders (``rnnt.py``), plus
                  the wrappers of the hand-written CUDA kernels
                  (``flash_attention.py``, ``fused_csgu.py``,
                  ``group_attend.py``, ``cache_update.py``,
                  ``stream_probe.py``);
 - ``models/``  : Conv3D + ResNet-18 visual frontend, AVSR embeddings, the
                  tailored, Branchformer and conventional encoders, adaptive
-                 fusion, CTC head, the Transformer decoder, the Transformer
-                 LM, the AVSR and ASR / VSR models;
+                 fusion, CTC head, the Transformer and MLM decoders, the
+                 Transformer LM, the AVSR and ASR / VSR models and their
+                 Mask-CTC variants;
 - ``tasks/``   : config -> model for the avsr, asr and vsr tasks and the LM,
                  over one registry (``tasks/common.py``);
-- ``decode/``  : greedy CTC collapse, CTC prefix scorer, beam search;
+- ``decode/``  : greedy CTC collapse, CTC prefix scorer, beam search,
+                 Mask-CTC, the transducer's ALSD beam;
 - ``inference``: ``Speech2Text`` (``greedy``, ``nbest``, ``__call__``);
 - ``train/``   : optimizer and schedules, train and eval steps, checkpoints;
 - ``data/``, ``evaluation/``: tokenizers, transforms, dataset and loader;

@@ -177,7 +177,7 @@ def run_training(args, config, tokenizer, converter, transforms, device) -> bool
             n = 0
             for batch in train_loader:
                 state, stats = train_step(state, batch_tuple(batch, task, device))
-                for k in ("loss", "loss_att", "loss_ctc", "acc"):
+                for k in ("loss", "loss_att", "loss_ctc", "loss_transducer", "acc"):
                     if k in stats:
                         sums[k] = sums.get(k, 0.0) + float(stats[k])
                 n += 1

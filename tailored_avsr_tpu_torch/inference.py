@@ -28,6 +28,17 @@ scales (group attend K6, quantised column writes through K5) and
 ``inference.py:218-246`` and ``:663-699`` do. The other protocols and decode
 modes raise, naming their ``ROADMAP.md`` item.
 
+``nbest`` dispatches as the JAX engine does (``inference.py:447-525``): a
+transducer model (``decoder: transducer``) runs the ALSD beam
+(``decode/transducer_beam.py``, ``max_symbols`` = T) when ``beam_size`` >
+1 and it has no multi-blank durations, else the greedy transducer decode
+(the multi-blank one, blank at ``len(durations)``, with durations); a
+Mask-CTC model (``model: maskctc``) runs ``decode/maskctc.py`` with
+``maskctc_n_iterations`` and ``maskctc_threshold_probability`` (0.999
+unless set). Both return ids without ``<sos>``, the transducer beam all K
+hypotheses, the others one with score 0; an ``lm_config`` takes no part in
+them, as in the JAX engine. ``greedy`` is CTC greedy for every model.
+
 The engine runs on the CUDA card unless ``device="cpu"`` is asked for.
 """
 
@@ -46,8 +57,11 @@ from tailored_avsr_tpu_torch.decode.beam_search import (
     write_beam_step,
 )
 from tailored_avsr_tpu_torch.decode.greedy import ctc_greedy_collapse
+from tailored_avsr_tpu_torch.decode.maskctc import maskctc_decode
+from tailored_avsr_tpu_torch.decode.transducer_beam import transducer_beam_search
 from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
+from tailored_avsr_tpu_torch.ops.rnnt import multiblank_greedy_decode, transducer_greedy_decode
 from tailored_avsr_tpu_torch.tasks import lm as lm_task
 from tailored_avsr_tpu_torch.tasks.common import build_model, resolve_device, task_of
 from tailored_avsr_tpu_torch.train.checkpoint import load_model, read_state_dict
@@ -215,6 +229,9 @@ class Speech2Text:
         # group-attend choice per engine: None = K4 on the card, plain on the CPU
         fga = inf.get("fused_group_attend", None)
         self.fused_group_attend = None if fga is None else bool(fga)
+        self.is_maskctc = getattr(config, "model", "espnet") == "maskctc"
+        self.maskctc_n_iterations = int(inf.get("maskctc_n_iterations", 10))
+        self.maskctc_threshold = float(inf.get("maskctc_threshold_probability", 0.999))
 
         generator = torch.Generator().manual_seed(rng_seed)
         self.model = build_model(config, self.token_list, generator=generator,
@@ -280,13 +297,13 @@ class Speech2Text:
     def nbest(self, batch: Dict) -> List[List[Tuple[str, List[str], List[int], float]]]:
         """Batch dict -> per utterance the n-best list [(text, tokens, ids,
         score)], best first."""
-        res = self._decode(batch)
+        res, first = self._decode(batch)
         tokens, lengths, scores = (x.cpu().numpy() for x in (res.tokens, res.lengths, res.scores))
         results = []
         for i in range(tokens.shape[0]):
             hyps = []
             for j in range(tokens.shape[1]):
-                ids = [int(t) for t in tokens[i, j, 1:1 + lengths[i, j]]]
+                ids = [int(t) for t in tokens[i, j, first:first + lengths[i, j]]]
                 toks = [self.token_list[t] for t in ids]
                 text = "".join(" " if t == _SPACE else t for t in toks)
                 hyps.append((text, toks, ids, float(scores[i, j])))
@@ -294,14 +311,58 @@ class Speech2Text:
         return results
 
     @torch.inference_mode()
-    def _decode(self, batch: Dict) -> BeamSearchResult:
-        """Encoder, CTC log-probs and the label-synchronous beam; the result
-        stays on the device."""
-        if self.model.decoder is None:
+    def _decode(self, batch: Dict) -> Tuple[BeamSearchResult, int]:
+        """Encoder, then the model's search: the transducer's, Mask-CTC, or
+        CTC log-probs and the label-synchronous beam. Returns the (B, n, L)
+        result on the device and the column of each hypothesis' first token
+        (1 after ``<sos>``, 0 where there is none)."""
+        model = self.model
+        if model.joint_network is None and model.decoder is None:
             raise not_ported("beam decoding of a CTC-only model (decode_mode: timesync)", 7)
-        enc, enc_lens, _ = self.model.encode(*self.inputs(batch))
-        ctc_logp = self.model.ctc.log_softmax(enc)
-        return self._beam(enc, enc_lens, ctc_logp)
+        enc, enc_lens, _ = model.encode(*self.inputs(batch))
+        if model.joint_network is not None:
+            return self._transducer(enc, enc_lens), 0
+        ctc_logp = model.ctc.log_softmax(enc)
+        if self.is_maskctc:
+            return self._maskctc(enc, enc_lens, ctc_logp), 0
+        return self._beam(enc, enc_lens, ctc_logp), 1
+
+    def _transducer(self, enc: torch.Tensor, enc_lens: torch.Tensor) -> BeamSearchResult:
+        """``tailored_avsr_tpu/inference.py:447-503``: the ALSD beam, or the
+        (multi-blank) greedy decode as one hypothesis with score 0."""
+        model, k = self.model, self.beam_config.beam_size
+        joint, pred = model.joint_network, model.prediction_network
+        enc_proj = joint.lin_enc(enc)  # once for every frame
+
+        def joint_apply(enc_t, g):
+            return joint.from_projected(enc_t, g)
+
+        durations = model.transducer_multi_blank_durations
+        b, t = enc.shape[:2]
+        if k > 1 and not durations:  # espnet decodes multi-blank models greedily
+            res = transducer_beam_search(enc_proj, enc_lens, pred.step, joint_apply, pred.initial_state(b * k),
+                                         beam_size=k, max_symbols=t)
+            return BeamSearchResult(tokens=res.tokens, scores=res.scores, lengths=res.lengths)
+        if durations:
+            toks, count = multiblank_greedy_decode(enc_proj, enc_lens, pred.step, joint_apply,
+                                                   pred.initial_state(b), blank_id=len(durations),
+                                                   durations=durations)
+        else:
+            toks, count = transducer_greedy_decode(enc_proj, enc_lens, pred.step, joint_apply,
+                                                   pred.initial_state(b))
+        return BeamSearchResult(tokens=toks[:, None], scores=torch.zeros((b, 1), device=enc.device),
+                                lengths=count[:, None])
+
+    def _maskctc(self, enc: torch.Tensor, enc_lens: torch.Tensor, ctc_logp: torch.Tensor) -> BeamSearchResult:
+        """``tailored_avsr_tpu/inference.py:508-525``: Mask-CTC as one
+        hypothesis with score 0; the MLM runs the full decoder each round."""
+        model = self.model
+        mem_mask = make_valid_mask(enc_lens, enc.shape[1])
+        res = maskctc_decode(ctc_logp, enc_lens, lambda ys, lens: model.decoder(enc, mem_mask, ys, lens),
+                             model.mask_token, threshold=self.maskctc_threshold,
+                             num_iterations=self.maskctc_n_iterations, eos=model.eos)
+        return BeamSearchResult(tokens=res.tokens[:, None], scores=torch.zeros((enc.shape[0], 1), device=enc.device),
+                                lengths=res.lengths[:, None])
 
     def _beam(self, enc: torch.Tensor, enc_lens: torch.Tensor, ctc_logp: torch.Tensor) -> BeamSearchResult:
         cfg, dec, lm = self.beam_config, self.model.decoder, self.lm

@@ -6,7 +6,13 @@ SpecAug (training only) -> normalisation -> encoder (the Branchformer).
 ``forward`` is the hybrid loss ``ctc_weight * ctc + (1 - ctc_weight) *
 att`` with its stats (``loss``, ``loss_ctc``, ``loss_att``, ``acc``, with
 ``return_ctc_argmax`` the greedy ids, and the encoder's ``branch_weights``);
-``hybrid_loss`` computes it for this model and for ``AVSRModel``.
+``hybrid_loss`` computes it for this model and for ``AVSRModel``. With a
+transducer branch (``joint_network``; the prediction network is the
+``decoder`` module, as in the reference's key grammar) the loss is
+``rnnt + ctc_weight * ctc`` (``loss_transducer``), multi-blank when
+``transducer_multi_blank_durations`` is set; a Mask-CTC model
+(``models/maskctc.py``) takes the MLM loss over uniformly masked targets
+in place of the attention loss (``loss_att``, also under ``loss_mlm``).
 ``model.train()`` is the JAX ``deterministic=False`` (dropout, SpecAug, the
 coins, BatchNorm batch statistics), ``model.eval()`` is
 ``deterministic=True``. The host-side draws come from the CPU
@@ -22,27 +28,55 @@ from torch import nn
 
 from tailored_avsr_tpu_torch.ops.losses import add_sos_eos, label_smoothing_loss, token_accuracy
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
+from tailored_avsr_tpu_torch.ops.rnnt import multiblank_rnnt_loss, rnnt_loss
 
 
-def hybrid_loss(model: nn.Module, enc_out, enc_lens, text, text_lengths,
-                return_ctc_argmax: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """``model``'s hybrid loss over its encoder output (f32) and its stats
+def transducer_loss(model: nn.Module, enc_out, enc_lens, text, text_lengths) -> torch.Tensor:
+    """The RNN-T loss of ``model``'s joint and prediction networks
+    (``tailored_avsr_tpu/models/asr_model.py:200-215``): multi-blank, with
+    the blank at ``len(durations)`` and the big blanks before it, when the
+    model has durations."""
+    g = model.prediction_network(text)
+    logits = model.joint_network(enc_out[:, :, None, :], g[:, None, :, :])
+    durs = model.transducer_multi_blank_durations
+    if durs:
+        return multiblank_rnnt_loss(logits, enc_lens, text, text_lengths, blank_id=len(durs), durations=durs,
+                                    sigma=model.transducer_multi_blank_sigma)
+    return rnnt_loss(logits, enc_lens, text, text_lengths)
+
+
+def sos_eos_targets(model: nn.Module, text, text_lengths, generator=None):
+    """The attention branch's (ys_in, ys_out): sos/eos packing."""
+    return add_sos_eos(text, model.sos, model.eos, model.ignore_id)
+
+
+def hybrid_loss(model: nn.Module, enc_out, enc_lens, text, text_lengths, return_ctc_argmax: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``model``'s loss over its encoder output (f32) and its stats
     (``tailored_avsr_tpu/models/asr_model.py:117-198`` without the interCTC
-    and transducer terms, which the port refuses). ``text`` is (B, L)
-    padded with ``ignore_id``."""
+    terms, which the port refuses): the transducer's ``rnnt + ctc_weight *
+    ctc``, or the hybrid CTC/attention loss, whose targets come from
+    ``model.attention_targets`` (the Mask-CTC draws from ``generator``).
+    ``text`` is (B, L) padded with ``ignore_id``."""
     stats: Dict[str, Any] = {}
     loss_ctc = None
     if model.ctc_weight != 0.0:
         loss_ctc = model.ctc.loss(enc_out, enc_lens, text, text_lengths)
         stats["loss_ctc"] = loss_ctc
-    if model.ctc_weight == 1.0 or model.decoder is None:
+    if model.joint_network is not None:
+        loss_tr = transducer_loss(model, enc_out, enc_lens, text, text_lengths)
+        stats["loss_transducer"] = loss_tr
+        loss = loss_tr if loss_ctc is None else loss_tr + model.ctc_weight * loss_ctc
+    elif model.ctc_weight == 1.0 or model.decoder is None:
         loss = loss_ctc
     else:
-        ys_in, ys_out = add_sos_eos(text, model.sos, model.eos, model.ignore_id)
+        ys_in, ys_out = model.attention_targets(text, text_lengths, generator)
         logits = model.decoder(enc_out, make_valid_mask(enc_lens, enc_out.shape[1]), ys_in, text_lengths + 1)
         loss_att = label_smoothing_loss(
             logits, ys_out, model.lsm_weight, model.ignore_id, model.length_normalized_loss)
         stats["loss_att"], stats["acc"] = loss_att, token_accuracy(logits, ys_out, model.ignore_id)
+        if model.is_maskctc:
+            stats["loss_mlm"] = loss_att
         loss = loss_att if loss_ctc is None else model.ctc_weight * loss_ctc + (1 - model.ctc_weight) * loss_att
     stats["loss"] = loss
     if return_ctc_argmax:
@@ -65,6 +99,10 @@ class ASRModel(nn.Module):
         ignore_id: int = -1,
         lsm_weight: float = 0.0,
         length_normalized_loss: bool = False,
+        joint_network: Optional[nn.Module] = None,
+        prediction_network: Optional[nn.Module] = None,
+        transducer_multi_blank_durations: Tuple[int, ...] = (),
+        transducer_multi_blank_sigma: float = 0.05,
     ):
         super().__init__()
         self.vocab_size = vocab_size
@@ -72,12 +110,24 @@ class ASRModel(nn.Module):
         self.specaug = specaug
         self.normalize = normalize
         self.encoder = encoder
-        self.decoder = decoder  # None for a CTC-only model (ctc_weight 1.0)
+        # the attention decoder, or the transducer's prediction network
+        # (``decoder.*`` keys in both cases); None for a CTC-only model
+        self.decoder = prediction_network if joint_network is not None else decoder
+        self.joint_network = joint_network
+        self.transducer_multi_blank_durations = tuple(int(d) for d in transducer_multi_blank_durations)
+        self.transducer_multi_blank_sigma = float(transducer_multi_blank_sigma)
         self.ctc = ctc
         self.ctc_weight = float(ctc_weight)
         self.ignore_id = ignore_id
         self.lsm_weight = float(lsm_weight)
         self.length_normalized_loss = bool(length_normalized_loss)
+
+    is_maskctc = False
+    attention_targets = sos_eos_targets
+
+    @property
+    def prediction_network(self) -> Optional[nn.Module]:
+        return self.decoder if self.joint_network is not None else None
 
     @property
     def sos(self) -> int:
@@ -110,7 +160,7 @@ class ASRModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         enc_out, enc_lens, enc_aux = self.encode(speech, speech_lengths, generator)
-        loss, stats = hybrid_loss(self, enc_out, enc_lens, text, text_lengths, return_ctc_argmax)
+        loss, stats = hybrid_loss(self, enc_out, enc_lens, text, text_lengths, return_ctc_argmax, generator)
         if enc_aux.get("branch_weights"):
             stats["branch_weights"] = enc_aux["branch_weights"]
         return loss, stats

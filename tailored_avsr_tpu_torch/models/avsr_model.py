@@ -10,7 +10,8 @@ pos-enc, the tailored or the conventional encoder, adaptive fusion.
 ``tailored_avsr_tpu/models/avsr_model.py:155-237`` (``models/asr_model.py``
 ``hybrid_loss``, shared with the ASR model): ``(loss, stats)`` with ``loss``,
 ``loss_ctc``, ``loss_att``, ``acc`` and, with ``return_ctc_argmax``,
-``ctc_argmax`` / ``ctc_argmax_lens``. ``model.train()`` is the JAX
+``ctc_argmax`` / ``ctc_argmax_lens``; a transducer branch or a Mask-CTC
+model (``models/maskctc.py``) as in ``hybrid_loss``. ``model.train()`` is the JAX
 ``deterministic=False`` (dropout, SpecAug, stochastic depth, branch drop,
 BatchNorm batch statistics), ``model.eval()`` is ``deterministic=True``.
 The host-side draws (SpecAug, the stochastic-depth and branch-drop coins)
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tailored_avsr_tpu_torch.models.asr_model import hybrid_loss
+from tailored_avsr_tpu_torch.models.asr_model import hybrid_loss, sos_eos_targets
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask, mask_lengths
 
 
@@ -48,6 +49,10 @@ class AVSRModel(nn.Module):
         ctc_weight: float = 0.5,
         lsm_weight: float = 0.0,
         length_normalized_loss: bool = False,
+        joint_network: Optional[nn.Module] = None,
+        prediction_network: Optional[nn.Module] = None,
+        transducer_multi_blank_durations: Tuple[int, ...] = (),
+        transducer_multi_blank_sigma: float = 0.05,
     ):
         super().__init__()
         self.vocab_size = vocab_size
@@ -60,11 +65,23 @@ class AVSRModel(nn.Module):
         self.encoder = encoder
         self.audiovisual_fusion = audiovisual_fusion
         self.ctc = ctc
-        self.decoder = decoder  # None for a CTC-only model (ctc_weight 1.0)
+        # the attention decoder, or the transducer's prediction network
+        # (``decoder.*`` keys in both cases); None for a CTC-only model
+        self.decoder = prediction_network if joint_network is not None else decoder
+        self.joint_network = joint_network
+        self.transducer_multi_blank_durations = tuple(int(d) for d in transducer_multi_blank_durations)
+        self.transducer_multi_blank_sigma = float(transducer_multi_blank_sigma)
         self.ignore_id = ignore_id
         self.ctc_weight = float(ctc_weight)
         self.lsm_weight = float(lsm_weight)
         self.length_normalized_loss = bool(length_normalized_loss)
+
+    is_maskctc = False
+    attention_targets = sos_eos_targets
+
+    @property
+    def prediction_network(self) -> Optional[nn.Module]:
+        return self.decoder if self.joint_network is not None else None
 
     @property
     def sos(self) -> int:
@@ -133,7 +150,7 @@ class AVSRModel(nn.Module):
         its stats (``models/asr_model.hybrid_loss``). ``text`` is (B, L)
         padded with ``ignore_id``."""
         enc_out, enc_lens, enc_aux = self.encode(audio, audio_lengths, video, video_lengths, generator)
-        loss, stats = hybrid_loss(self, enc_out, enc_lens, text, text_lengths, return_ctc_argmax)
+        loss, stats = hybrid_loss(self, enc_out, enc_lens, text, text_lengths, return_ctc_argmax, generator)
         if enc_aux["fusion_weights"]:
             stats["fusion_weights"] = enc_aux["fusion_weights"]
         return loss, stats

@@ -8,6 +8,10 @@ the vocabulary projection. Ported: the full forward, ``precompute_memory``,
 label-synchronous beam runs. The other beam-step protocols raise, naming
 their ``ROADMAP.md`` item; the other layer variants are refused by
 ``tasks/common.build_decoder_and_ctc``.
+
+``MLMDecoder`` (Mask-CTC, ``decoder.py:682``) is the same stack with full
+self-attention among each sequence's valid tokens: a (B, L) key-side
+validity mask in place of the causal one.
 """
 
 from __future__ import annotations
@@ -183,6 +187,20 @@ class TransformerDecoder(nn.Module):
 
     def score_step_cached_seg(self, *args, **kwargs):
         raise not_ported("TransformerDecoder.score_step_cached_seg (cache_segments > 1)", 7)
+
+
+class MLMDecoder(TransformerDecoder):
+    """Mask-CTC's conditional masked LM: non-causal self-attention over the
+    valid tokens (its vocabulary holds ``<mask>`` as its last entry)."""
+
+    def forward(self, memory, memory_mask, ys_in, ys_in_lengths) -> torch.Tensor:
+        """(B, L) tokens -> (B, L, V) logits, every valid token seeing every
+        valid token."""
+        tgt_mask = torch.arange(ys_in.shape[1], device=ys_in.device)[None, :] < ys_in_lengths[:, None]
+        x = self.embed(ys_in)
+        for layer in self.decoders:
+            x = layer(x, tgt_mask, memory, memory_mask)
+        return self._head(x)
 
 
 def anc_columns(anc: torch.Tensor, lc: int) -> torch.Tensor:

@@ -3,11 +3,13 @@
 Ported: the ``default`` (log-mel) and ``conv3dresnet18`` frontends,
 SpecAug, ``utterance_mvn`` or no normalisation, the ``branchformer``
 encoder, the ``transformer`` attention decoder (built unless
-``model_conf.ctc_weight`` is 1.0), the CTC head and the ``espnet`` model
-with its loss settings. Refused: ``model: maskctc`` (``ROADMAP.md`` item
-7); ``pit_espnet``, transducer decoders, multi-blank vocabularies, pre- /
-post-encoders and the other encoders and frontends (item 8). The
-registries and the config-key rule are ``tasks/common.py``'s.
+``model_conf.ctc_weight`` is 1.0), the transducer's prediction and joint
+networks (``decoder: transducer``, with the multi-blank vocabulary
+extension), the CTC head, and the ``espnet`` and ``maskctc`` models (the
+MLM decoder over V + 1 tokens) with their loss settings. Refused, naming
+``ROADMAP.md`` item 8: ``pit_espnet``, Sim-T (``sim_t_mlm`` for Mask-CTC),
+pre- / post-encoders and the other encoders and frontends. The registries
+and the config-key rule are ``tasks/common.py``'s.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import List, Optional
 import torch
 
 from tailored_avsr_tpu_torch.models.asr_model import ASRModel
+from tailored_avsr_tpu_torch.models.maskctc import MaskCTCModel
 from tailored_avsr_tpu_torch.tasks.common import (
     NONE,
     build_decoder_and_ctc,
@@ -25,9 +28,9 @@ from tailored_avsr_tpu_torch.tasks.common import (
     build_normalize,
     build_specaug,
     cfg_value,
+    extend_multi_blank,
     loss_settings,
     materialize,
-    refuse,
     require,
     resolve_device,
 )
@@ -35,11 +38,11 @@ from tailored_avsr_tpu_torch.tasks.common import (
 
 def build_meta(config, token_list: List[str]) -> ASRModel:
     """The model for ``config`` on the meta device (shapes, no weights).
-    Config choices the port does not build raise here."""
+    Config choices the port does not build raise here. A multi-blank
+    transducer's ``<blank{d}>`` tokens go into ``token_list`` in place."""
     model_name = cfg_value(config, "model", "espnet") or "espnet"
-    if model_name == "maskctc":
-        raise refuse("model", model_name, 7)
-    require("model", model_name, ("espnet",), 8)
+    require("model", model_name, ("espnet", "maskctc"), 8)
+    durations = extend_multi_blank(config, token_list)
     for key in ("preencoder", "postencoder"):
         require(key, cfg_value(config, key, "none"), NONE, 8)
     frontend = build_frontend(cfg_value(config, "frontend", "default"), cfg_value(config, "frontend_conf", {}))
@@ -48,9 +51,12 @@ def build_meta(config, token_list: List[str]) -> ASRModel:
     encoder_conf = dict(cfg_value(config, "encoder_conf", {}))
     encoder = build_encoder(cfg_value(config, "encoder", "branchformer"), encoder_conf,
                             input_size=frontend.output_size() if frontend is not None else 80)
-    decoder, ctc = build_decoder_and_ctc(config, len(token_list), encoder.output_size)
-    return ASRModel(vocab_size=len(token_list), encoder=encoder, ctc=ctc, decoder=decoder, frontend=frontend,
-                    specaug=specaug, normalize=normalize, **loss_settings(config))
+    decoder, joint, ctc = build_decoder_and_ctc(config, len(token_list), encoder.output_size,
+                                                maskctc=model_name == "maskctc")
+    cls = MaskCTCModel if model_name == "maskctc" else ASRModel
+    return cls(vocab_size=len(token_list), encoder=encoder, ctc=ctc, decoder=decoder, frontend=frontend,
+               specaug=specaug, normalize=normalize, joint_network=joint, prediction_network=decoder,
+               transducer_multi_blank_durations=durations, **loss_settings(config))
 
 
 def build_model(

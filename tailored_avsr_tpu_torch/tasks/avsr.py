@@ -4,10 +4,12 @@ Ported: the default log-mel frontend, utterance MVN, the conv3dresnet18
 visual frontend, default embeddings with rel-pos, the tailored and the
 conventional encoders, adaptive fusion, the CTC head, the ``transformer``
 attention decoder (built unless ``model_conf.ctc_weight`` is 1.0, as in the
-JAX task), SpecAug and the ``espnet`` model with its loss settings
-(``model_conf``). Any other choice raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item ("Modules to port") that will port it. The registries
-and the config-key rule are ``tasks/common.py``'s.
+JAX task), the transducer's prediction and joint networks (with the
+multi-blank vocabulary extension), SpecAug, and the ``espnet`` and
+``maskctc`` models (the MLM decoder over V + 1 tokens) with their loss
+settings (``model_conf``). Any other choice raises ``NotImplementedError``
+naming the ``ROADMAP.md`` item ("Modules to port") that will port it. The
+registries and the config-key rule are ``tasks/common.py``'s.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from tailored_avsr_tpu_torch.models.avsr_model import AVSRModel
 from tailored_avsr_tpu_torch.models.embedding import DefaultEmbeddingLayerForAVSR
 from tailored_avsr_tpu_torch.models.fusion import AdaptiveAudioVisualFusion
+from tailored_avsr_tpu_torch.models.maskctc import AVSRMaskCTCModel
 from tailored_avsr_tpu_torch.tasks.common import (
     META,
     NONE,
@@ -29,6 +32,7 @@ from tailored_avsr_tpu_torch.tasks.common import (
     build_specaug,
     cfg_value,
     conf_args,
+    extend_multi_blank,
     loss_settings,
     materialize,
     require,
@@ -38,8 +42,11 @@ from tailored_avsr_tpu_torch.tasks.common import (
 
 def build_meta(config, token_list: List[str]) -> AVSRModel:
     """The model for ``config`` on the meta device (shapes, no weights).
-    Config choices the port does not build raise here."""
-    require("model", cfg_value(config, "model", "espnet"), ("espnet",), 7)
+    Config choices the port does not build raise here. A multi-blank
+    transducer's ``<blank{d}>`` tokens go into ``token_list`` in place."""
+    model_name = cfg_value(config, "model", "espnet") or "espnet"
+    require("model", model_name, ("espnet", "maskctc"), 8)
+    durations = extend_multi_blank(config, token_list)
     require("acoustic_frontend", cfg_value(config, "acoustic_frontend", "default"), ("default",), 8)
     require("visual_frontend", cfg_value(config, "visual_frontend", "conv3dresnet18"), ("conv3dresnet18",), 8)
     encoder_name = cfg_value(config, "encoder", "tailored")
@@ -76,8 +83,8 @@ def build_meta(config, token_list: List[str]) -> AVSRModel:
     fusion = AdaptiveAudioVisualFusion(
         **conf_args(AdaptiveAudioVisualFusion, cfg_value(config, "audiovisual_fusion_conf", {}),
                     output_size=size), **META)
-    decoder, ctc = build_decoder_and_ctc(config, len(token_list), size)
-    return AVSRModel(
+    decoder, joint, ctc = build_decoder_and_ctc(config, len(token_list), size, maskctc=model_name == "maskctc")
+    return (AVSRMaskCTCModel if model_name == "maskctc" else AVSRModel)(
         vocab_size=len(token_list),
         encoder=encoder,
         audiovisual_fusion=fusion,
@@ -89,6 +96,9 @@ def build_meta(config, token_list: List[str]) -> AVSRModel:
         normalize=normalize,
         decoder=decoder,
         specaug=specaug,
+        joint_network=joint,
+        prediction_network=decoder,
+        transducer_multi_blank_durations=durations,
         **loss_settings(config),
     )
 

@@ -1,8 +1,9 @@
 """Shared pieces of the config -> model builders
 (counterpart of ``tailored_avsr_tpu/tasks/common.py``): the registries of
-frontends, SpecAug, normalisation, encoders and decoders for the names the
-port builds, the config-key rule, seeded materialisation and the device
-rule.
+frontends, SpecAug, normalisation, encoders and decoders (attention, MLM,
+the transducer's prediction and joint networks) for the names the port
+builds, the multi-blank vocabulary extension, the config-key rule, seeded
+materialisation and the device rule.
 
 A config key reaches a constructor as in the JAX ``filter_conf``: a key the
 port's constructor takes is passed; a key the JAX constructor takes and
@@ -19,7 +20,7 @@ port it.
 from __future__ import annotations
 
 import inspect
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,11 +29,12 @@ from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoder
 from tailored_avsr_tpu_torch.models.conventional import ConventionalEncoder
 from tailored_avsr_tpu_torch.models.ctc import CTCHead
-from tailored_avsr_tpu_torch.models.decoder import TransformerDecoder
+from tailored_avsr_tpu_torch.models.decoder import MLMDecoder, TransformerDecoder
 from tailored_avsr_tpu_torch.models.frontends import Conv3dResNet18
 from tailored_avsr_tpu_torch.models.tailored import TailoredEncoder
 from tailored_avsr_tpu_torch.ops.frontend_audio import LogMelFrontend
 from tailored_avsr_tpu_torch.ops.normalize import UtteranceMVN
+from tailored_avsr_tpu_torch.ops.rnnt import JointNetwork, PredictionNetwork
 from tailored_avsr_tpu_torch.ops.specaug import SpecAug
 from tailored_avsr_tpu_torch.utils.initialize import init_params_
 
@@ -190,27 +192,72 @@ def is_transducer(decoder_name) -> bool:
     return bool(decoder_name) and "transducer" in str(decoder_name)
 
 
-def build_decoder_and_ctc(config, vocab_size: int, encoder_size: int):
-    """(decoder, CTC head): the ``transformer`` attention decoder, built
-    unless ``model_conf.ctc_weight`` is 1.0 (as the JAX tasks build none),
-    and the CTC head. Transducer decoders and multi-blank vocabularies
-    raise naming item 8."""
-    decoder_name = cfg_value(config, "decoder", "transformer") or "transformer"
-    if is_transducer(decoder_name):
-        raise refuse("decoder", decoder_name, 8)
+# Mask-CTC needs the non-causal MLM variant of the decoder
+# (``tailored_avsr_tpu/tasks/asr.py:78-84``)
+MLM_VARIANT = {"transformer": "mlm", "sim_t": "sim_t_mlm", "simt": "sim_t_mlm"}
+
+
+def build_transducer_modules(config, vocab_size: int, encoder_size: int):
+    """(prediction network, joint network) from the espnet-style keys
+    (``tailored_avsr_tpu/tasks/common.py:234-272``): ``decoder_conf``
+    ``rnn_type`` (lstm only), ``num_layers``, ``hidden_size`` (the
+    embedding's too unless ``embed_size``), ``dropout`` / ``dropout_rate``;
+    ``joint_net_conf`` ``joint_space_size``, ``joint_activation_type``."""
+    jconf = dict(cfg_value(config, "joint_net_conf", {}))
+    dconf = dict(cfg_value(config, "decoder_conf", {}))
+    rnn_type = dconf.get("rnn_type", "lstm")
+    if rnn_type != "lstm":
+        raise NotImplementedError(
+            f"decoder_conf rnn_type={rnn_type!r}: only 'lstm' prediction networks are implemented "
+            "(espnet TransducerDecoder also offers 'gru')")
+    hidden = int(dconf.get("hidden_size", encoder_size))
+    prediction = PredictionNetwork(
+        vocab_size, embed_dim=int(dconf.get("embed_size", hidden)), hidden_dim=hidden,
+        num_layers=int(dconf.get("num_layers", 1)),
+        dropout_rate=float(dconf.get("dropout", dconf.get("dropout_rate", 0.1))), **META)
+    joint = JointNetwork(vocab_size, encoder_size, hidden, joint_dim=int(jconf.get("joint_space_size", 320)),
+                         activation=str(jconf.get("joint_activation_type", "tanh")), **META)
+    return prediction, joint
+
+
+def extend_multi_blank(config, token_list: List[str]) -> Tuple[int, ...]:
+    """The multi-blank transducer's durations; their ``<blank{d}>`` tokens go
+    into ``token_list`` in place, just before the blank, so the caller's
+    token list is the model's (``tailored_avsr_tpu/tasks/asr.py:37-45``)."""
     model_conf = dict(cfg_value(config, "model_conf", {}))
-    if model_conf.get("transducer_multi_blank_durations"):
-        raise refuse("transducer_multi_blank_durations", model_conf["transducer_multi_blank_durations"], 8)
-    decoder = None
-    if float(model_conf.get("ctc_weight", 0.5)) < 1.0:
-        require("decoder", decoder_name, ("transformer",), 8)
-        decoder = TransformerDecoder(
-            **conf_args(TransformerDecoder, cfg_value(config, "decoder_conf", {}), DECODER_FIXED,
-                        vocab_size=vocab_size, encoder_output_size=encoder_size), **META)
+    durations = tuple(int(d) for d in model_conf.get("transducer_multi_blank_durations") or ())
+    if durations:
+        blank_idx = token_list.index(model_conf.get("sym_blank", "<blank>"))
+        for d in durations:
+            if f"<blank{d}>" not in token_list:
+                token_list.insert(blank_idx, f"<blank{d}>")
+    return durations
+
+
+def build_decoder_and_ctc(config, vocab_size: int, encoder_size: int, maskctc: bool = False):
+    """(decoder, joint network, CTC head). A transducer ``decoder`` gives the
+    LSTM prediction network and the joint network; otherwise the attention
+    decoder is built unless ``model_conf.ctc_weight`` is 1.0 (as the JAX
+    tasks build none): ``transformer``, or for a Mask-CTC model its MLM
+    variant over V + 1 tokens. Sim-T and the other decoders raise naming
+    item 8."""
+    decoder_name = cfg_value(config, "decoder", "transformer") or "transformer"
+    model_conf = dict(cfg_value(config, "model_conf", {}))
+    decoder = joint = None
+    if is_transducer(decoder_name):
+        decoder, joint = build_transducer_modules(config, vocab_size, encoder_size)
+    elif float(model_conf.get("ctc_weight", 0.5)) < 1.0:
+        if maskctc:
+            decoder_name = MLM_VARIANT.get(decoder_name, decoder_name)
+        require("decoder", decoder_name, ("mlm",) if maskctc else ("transformer",), 8)
+        cls = MLMDecoder if maskctc else TransformerDecoder
+        decoder = cls(**conf_args(cls, cfg_value(config, "decoder_conf", {}), DECODER_FIXED,
+                                  vocab_size=vocab_size + 1 if maskctc else vocab_size,
+                                  encoder_output_size=encoder_size), **META)
     ctc_conf = dict(cfg_value(config, "ctc_conf", {}))
     check_dropped_key("ctc_conf", "ctc_type", ctc_conf.get("ctc_type", "builtin"))
     ctc = CTCHead(encoder_size, vocab_size, float(ctc_conf.get("dropout_rate", 0.0)), **META)
-    return decoder, ctc
+    return decoder, joint, ctc
 
 
 def loss_settings(config) -> Dict:
@@ -222,6 +269,7 @@ def loss_settings(config) -> Dict:
         "ignore_id": int(model_conf.get("ignore_id", -1)),
         "lsm_weight": float(model_conf.get("lsm_weight", 0.0)),
         "length_normalized_loss": bool(model_conf.get("length_normalized_loss", False)),
+        "transducer_multi_blank_sigma": float(model_conf.get("transducer_multi_blank_sigma", 0.05)),
     }
 
 

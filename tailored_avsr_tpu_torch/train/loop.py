@@ -13,7 +13,8 @@ and input to bf16 for the whole forward.
 
 Randomness: each micro-step draws one seed from ``TrainState.generator``
 (CPU). It seeds a CPU generator for the host-side draws (SpecAug, the
-stochastic-depth and branch-drop coins) and, inside
+stochastic-depth and branch-drop coins, and a Mask-CTC model's MLM
+masking, the JAX ``mlm`` stream) and, inside
 ``torch.random.fork_rng``, torch's generators for dropout; one seed gives
 the same losses run after run, and a resumed run continues the stream.
 

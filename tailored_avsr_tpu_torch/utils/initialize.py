@@ -5,7 +5,9 @@ from one generator, so a seed gives the same weights on any device. The
 scheme follows flax's defaults, which the JAX package initialises with:
 kernels LeCun-normal (std 1/sqrt(fan_in)), biases 0, norm scales 1 and
 shifts 0, BatchNorm running statistics 0 / 1, the modality embedding
-normal with std 1/sqrt(d), and the rel-pos u/v biases Xavier-uniform.
+normal with std 1/sqrt(d), the rel-pos u/v biases Xavier-uniform, and an
+LSTM layer as flax's ``OptimizedLSTMCell``: each gate's input kernel
+LeCun-normal, its recurrent kernel orthogonal, biases 0.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from torch import nn
 
 from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
+from tailored_avsr_tpu_torch.ops.rnnt import LSTMLayer
 
 _NORMS = (nn.LayerNorm, nn.BatchNorm2d, nn.BatchNorm3d)
 _KERNELS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)
@@ -23,6 +26,12 @@ _KERNELS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)
 
 def _normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
     return torch.randn(shape, generator=generator) * std
+
+
+def _orthogonal(n: int, generator: torch.Generator) -> torch.Tensor:
+    """An (n, n) orthogonal matrix: Q of a Gaussian's QR, signs fixed by R's diagonal."""
+    q, r = torch.linalg.qr(torch.randn((n, n), generator=generator))
+    return q * torch.sign(torch.diagonal(r))[None, :]
 
 
 @torch.no_grad()
@@ -53,6 +62,12 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(module, nn.Embedding):
             w = module.weight
             put(w, _normal(w.shape, 1.0 / math.sqrt(w.shape[1]), generator))
+        elif isinstance(module, LSTMLayer):  # gates i, f, g, o stacked along the rows
+            h, fan_in = module.hidden_size, module.weight_ih_l0.shape[1]
+            put(module.weight_ih_l0, _normal(module.weight_ih_l0.shape, 1.0 / math.sqrt(fan_in), generator))
+            put(module.weight_hh_l0, torch.cat([_orthogonal(h, generator) for _ in range(4)]))
+            put(module.bias_ih_l0, torch.zeros(module.bias_ih_l0.shape))
+            put(module.bias_hh_l0, torch.zeros(module.bias_hh_l0.shape))
         elif isinstance(module, RelPositionMultiHeadedAttention):
             for p in (module.pos_bias_u, module.pos_bias_v):
                 bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))

@@ -3,9 +3,8 @@
 The port's own copy of the export half of
 ``tailored_avsr_tpu/utils/torch_compat.py`` (``export_torch_state_dict`` and
 the key grammar it needs), cut to the models the port builds: the tailored and the
-conventional AVSR models, the Branchformer ASR / VSR models and the
-Transformer LM. The JAX package's branches for the transducer's LSTM
-prediction network are left out. numpy only.
+conventional AVSR models, the Branchformer ASR / VSR models, their
+Mask-CTC and transducer variants and the Transformer LM. numpy only.
 ``tests/test_torch_port_int8.py`` holds it equal to the JAX package's
 export, key for key and array for array.
 
@@ -20,6 +19,12 @@ Key mapping (flax path -> torch dotted key), by component:
 - tailored: ``acoustic_norm`` -> ``acoustic_norm_mha`` | ``acoustic_norm_cgmlp``
   after the branch the layer carries;
 - decoder: ``layer_{i}`` -> ``decoders.{i}``, ``embed_tok`` -> ``embed.0``;
+- transducer: ``prediction_network`` -> ``decoder`` (espnet's
+  ``TransducerDecoder``), its ``embed_tok`` -> ``embed`` and ``lstm_{i}``
+  -> ``decoder.{i}``, whose per-gate flax leaves (``ii``/``hi``, ... for
+  gates i, f, g, o) are packed into torch's ``weight_ih_l0``,
+  ``weight_hh_l0``, ``bias_hh_l0`` and a zero ``bias_ih_l0``;
+  ``joint_network`` keeps its names;
 - LM (a tree with ``embed_tok`` and ``output_layer`` at its root): under
   ``lm.``, ``layer_{i}`` -> ``encoder.encoders.{i}``, ``in_linear`` /
   ``in_norm`` -> ``encoder.embed.0/1``, ``output_layer`` -> ``decoder``;
@@ -49,6 +54,7 @@ def _is_lm_root(tree_root: Dict) -> bool:
 def _rename_segments(path: List[str], tree_root: Dict) -> List[str]:
     """Translate flax path segments to torch dotted-path segments."""
     in_decoder = bool(path) and path[0] == "decoder"
+    in_prednet = bool(path) and path[0] == "prediction_network"
     is_lm = _is_lm_root(tree_root)
     out: List[str] = ["lm"] if is_lm else []
     for seg in path:
@@ -67,6 +73,12 @@ def _rename_segments(path: List[str], tree_root: Dict) -> List[str]:
             out.extend(["encoder", "after_norm"])
         elif is_lm and seg == "output_layer":
             out.append("decoder")
+        elif seg == "prediction_network":
+            out.append("decoder")
+        elif in_prednet and seg == "embed_tok":
+            out.append("embed")
+        elif in_prednet and re.fullmatch(r"lstm_(\d+)", seg):
+            out.extend(["decoder", seg.split("_")[-1]])
         elif re.fullmatch(r"(acoustic|visual)_layer_(\d+)", seg):
             modality, _, i = seg.split("_")
             out.extend([f"{modality}_encoder", "encoders", i])
@@ -166,6 +178,28 @@ def _from_flax(value: np.ndarray, leaf: str) -> np.ndarray:
     return v
 
 
+_LSTM_GATES = ("i", "f", "g", "o")  # torch's row order, the flax gate names
+
+
+def _collapse_lstm_keys(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Per-gate flax LSTM leaves (``{base}.i{g}.weight``, ``{base}.h{g}.weight``
+    / ``.bias``) -> torch's packed ``{base}.weight_ih_l0``, ``weight_hh_l0``,
+    ``bias_hh_l0`` and ``bias_ih_l0`` (zeros: torch adds the two biases)."""
+    out = dict(sd)
+    bases = {k[: -len(".ii.weight")] for k in sd if k.endswith(".ii.weight")}
+    for base in bases:
+        if any(f"{base}.h{g}.weight" not in sd for g in _LSTM_GATES):
+            continue
+        w_ih = np.concatenate([np.asarray(out.pop(f"{base}.i{g}.weight")) for g in _LSTM_GATES])
+        w_hh = np.concatenate([np.asarray(out.pop(f"{base}.h{g}.weight")) for g in _LSTM_GATES])
+        b_hh = np.concatenate([np.asarray(out.pop(f"{base}.h{g}.bias")) for g in _LSTM_GATES])
+        out[f"{base}.weight_ih_l0"] = w_ih
+        out[f"{base}.weight_hh_l0"] = w_hh
+        out[f"{base}.bias_hh_l0"] = b_hh
+        out[f"{base}.bias_ih_l0"] = np.zeros_like(b_hh)
+    return out
+
+
 def _walk(tree: Dict, path: List[str]):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -182,4 +216,4 @@ def export_torch_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
     for collection in ("params", "batch_stats"):
         for path, leaf_val in _walk(variables.get(collection, {}), []):
             out[torch_key_for(path, params_root)] = _from_flax(np.asarray(leaf_val), path[-1])
-    return out
+    return _collapse_lstm_keys(out)

@@ -2,13 +2,15 @@
 and ``study_branches`` against the JAX package, on the CPU.
 
 - Every config under ``configs/ASR``, ``configs/VSR`` and ``configs/AVSR``
-  that the port builds does so at full width on the meta device, with the
-  parameter names and shapes of the JAX model's export (``jax.eval_shape``
-  of its init); the others raise naming their ``ROADMAP.md`` item.
-- A port checkpoint of each family loads into the JAX ``load_model`` with
-  every array equal.
-- The training CLI trains and decodes a tiny ASR and a tiny VSR model on
-  the synthetic corpus.
+  (the Mask-CTC and transducer ones among them) builds at full width on
+  the meta device, with the parameter names and shapes of the JAX model's
+  export (``jax.eval_shape`` of its init); choices the port does not build
+  raise naming their ``ROADMAP.md`` item.
+- A port checkpoint of each family (Mask-CTC and the transducer's packed
+  LSTM among them) loads into the JAX ``load_model`` with every array
+  equal, and the port's export equals the JAX export.
+- The training CLI trains and decodes tiny ASR, VSR, Mask-CTC AVSR and
+  transducer ASR models on the synthetic corpus.
 - ``study_branches``' per-layer means equal, within 1e-5, those of the JAX
   model's ``branch_weights`` on the same batches and weights.
 """
@@ -33,7 +35,19 @@ from test_torch_port_slice import _random_variables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(p for d in ("ASR", "VSR", "AVSR") for p in glob.glob(os.path.join(ROOT, "configs", d, "*.yaml")))
-REFUSED = {"branchformer_transducer_spanish.yaml": 8, "tailored_maskctc_spanish.yaml": 7}
+REFUSED = {}  # every config of the repository builds in the port
+MASKCTC = "configs/AVSR/tailored_maskctc_spanish.yaml"
+TRANSDUCER = "configs/ASR/branchformer_transducer_spanish.yaml"
+FAMILIES = [ASR, VSR, CONVENTIONAL, MASKCTC, TRANSDUCER]
+FAMILY_IDS = ["asr", "vsr", "conventional", "maskctc", "transducer"]
+
+
+def _tiny(path):
+    """``tiny_cfg`` of a family; the tailored encoder's per-layer branch
+    masks cut to its two blocks."""
+    if path == MASKCTC:
+        return tiny_cfg(path, acoustic_use_attn=[False, True], visual_use_attn=[True, False])
+    return tiny_cfg(path)
 
 
 @pytest.fixture(autouse=True)
@@ -85,10 +99,12 @@ def test_config_builds_with_the_jax_parameter_names(path):
     assert got == want
     assert type(port.encoder).__name__ == {"branchformer": "BranchformerEncoder", "tailored": "TailoredEncoder",
                                            "conventional": "ConventionalEncoder"}[cfg.encoder]
+    assert type(port).__name__.endswith("MaskCTCModel") == (cfg.model == "maskctc")
+    assert (port.joint_network is not None) == (cfg.decoder == "transducer")
 
 
 @pytest.mark.parametrize("path,section,value,item", [
-    (ASR, "model", "maskctc", 7),
+    (ASR, None, {"model": "maskctc", "decoder": "sim_t"}, 8),  # sim_t_mlm
     (ASR, "model", "pit_espnet", 8),
     (ASR, "encoder", "e_branchformer", 8),
     (ASR, "encoder", "conformer", 8),
@@ -107,9 +123,13 @@ def test_config_builds_with_the_jax_parameter_names(path):
 ])
 def test_unported_choices_name_their_item(path, section, value, item):
     cfg = tiny_cfg(path)
-    if isinstance(value, dict):
-        value = dict(getattr(cfg, section), **value)
-    setattr(cfg, section, value)
+    if section is None:  # several top-level keys
+        for key, v in value.items():
+            setattr(cfg, key, v)
+    else:
+        if isinstance(value, dict):
+            value = dict(getattr(cfg, section), **value)
+        setattr(cfg, section, value)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md 'Modules to port' item {item}"):
         common.build_model(cfg, TOKEN_LIST, device="cpu")
 
@@ -155,14 +175,14 @@ def test_build_model_picks_the_task_and_needs_the_card(monkeypatch):
         common.build_model(cfg, TOKEN_LIST, device="cpu")
 
 
-@pytest.mark.parametrize("path", [ASR, VSR, CONVENTIONAL], ids=["asr", "vsr", "conventional"])
+@pytest.mark.parametrize("path", FAMILIES, ids=FAMILY_IDS)
 def test_port_checkpoint_loads_into_the_jax_package(path, tmp_path):
     """A port ``.pth`` (BatchNorm statistics moved by a train-mode forward)
     read by the JAX ``load_model`` gives every array exactly."""
     from tailored_avsr_tpu.train.checkpoint import load_model as jax_load_model
     from tailored_avsr_tpu_torch.train.checkpoint import save_model
 
-    cfg = tiny_cfg(path)
+    cfg = _tiny(path)
     model = common.build_model(cfg, TOKEN_LIST, generator=torch.Generator().manual_seed(3), device="cpu")
     if cfg.task == "vsr":
         b = speech_batch("vsr")
@@ -178,14 +198,14 @@ def test_port_checkpoint_loads_into_the_jax_package(path, tmp_path):
         np.testing.assert_array_equal(v, state[k].numpy(), err_msg=k)
 
 
-@pytest.mark.parametrize("path", [ASR, VSR, CONVENTIONAL], ids=["asr", "vsr", "conventional"])
+@pytest.mark.parametrize("path", FAMILIES, ids=FAMILY_IDS)
 def test_port_export_equals_the_jax_export(path):
     """The port's numpy-only copy of ``export_torch_state_dict`` against the
     JAX package's on each family's tree (the conventional stacks' keys
     among them): the same keys, and each array equal with its dtype."""
     from tailored_avsr_tpu_torch.utils.torch_compat import export_torch_state_dict as pexport
 
-    cfg = tiny_cfg(path)
+    cfg = _tiny(path)
     shapes = _jax_shapes(_jax_model(cfg, TOKEN_LIST), cfg.task)
     variables = _random_variables(shapes, seed=6)
     want, got = export_torch_state_dict(variables), pexport(variables)
@@ -213,7 +233,11 @@ def _cli_config(tmp_path, path, token_path, **encoder):
     c["token_list"] = token_path
     c["encoder_conf"].update(output_size=32, linear_units=48, cgmlp_linear_units=48, cgmlp_conv_kernel=7,
                              num_blocks=2, **encoder)
-    c["decoder_conf"].update(linear_units=48, num_blocks=1)
+    if c.get("decoder") == "transducer":
+        c["decoder_conf"].update(embed_size=24, hidden_size=32)
+        c["joint_net_conf"].update(joint_space_size=40)
+    else:
+        c["decoder_conf"].update(linear_units=48, num_blocks=1)
     c["inference_conf"].update(beam_size=2, batch_size=2)
     c["training_settings"].update(batch_size=3, epochs=1, average_epochs=1, accum_grad=1, warmup_steps=10,
                                   num_workers=0)
@@ -223,12 +247,15 @@ def _cli_config(tmp_path, path, token_path, **encoder):
     return out
 
 
-@pytest.mark.parametrize("path", [ASR, VSR], ids=["asr", "vsr"])
+@pytest.mark.parametrize("path", [ASR, VSR, MASKCTC, TRANSDUCER], ids=["asr", "vsr", "maskctc", "transducer"])
 def test_cli_trains_and_decodes(corpus, tmp_path, path):
+    """``--mode both``: one epoch, the averaged checkpoint, then decoding
+    (Mask-CTC and the transducer's beam 2 through ``nbest``)."""
     from tailored_avsr_tpu_torch import avsr_main
 
     csv_path, token_path = corpus
-    cfg = _cli_config(tmp_path, path, token_path)
+    encoder = dict(acoustic_use_attn=[False, True], visual_use_attn=[True, False]) if path == MASKCTC else {}
+    cfg = _cli_config(tmp_path, path, token_path, **encoder)
     out = str(tmp_path / "exp")
     avsr_main.main(["--config-file", cfg, "--training-dataset", csv_path, "--validation-dataset", csv_path,
                     "--test-dataset", csv_path, "--mode", "both", "--output-dir", out, "--output-name", "t",
