@@ -70,7 +70,27 @@ Run from the repository root on a machine with one CUDA card:
    the envelope, and a held-out noise seed is read through it (printed, not
    gated). The share of utterances whose int8 1-best equals the exact bf16
    run's is printed, not gated.
-8. Train path (``flagship_train_phase``, ``card_vs_cpu_phase``,
+8. Serving modes (``serving_modes_phase``), the same model and LM at
+   request (a), counts set to 0 first: K4's two new type pairs (bf16
+   queries over an f32 cache, f32 queries over a bf16 cache) against the
+   plain version at the decoder's and the LM's shapes; the beam with
+   ``cache_dtype: float32`` under bf16 and ``bfloat16`` under f32, K4 on
+   every cached layer of every step and the step write once a step, the
+   f32 run held to the plain twin's envelope (``envelope_gate``, the twin
+   un-noised and under NOISE_SEEDS on the columns the bf16 cache rounds);
+   ``cache_protocol: append`` and ``cache_segments: 4`` (f32 1-best ids
+   equal to the ancestry protocol's, scores within 1e-3); the
+   time-synchronous beam with decoder and LM rescoring; n-gram fusion
+   (a seeded character trigram ARPA written to a temporary directory:
+   ``full``, ``part``, in the time-sync beam); qint8 weights (the
+   quantised leaves a quarter of their f32 bytes on the card); each f32
+   mode's ids equal to the eager path's; the full-prefix LM at
+   ``ctc_weight: 1.0`` (8 x 4 s, one call); ``device_normalize`` with
+   ``stream`` over four batches, equal to four ``nbest`` calls, with the
+   profiled overlap of its host-to-device copies with compute. Every
+   call's launches are asserted exactly. bf16 walls (median of five warm
+   calls) and a profiled call's device busy ms and idle share per mode.
+9. Train path (``flagship_train_phase``, ``card_vs_cpu_phase``,
    ``learning_canary``): the flagship at full width with
    its training settings (4 x 20 s of seeded int16 audio and uint8 video,
    250-300 characters of seeded text an utterance, Adam + Noam, accum_grad
@@ -91,7 +111,7 @@ Run from the repository root on a machine with one CUDA card:
    norm within ``CARD_VS_CPU_RTOL``. Then a learning canary: the 64-d tiny
    model memorises 4 tone-spelled utterances to greedy CER below the CPU
    canary's 20 %.
-9. Branchformer family (``branchformer_phase``), the paper's own models at
+10. Branchformer family (``branchformer_phase``), the paper's own models at
    full width (12 blocks, 256-d, 6 decoder layers; seeded weights;
    ``use_flash`` and ``use_fused_csgu`` on), each path with its counts set
    to 0 before it and read after: the ASR Branchformer
@@ -109,7 +129,7 @@ Run from the repository root on a machine with one CUDA card:
    calls) and one profiled call each. Then 16 ASR training micro-steps at
    the config's settings (4 x 20 s, accum_grad 16: one update) in bf16
    autocast: no kernel launched, finite, every parameter moved.
-10. Mask-CTC and the transducer (``maskctc_transducer_phase``), at full
+11. Mask-CTC and the transducer (``maskctc_transducer_phase``), at full
    width with seeded weights and the encoder kernels on, every call's
    launches asserted exactly: Mask-CTC on the tailored AVSR encoder
    (``configs/AVSR/tailored_maskctc_spanish.yaml``) serves request (a)
@@ -126,12 +146,13 @@ Run from the repository root on a machine with one CUDA card:
    profiled call of each path. Then 16 training micro-steps of each
    config (4 x 20 s, accum_grad 16: one update) in bf16 autocast: no
    kernel, finite, every parameter moved, peak memory printed.
-11. Prints one JSON line of train numbers, one of the Branchformer
+12. Prints one JSON line of train numbers, one of the Branchformer
    family's numbers, one of the Mask-CTC and transducer paths' numbers,
    one JSON line of per-kernel results (launches: K1-K3
    from the greedy path, K4, K5 (the step write) and K5' from the beam
    path, K6 from the int8 beam path; P1 counted over both beam paths,
-   where no serving code may launch it; beside them the train path's
+   where no serving code may launch it; beside them the serving modes'
+   launches and K4's mixed pairs' numbers, the train path's
    launches in its train steps and in its eval step, each
    Branchformer path's and each Mask-CTC and transducer path's), then the
    result line ``{"ok": true, "device": {...}}`` last.
@@ -155,6 +176,7 @@ times K3 with its phases taken out one at a time (``K3_PHASE_CUTS``).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -833,6 +855,10 @@ def _counts() -> dict:
 def _reset_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
+        if hasattr(w, "combines"):
+            w.combines = 0
+        if hasattr(w, "pairs"):
+            w.pairs.clear()
 
 
 def _serve(engine, name: str, batch: dict) -> list:
@@ -2278,6 +2304,344 @@ def maskctc_transducer_phase(device) -> dict:
     return out
 
 
+# ----------------------------------------------------------- serving modes
+#
+# The engine's other decode modes on the flagship + 16-layer LM at request
+# (a): K4 over a cache of the other float type (both new type pairs), the
+# append and segmented cache protocols against the ancestry protocol, the
+# time-synchronous CTC beam, n-gram fusion (full, part, in the time-sync
+# beam), qint8 weights, the full-prefix LM (ctc_weight 1.0) and streamed
+# input. A bf16 cache under the f32 model rounds each step's columns, and
+# the plain group attend rounds its weights and output, to bf16, where K4
+# sums in f32: the f32 run is held to the spread of sound code, the plain
+# twin un-noised and under NOISE_SEEDS (``envelope_gate``), with a score
+# tolerance of one bf16 rounding of the attend's output carried over the
+# steps (2e-2, K6's). Readings: PERF.md.
+SCORE_ATOL["K4 bf16 cache"] = 2e-2
+# the plain version rounds the own column's q.k product (a bf16 pair) or the
+# weights and the product over the cache (a bf16 cache) to bf16 where the
+# kernel keeps f32: K4 bf16's tolerance, on the f32 output
+TOL[("group_attend_mixed", torch.float32)] = TOL[("group_attend", torch.bfloat16)]
+MODES_ATOL = 1e-3  # append / segmented scores against the ancestry protocol's (f32)
+
+
+@contextlib.contextmanager
+def _engine_set(engine, **attrs):
+    """``engine`` with attributes set for a block (the decode-time choices:
+    cache protocol and dtype, decode mode, n-gram, the beam config), then
+    restored."""
+    old = {k: getattr(engine, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(engine, k, v)
+    try:
+        yield engine
+    finally:
+        for k, v in old.items():
+            setattr(engine, k, v)
+
+
+def _mode_call(engine, name: str, batch: dict, k4_layers: int = 0, beam: bool = True, pairs: dict = None):
+    """One ``nbest`` call whose launches must be those of the flagship's
+    encode at T = 100 (K2 19, K3 5) and, for a beam over group caches, K4 on
+    ``k4_layers`` layers (0: the plain group attend) of every step and the
+    step write once a step (the combining launches of K4 counted apart);
+    no other kernel. ``pairs``: K4's launches a step by (query, cache)
+    dtypes, asserted too. Prints its wall time."""
+    from tailored_avsr_tpu_torch.ops import group_attend as ga
+
+    before, combines = _counts(), ga.group_attend_anc.combines
+    pairs_before = collections.Counter(ga.group_attend_anc.pairs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyps = engine.nbest(batch)
+    wall = time.perf_counter() - t0
+    got = {k: v - before[k] for k, v in _counts().items()}
+    combines = ga.group_attend_anc.combines - combines
+    steps = got["K5"]
+    want = {k: 0 for k in got}
+    want.update(K2=19, K3=5)
+    if beam:
+        want.update(K4=k4_layers * steps + combines, K5=steps)
+    print(f"  {name}: {wall * 1e3:.1f} ms wall, {steps} beam steps, launches "
+          f"{({k: v for k, v in got.items() if v})}" + (f" ({combines} combining)" if combines else ""))
+    if got != want or (beam and steps <= 0):
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+    if pairs is not None:
+        by_pair = {f"{str(q)[6:]} q, {str(c)[6:]} cache": n
+                   for (q, c), n in (ga.group_attend_anc.pairs - pairs_before).items()}
+        print(f"    K4 launches by type pair: {by_pair}")
+        if by_pair != {p: n * steps for p, n in pairs.items()}:
+            raise AssertionError(f"{name}: K4 type pairs {by_pair}, expected {pairs} a step")
+    if len(hyps) != _utterances(batch) or not all(np.isfinite(h[0][3]) for h in hyps):
+        raise AssertionError(f"{name}: expected {_utterances(batch)} n-best lists with a finite 1-best")
+    return hyps
+
+
+def _eager_run(engine, name: str, batch: dict):
+    """``nbest`` with every kernel off (the encoder's K1-K3 and the group
+    attend; the step write is bit-exact) -> the hypotheses."""
+    before = _counts()
+    _set_kernels(engine.model, False)
+    try:
+        with _engine_set(engine, fused_group_attend=False):
+            hyps = engine.nbest(batch)
+    finally:
+        _set_kernels(engine.model, True)
+    launched = {k: v - before[k] for k, v in _counts().items() if k not in ("K5",) and v != before[k]}
+    print(f"  {name}: eager path, launches {launched or 'none but the step write'}")
+    if launched:
+        raise AssertionError(f"{name}: the eager path launched {launched}")
+    return hyps
+
+
+def _same_ids(got, want, what: str) -> None:
+    same = _ids(got) == _ids(want)
+    print(f"  {what}: 1-best ids identical: {same} ({sum(len(i) for i in _ids(got))} tokens)")
+    if not same:
+        _beam_margins(got, want)
+        raise AssertionError(f"{what}: the ids differ")
+
+
+def _k4_mixed_phase(device) -> dict:
+    """K4's two new type pairs (bf16 queries over an f32 cache, f32 queries
+    over a bf16 cache) against the plain version at the decoder's and the
+    LM's shapes (batch 32, beam 10, Lc 104, H 4 and 8) at pos 53 and 103 and
+    a narrowed width: error, kernel and plain ms, bound; returns the H = 8,
+    pos 53 results by pair."""
+    from tailored_avsr_tpu_torch.ops import group_attend as ga
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    b, km, lc, dk = 32, 10, 104, 64
+    out = {}
+    for q_dt, c_dt, tag in ((torch.bfloat16, torch.float32, "bf16 q, f32 cache"),
+                            (torch.float32, torch.bfloat16, "f32 q, bf16 cache")):
+        for h in (4, 8):
+            k, v = (torch.randn(b, h, km, lc, dk, generator=gen, device=device).to(c_dt) for _ in range(2))
+            q, k_new, v_new = (torch.randn(b, h, km, dk, generator=gen, device=device).to(q_dt) for _ in range(3))
+            anc = torch.randint(0, km, (b, km, lc), generator=gen, device=device, dtype=torch.int32)
+            for pos, width in ((53, None), (103, None), (103, 32)):
+                args = (k, v, q, k_new, v_new, anc, pos)
+                got = ga.group_attend_anc(*args, width=width)
+                want = ga.group_attend_anc_plain(*args, width=width)
+                if got.dtype != torch.float32 or want.dtype != torch.float32:
+                    raise AssertionError(f"K4 {tag}: output {got.dtype}, plain {want.dtype}: expected float32")
+                shape = f"B={b} H={h} K={km} Lc={lc} pos={pos}" + (f" width={width}" if width else "")
+                err = _compare(f"K4 group_attend_anc {tag} {shape}", "group_attend_mixed", got, want)
+                row_bytes = 2 * dk * torch.finfo(c_dt).bits // 8
+                bound = _group_attend_bound(anc, pos, width, row_bytes, (q, k_new, v_new, got), h, q_dt)
+                r = _result(err, cold_time_ms(lambda: ga.group_attend_anc(*args, width=width)),
+                            cold_time_ms(lambda: ga.group_attend_anc_plain(*args, width=width)), bound)
+                if h == 8 and pos == 53 and width is None:
+                    out[tag] = r
+    return out
+
+
+def _char_arpa(directory: str, tokens: list) -> str:
+    """A character trigram ARPA counted from seeded text over the letters
+    of the token list, words joined by ``<space>``."""
+    from tailored_avsr_tpu_torch.decode.ngram import write_arpa
+
+    rs = np.random.RandomState(7)
+    letters = [t for t in tokens if len(t) == 1]
+    sents = []
+    for _ in range(400):
+        words = [[letters[i] for i in rs.randint(0, len(letters), rs.randint(1, 8))] for _ in range(rs.randint(2, 9))]
+        sents.append([tok for j, w in enumerate(words) for tok in (["<space>"] if j else []) + w])
+    path = os.path.join(directory, "char3.arpa")
+    write_arpa(path, sents)
+    return path
+
+
+def _copy_overlap(prof) -> dict:
+    """Host-to-device copies of a profiled run: their device ms and the
+    share of it during which a kernel ran on the device at the same time."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    copies = [(e.time_range.start, e.time_range.end) for e in events if "HtoD" in e.name]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if "Memcpy" not in e.name and "Memset" not in e.name)
+    total = sum(b - a for a, b in copies)
+    covered = 0.0
+    for a, b in copies:
+        for s, e in kernels:
+            covered += max(0.0, min(b, e) - max(a, s))
+    return {"h2d_copies": len(copies), "h2d_ms": total / 1e3,
+            "overlap_share": min(1.0, covered / total) if total else 0.0}
+
+
+def _stream_check(engine, device) -> dict:
+    """``device_normalize`` with float audio: four batches through
+    ``stream`` against four ``device_put_batch`` + ``nbest`` calls (equal
+    results), both walls, and one profiled stream's overlap of its
+    host-to-device copies with compute."""
+    batches = []
+    for seed in (11, 12, 13, 14):
+        r = _request(seed, 32, 4)
+        batches.append(dict(r, audio=(r["audio"].astype(np.float32) / 32768.0)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [engine.nbest(engine.device_put_batch(b)) for b in batches]
+    per_batch = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [res for _, res in engine.stream(batches, nbest=True)]
+    streamed = (time.perf_counter() - t0) * 1e3
+    if got != want:
+        raise AssertionError("stream disagrees with per-batch nbest calls")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        list(engine.stream(batches, nbest=True))
+        torch.cuda.synchronize()
+    ov = _copy_overlap(prof)
+    print(f"  stream of 4 batches (32 x 4 s, float audio uploaded as int16): results equal to 4 nbest calls; "
+          f"wall {streamed:.1f} ms streamed, {per_batch:.1f} ms as 4 put + nbest calls; profiled stream: "
+          f"{ov['h2d_copies']} host-to-device copies, {ov['h2d_ms']:.3f} ms, {ov['overlap_share']:.3f} of it "
+          "under a kernel")
+    return {"streamed_wall_ms": streamed, "per_batch_wall_ms": per_batch, **ov}
+
+
+def serving_modes_phase(device) -> tuple:
+    """Every decode mode of the engine at full width (flagship + 16-layer
+    LM, beam 10, request (a) unless named), counts set to 0 first; bf16
+    walls (median of 5 warm calls) and a profiled call of each mode; the
+    f32 gates. Returns (numbers, the path's launch counts)."""
+    import dataclasses as dc
+
+    from tailored_avsr_tpu_torch.decode.ngram import NgramScorer
+    from tailored_avsr_tpu_torch.utils.quantize import quantized_payloads
+
+    print("K4's new type pairs against the plain version (decoder H=4, LM H=8):")
+    out = {"k4_mixed": _k4_mixed_phase(device)}
+    req = _request(1, 32, 4)
+    t0 = time.perf_counter()
+    bf16 = _beam_engine(device, "bfloat16")
+    f32 = _beam_engine(device, "float32", nbest=2)
+    print(f"  two engines built (model + LM, seeded): {time.perf_counter() - t0:.1f} s")
+    layers = len(bf16.model.decoder.decoders) + len(bf16.lm.encoder.encoders)
+    walls = {}
+
+    def wall(name, engine, batch=req):
+        walls[name] = call_profile(lambda: engine.nbest(batch), f"bf16 {name}", host_events=False)
+
+    print(f"serving modes: flagship + 16-layer LM, beam 10, request (a) 32 x 4 s ({layers} cached layers)")
+    _reset_counts()
+    # mixed cache dtypes: K4 on every decoder and LM layer of every step
+    # (past each model's first self-attention a bf16 model over f32 caches
+    # runs in f32, as flax promotes: its first layers take the new pair)
+    with _engine_set(bf16, cache_dtype=torch.float32):
+        _mode_call(bf16, "bf16 model, f32 caches (first call)", req, layers,
+                   pairs={"bfloat16 q, float32 cache": 2, "float32 q, float32 cache": layers - 2})
+        wall("anc, f32 caches", bf16)
+    with _engine_set(f32, cache_dtype=torch.bfloat16):
+        hyp = _mode_call(f32, "f32 model, bf16 caches", req, layers, pairs={"float32 q, bfloat16 cache": layers})
+        with _engine_set(f32, fused_group_attend=False):
+            plain = _mode_call(f32, "f32 model, bf16 caches, plain group attend", req, 0)
+            runs = [plain]
+            from tailored_avsr_tpu_torch import inference as inf_mod
+            write = inf_mod.write_beam_step
+            for seed in NOISE_SEEDS:
+                gen = torch.Generator(device=device).manual_seed(seed)
+
+                def noisy(leaves, pos, gen=gen):  # relative noise 1e-6 on the columns the bf16 cache rounds
+                    def jitter(x):
+                        return x * (1 + 1e-6 * torch.randn(x.shape, generator=gen, device=x.device))
+                    return write([(ck, cv, jitter(kn), jitter(vn)) for ck, cv, kn, vn in leaves], pos)
+
+                with mock.patch.object(inf_mod, "write_beam_step", noisy):
+                    runs.append(_mode_call(f32, f"  plain + noise seed {seed}", req, 0))
+    _against_plain(hyp, plain, "K4 bf16 cache", "f32 K4 over bf16 caches (fixed gate, printed)")
+    stable, bad = envelope_gate(hyp, runs, SCORE_ATOL["K4 bf16 cache"])
+    for u, reason in bad:
+        print(f"    utterance {u}: {reason}")
+    print(f"  f32 K4 over bf16 caches against the plain twin's envelope ({len(runs)} runs): {stable}/{len(hyp)} "
+          f"stable, {len(bad)} beyond the gate ({SCORE_ATOL['K4 bf16 cache']:g} or 8 ulps)")
+    if bad:
+        raise AssertionError("f32 K4 over bf16 caches falls outside the plain twin's envelope")
+
+    # cache protocols: append and segmented against the ancestry protocol (f32)
+    anc = _mode_call(f32, "f32 anc", req, layers)
+    for name, attrs in (("append", {"cache_protocol": "append"}), ("segments 4", {"cache_segments": 4})):
+        with _engine_set(f32, **attrs):
+            hyps = _mode_call(f32, f"f32 {name}", req, beam=False)
+        bad = sum(g[0][2] != w[0][2] or abs(g[0][3] - w[0][3]) > _score_tol(w[0][3], MODES_ATOL)
+                  for g, w in zip(hyps, anc))
+        worst = max(abs(g[0][3] - w[0][3]) for g, w in zip(hyps, anc))
+        print(f"  f32 {name} against anc: {len(anc) - bad}/{len(anc)} utterances with equal 1-best ids and "
+              f"scores within {MODES_ATOL:g} (max |diff| {worst:.3e})")
+        if bad:
+            raise AssertionError(f"the {name} protocol disagrees with the ancestry protocol")
+    wall("anc", bf16)
+    for name, attrs in (("append", {"cache_protocol": "append"}), ("segments 4", {"cache_segments": 4})):
+        with _engine_set(bf16, **attrs):
+            _mode_call(bf16, f"bf16 {name} (first call)", req, beam=False)
+            wall(name, bf16)
+
+    # time-sync: the CTC beam, decoder and LM rescoring
+    for engine, dt in ((bf16, "bf16"), (f32, "f32")):
+        with _engine_set(engine, decode_mode="timesync"):
+            got = _mode_call(engine, f"{dt} time-sync (first call)", req, beam=False)
+            if dt == "bf16":
+                wall("time-sync", engine)
+            else:
+                _same_ids(got, _eager_run(engine, "f32 time-sync", req), "f32 time-sync, kernels vs eager")
+
+    # n-gram fusion: full, part, and in the time-sync beam
+    with tempfile.TemporaryDirectory() as tmp:
+        arpa = _char_arpa(tmp, bf16.token_list)
+        ngram = NgramScorer(arpa, bf16.token_list, device=device)
+    print(f"  n-gram: seeded character trigram, table {tuple(ngram.table.shape)} on the card, weight 0.3")
+    for name, attrs, k4 in (("n-gram full", {"ngram_mode": "full"}, layers),
+                            ("n-gram part", {"ngram_mode": "part"}, layers),
+                            ("time-sync + n-gram", {"decode_mode": "timesync"}, 0)):
+        for engine, dt in ((bf16, "bf16"), (f32, "f32")):
+            with _engine_set(engine, ngram=ngram, ngram_weight=0.3, **attrs):
+                got = _mode_call(engine, f"{dt} {name} (first call)", req, k4, beam=bool(k4))
+                if dt == "bf16":
+                    wall(name, engine)
+                else:
+                    _same_ids(got, _eager_run(engine, f"f32 {name}", req), f"f32 {name}, kernels vs eager")
+
+    # the full-prefix LM: ctc_weight 1.0, the decoder's anc step selecting, 8 x 4 s
+    small = _request(4, 8, 4)
+    with _engine_set(bf16, beam_config=dc.replace(bf16.beam_config, ctc_weight=1.0)):
+        _mode_call(bf16, "bf16 full-prefix LM, ctc_weight 1.0, 8 x 4 s (first call)", small,
+                   len(bf16.model.decoder.decoders))
+        walls["full-prefix LM (8 x 4 s)"] = {"wall_ms": _walls(lambda: bf16.nbest(small), 1)[0]}
+        print(f"  bf16 full-prefix LM, 8 x 4 s: {walls['full-prefix LM (8 x 4 s)']['wall_ms']:.1f} ms wall")
+
+    # streamed input under device_normalize (the time-sync engine: short decodes)
+    with _engine_set(bf16, decode_mode="timesync", quantize_audio=True):
+        out["stream"] = _stream_check(bf16, device)
+
+    # qint8 weights (quantize_asr_model + quantize_lm), last: quantising is for good
+    qbf16, qf32 = bf16, f32
+    for engine in (qbf16, qf32):
+        engine.quantize_asr_model = engine.quantize_lm = engine._quantize_pending = True
+        engine.quantize_dtype = "qint8"
+    _mode_call(qbf16, "bf16 qint8 weights (first call)", req, layers)
+    wall("qint8 weights", qbf16)
+    got = _mode_call(qf32, "f32 qint8 weights", req, layers)
+    payloads = [p for m in (qf32.model, qf32.lm) for p, _ in quantized_payloads(m).values()]
+    q_bytes = sum(p.numel() * p.element_size() for p in payloads)
+    f32_bytes = sum(p.numel() * 4 for p in payloads)
+    on_card = all(p.is_cuda and p.dtype == torch.int8 for p in payloads)
+    print(f"  f32 qint8: {len(payloads)} quantised leaves, {q_bytes / 2 ** 20:.2f} MiB of int8 payload on the card "
+          f"against {f32_bytes / 2 ** 20:.2f} MiB in f32 (ratio {q_bytes / f32_bytes:.4f})")
+    if not on_card or 4 * q_bytes != f32_bytes:
+        raise AssertionError("the quantised leaves are not a quarter of their f32 bytes on the card")
+    _same_ids(got, _eager_run(qf32, "f32 qint8 weights", req), "f32 qint8 weights, kernels vs eager")
+    out["qint8_payload_mib"] = q_bytes / 2 ** 20
+    launches = _counts()
+    print(f"  launches over the serving modes: {launches}")
+    if min(launches[k] for k in ("K2", "K3", "K4", "K5")) <= 0:
+        raise AssertionError(f"a kernel of the serving modes never launched: {launches}")
+    del bf16, f32, qbf16, qf32
+    torch.cuda.empty_cache()
+    out["walls"] = walls
+    return out, launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU", file=sys.stderr)
@@ -2318,6 +2682,11 @@ def main() -> int:
     same = sum(g[0][2] == w[0][2] for g, w in zip(hyp_int8, hyp_exact))
     print(f"  bf16 int8 1-best equal to the exact bf16 run's on {same}/{len(hyp_exact)} utterances "
           "(not gated: int8 is not exact by design, and the weights are random)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    modes, modes_launches = serving_modes_phase(device)
+    print(f"  (serving modes phase: {time.perf_counter() - t0:.1f} s)")
+    print(json.dumps({"serving_modes": {**modes, "card": smi}}))
 
     sources = {
         "K1": ("flash_attention_relpos", "tailored_avsr_tpu_torch/csrc/attention.cu",
@@ -2373,7 +2742,9 @@ def main() -> int:
                         "launches": launches[key], **phases[key, "bf16"],
                         "launches_train_steps": train_launches[key], "launches_eval_step": eval_launches[key],
                         "launches_branchformer": {path: c[key] for path, c in family_launches.items()},
-                        "launches_maskctc_transducer": {path: c[key] for path, c in mt_launches.items()}})
+                        "launches_maskctc_transducer": {path: c[key] for path, c in mt_launches.items()},
+                        "launches_serving_modes": modes_launches[key],
+                        **({"mixed_pairs": modes["k4_mixed"]} if key == "K4" else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

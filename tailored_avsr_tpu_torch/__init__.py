@@ -6,7 +6,11 @@ module of the same path and is held against it on the CPU
 AVSR model's serving: greedy CTC, and the joint CTC/attention beam search
 with Transformer-LM fusion over the ancestry KV cache, whose caches and
 cross-attention memory may be stored as int8 (``cache_dtype`` /
-``mem_dtype: int8``); its training (hybrid CTC/attention loss, SpecAug,
+``mem_dtype: int8``) or the caches in the other float type, and every
+other decode choice of the JAX engine but ``data_parallel``: the append
+and segmented cache protocols, the time-synchronous CTC beam with
+decoder and LM rescoring, n-gram fusion, weight-only quantisation, the
+full-prefix LM at ``ctc_weight`` 1.0 and streamed input; its training (hybrid CTC/attention loss, SpecAug,
 Adam + Noam, checkpoints, the data path and the CLI); and the same serving
 and training for the Branchformer family: the audio-only ASR and
 video-only VSR Branchformers, whose learned branch scores
@@ -34,15 +38,18 @@ config of ``configs/`` builds, serves and trains:
 - ``tasks/``   : config -> model for the avsr, asr and vsr tasks and the LM,
                  over one registry (``tasks/common.py``);
 - ``decode/``  : greedy CTC collapse, CTC prefix scorer, beam search,
-                 Mask-CTC, the transducer's ALSD beam;
-- ``inference``: ``Speech2Text`` (``greedy``, ``nbest``, ``__call__``);
+                 Mask-CTC, the transducer's ALSD beam, the time-synchronous
+                 CTC beam, the n-gram scorer;
+- ``inference``: ``Speech2Text`` (``greedy``, ``nbest``, ``__call__``,
+                 ``device_put_batch``, ``stream``);
 - ``train/``   : optimizer and schedules, train and eval steps, checkpoints;
 - ``data/``, ``evaluation/``: tokenizers, transforms, dataset and loader;
                  WER / CER;
 - ``avsr_main``: the training and inference CLI;
 - ``study_branches``: the per-layer branch scores of an ASR / VSR model;
 - ``utils/``   : JAX parameters -> port state dict (the port's own copy of
-                 the key-grammar export), seeded initialisation;
+                 the key-grammar export), seeded initialisation,
+                 weight-only quantisation;
 - ``csrc/``    : CUDA C++ sources for ``sm_90a``;
 - ``kernels/`` : nvcc build and ctypes bindings.
 

@@ -16,15 +16,18 @@ loss and greedy-CTC CER (the eval step, where the kernels run), a
 (the mean of the ``average_epochs`` best epochs by validation CER).
 ``--mode inference`` (and the second half of ``both``, on the average)
 decodes the test set with ``Speech2Text`` and the config's
-``inference_conf`` into ``inference/NAME.inf`` and ``NAME.wer``.
+``inference_conf`` (``--ngram-file``: an ARPA n-gram for shallow fusion,
+used when ``ngram_weight`` > 0) into ``inference/NAME.inf`` and
+``NAME.wer``, through ``Speech2Text.stream``: each batch uploads while the
+one before it decodes.
 SIGTERM / SIGINT stop training at the next step; ``--resume`` re-trains the
 interrupted epoch from the last completed one.
 
 The config's ``task`` picks the model and the batch keys: ``avsr``
 (audio + video), ``asr`` (audio) or ``vsr`` (video), each a ``speech``
-stream. Refused, naming their ``ROADMAP.md`` item: ``--ngram-file``
-(item 7), training_settings ``data_parallel`` / ``model_parallel`` > 1
-(item 9), ``remat`` and a config ``init`` scheme (item 12).
+stream. Refused, naming their ``ROADMAP.md`` item: training_settings
+``data_parallel`` / ``model_parallel`` > 1 (item 9), ``remat`` and a
+config ``init`` scheme (item 12).
 """
 
 from __future__ import annotations
@@ -227,7 +230,7 @@ def run_inference(args, config, tokenizer, converter, transforms, device) -> Non
     task = task_of(config)
     lm_config = load_config(args.lm_config_file) if args.lm_config_file else None
     s2t = Speech2Text(config, ckpt_path=args.load_checkpoint or None, lm_config=lm_config,
-                      lm_ckpt_path=args.load_lm or None, device=device)
+                      lm_ckpt_path=args.load_lm or None, ngram_path=args.ngram_file or None, device=device)
     inf_conf = dict(getattr(config, "inference_conf", {}) or {})
     video_tf = transforms["eval_video"]
     if bool(inf_conf.get("device_normalize", False)):
@@ -249,10 +252,13 @@ def run_inference(args, config, tokenizer, converter, transforms, device) -> Non
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=acts)
         profiler.start()
-    for batch in loader:
-        if task == "avsr" and args.mask in ("audio", "video"):
-            batch[args.mask] = batch[args.mask] * 0.0
-        results = s2t.nbest(batch) if n_best > 1 else s2t(batch)
+    def masked_batches():
+        for batch in loader:
+            if task == "avsr" and args.mask in ("audio", "video"):
+                batch[args.mask] = batch[args.mask] * 0.0
+            yield batch
+
+    for batch, results in s2t.stream(masked_batches(), nbest=n_best > 1):
         if profiler is not None:
             profiler.stop()
             os.makedirs(args.profile_dir, exist_ok=True)
@@ -338,8 +344,6 @@ def main(argv=None) -> None:
     config = load_config(args.config_file, args.yaml_overrides)
     security_checks(config)
     task_of(config)  # avsr, asr or vsr
-    if args.ngram_file:
-        raise not_ported("n-gram fusion (--ngram-file)", 7)
     if args.mode not in ("training", "inference", "both"):
         raise ValueError(f"--mode must be 'training', 'inference' or 'both', got {args.mode!r}")
     device = resolve_device(args.device, "tailored_avsr_tpu_torch.avsr_main")

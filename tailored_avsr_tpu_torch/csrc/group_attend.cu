@@ -7,8 +7,10 @@
 // never-reordered (B, H, K, Lc, dk) cache: column (j, t) counts for query i
 // iff anc[b, i, t] == j and t < n_live (= min(pos - 1, width)); the step's own
 // column (k_new, v_new) joins the max and the normaliser. Softmax and sums in
-// f32; q, k_new, v_new and out f32 or bf16, dk = 64. K4's cache has the query's
-// type. K6's cache is an int8 payload with one f32 scale per (b, h, j, t)
+// f32; q, k_new, v_new f32 or bf16, dk = 64. K4's cache has the query's type
+// (out too) or the other float type (a cache_dtype other than the model's):
+// then out is f32, the promoted type, as the JAX formulation's output is.
+// K6's cache is an int8 payload with one f32 scale per (b, h, j, t)
 // column: the logit is (q . k_int8) * k_scale / sqrt(dk) and the value scale
 // folds into the column's softmax weight (p * v_scale). With no live column
 // the output is exactly v_new.
@@ -132,16 +134,20 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
   }
 }
 
-// C: the cache's element type (T for K4, int8_t for K6); T: q, k_new, v_new, out.
+// C: the cache's element type (T or the other float type for K4, int8_t for
+// K6); T: q, k_new, v_new; Out<C, T>: out (f32 when a float C is not T).
 // k_scale, v_scale: (B, H, K, Lc) f32 column scales for K6, null for K4.
 // Block x = group * split + s serves columns [s * per, min(n_live, (s + 1) * per)).
+template <typename C, typename T>
+using Out = typename std::conditional<std::is_same<C, float>::value, float, T>::type;
+
 template <typename C, typename T>
 __global__ void __launch_bounds__(32 * MAX_WARPS, 2)  // <= 96 registers: two blocks an SM at beam 10
     group_attend_kernel(const C* __restrict__ k, const float* __restrict__ k_scale,
                         const C* __restrict__ v, const float* __restrict__ v_scale,
                         const T* __restrict__ q, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, const int* __restrict__ anc,
-                        T* __restrict__ out, float* __restrict__ partial, int heads, int beam,
+                        Out<C, T>* __restrict__ out, float* __restrict__ partial, int heads, int beam,
                         int lc, int n_live, int chunk, int per, int split, float scale) {
   constexpr bool QUANT = std::is_same<C, int8_t>::value;
   constexpr int RS = row_stride<C>();
@@ -452,6 +458,7 @@ cudaError_t launch(const GroupArgs& a) {
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes<C>(a.beam, a.chunk, a.per);
   if (smem > size_t(SMEM_LIMIT)) return cudaErrorInvalidValue;
+  using O = Out<C, T>;
   constexpr auto kernel = &group_attend_kernel<C, T>;
   cudaError_t err = avsr::allow_dynamic_smem<kernel>(SMEM_LIMIT);
   if (err != cudaSuccess) return err;
@@ -459,42 +466,48 @@ cudaError_t launch(const GroupArgs& a) {
   kernel<<<a.groups * a.split, threads, smem, a.stream>>>(
       static_cast<const C*>(a.k), a.k_scale, static_cast<const C*>(a.v), a.v_scale,
       static_cast<const T*>(a.q), static_cast<const T*>(a.k_new), static_cast<const T*>(a.v_new),
-      a.anc, static_cast<T*>(a.out), a.partial, a.heads, a.beam, a.lc, a.n_live, a.chunk, a.per,
+      a.anc, static_cast<O*>(a.out), a.partial, a.heads, a.beam, a.lc, a.n_live, a.chunk, a.per,
       a.split, float(1.0 / sqrt(double(DK))));
   err = cudaGetLastError();
   if (err != cudaSuccess || a.split == 1) return err;
   const int queries = a.groups * a.beam;
-  group_attend_combine_kernel<T><<<(queries + 7) / 8, 256, 0, a.stream>>>(
-      a.partial, static_cast<T*>(a.out), queries, a.beam, a.split);
+  group_attend_combine_kernel<O><<<(queries + 7) / 8, 256, 0, a.stream>>>(
+      a.partial, static_cast<O*>(a.out), queries, a.beam, a.split);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// K4. k, v: (B*H, K, Lc, 64) contiguous; q, k_new, v_new, out: (B*H, K, 64),
-// all of one type; anc: (B, K, Lc) int32; groups = B*H. Columns t < n_live
-// are read, in `split` blocks a group of `per` columns each (a multiple of
-// `chunk`, the columns of one double-buffered copy); with split > 1,
-// partial is (groups, split, K, 66) f32 scratch. Returns the first failed
-// launch's cudaError_t.
+// K4. k, v: (B*H, K, Lc, 64) contiguous, f32 (cache_type 0) or bf16 (1); q,
+// k_new, v_new: (B*H, K, 64), f32 or bf16 (is_bf16); out: (B*H, K, 64), of
+// the queries' type when the cache has it, else f32; anc: (B, K, Lc) int32;
+// groups = B*H. Columns t < n_live are read, in `split` blocks a group of
+// `per` columns each (a multiple of `chunk`, the columns of one
+// double-buffered copy); with split > 1, partial is (groups, split, K, 66)
+// f32 scratch. Returns the first failed launch's cudaError_t.
 extern "C" int avsr_group_attend(const void* k, const void* v, const void* q, const void* k_new,
                                  const void* v_new, const void* anc, void* out, void* partial,
                                  int groups, int heads, int beam, int lc, int n_live, int chunk,
-                                 int per, int split, int is_bf16, void* stream) {
+                                 int per, int split, int is_bf16, int cache_type, void* stream) {
   const GroupArgs a{k, v, q, k_new, v_new, nullptr, nullptr, static_cast<const int*>(anc), out,
                     static_cast<float*>(partial), groups, heads, beam, lc, n_live, chunk, per,
                     split, static_cast<cudaStream_t>(stream)};
-  return int(is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(a) : launch<float, float>(a));
+  if (cache_type == 1)
+    return int(is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(a) : launch<__nv_bfloat16, float>(a));
+  if (cache_type == 0)
+    return int(is_bf16 ? launch<float, __nv_bfloat16>(a) : launch<float, float>(a));
+  return int(cudaErrorInvalidValue);
 }
 
 // K6. k, v: (B*H, K, Lc, 64) int8 contiguous; k_scale, v_scale: (B*H, K, Lc)
-// f32; q, k_new, v_new, out: (B*H, K, 64) f32 or bf16 (is_bf16); the rest as
-// K4. Returns the first failed launch's cudaError_t.
+// f32; q, k_new, v_new, out: (B*H, K, 64) f32 or bf16 (is_bf16); cache_type
+// 2; the rest as K4. Returns the first failed launch's cudaError_t.
 extern "C" int avsr_group_attend_q(const void* k, const void* k_scale, const void* v,
                                    const void* v_scale, const void* q, const void* k_new,
                                    const void* v_new, const void* anc, void* out, void* partial,
                                    int groups, int heads, int beam, int lc, int n_live, int chunk,
-                                   int per, int split, int is_bf16, void* stream) {
+                                   int per, int split, int is_bf16, int cache_type, void* stream) {
+  if (cache_type != 2) return int(cudaErrorInvalidValue);
   const GroupArgs a{k, v, q, k_new, v_new, static_cast<const float*>(k_scale),
                     static_cast<const float*>(v_scale), static_cast<const int*>(anc), out,
                     static_cast<float*>(partial), groups, heads, beam, lc, n_live, chunk, per,

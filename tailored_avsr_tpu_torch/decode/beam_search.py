@@ -22,6 +22,14 @@ index among equal values and the search relies on it (exact ties keep the
 OLD finished entry; many candidates clamp to exactly NEG_INF), while
 ``torch.topk`` promises no order for ties.
 
+An LM left out of the stateful scorer (``lm_score_fn``, the full-prefix
+LM at ``ctc_weight: 1.0``, or an n-gram alone) joins the selection
+scores with ``lm_weight``; a part scorer (``ngram_part_fn``, the n-gram's
+``part`` mode) scores only the pre-beam candidates, with
+``ngram_weight``. A stateful scorer's state is reordered by
+``att_gather_fn``, or, without one, row by row (``reorder_beam_rows`` on
+every tensor of the state).
+
 The ancestry cache protocol: the caches are never reordered; each step
 writes every slot's new K/V column of every layer in one launch
 (``write_beam_step``, the step write) and threads the (N, Lc) ancestry
@@ -37,7 +45,6 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.decode.ctc_prefix import (
     ctc_prefix_init_state,
     ctc_prefix_score_step,
@@ -93,12 +100,27 @@ def update_ancestry(anc: torch.Tensor, g_src: torch.Tensor, src_bk: torch.Tensor
     return anc
 
 
-def reorder_beam_rows(*args, **kwargs):
-    raise not_ported("reorder_beam_rows (the physically reordered beam cache)", 7)
+def _rows(src_bk: torch.Tensor) -> torch.Tensor:
+    """(B, K) within-group beam sources -> (N,) global rows b*K + src."""
+    b, k = src_bk.shape
+    return (torch.arange(b, device=src_bk.device)[:, None] * k + src_bk).reshape(b * k)
 
 
-def insert_permute_rows(*args, **kwargs):
-    raise not_ported("insert_permute_rows (cache_protocol: append)", 7)
+def reorder_beam_rows(x: torch.Tensor, src_bk: torch.Tensor) -> torch.Tensor:
+    """The beam reorder of a row-major state tensor: ``out[b*K + i] =
+    x[b*K + src_bk[b, i]]``."""
+    return x[_rows(src_bk)]
+
+
+def insert_permute_rows(x: torch.Tensor, new_col: torch.Tensor, src_bk: torch.Tensor, pos: int) -> torch.Tensor:
+    """The append protocol's cache write: the beam reorder of an (N, H, Lc,
+    dk) cache leaf with column ``pos - 1`` replaced by the step's (N, H, 1,
+    dk) column of the source row, cast to the cache's dtype -> a new leaf
+    (one read and one write of the whole cache a step)."""
+    g_src = _rows(src_bk)
+    out = x[g_src]
+    out[:, :, pos - 1] = new_col[g_src, :, 0].to(x.dtype)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,12 +134,23 @@ class BeamSearchConfig:
     pre_beam_ratio: float = 1.5
     nbest: int = 1
     early_exit: bool = True  # exact upper-bound stop (one host read per step)
+    # weight of the n-gram part scorer (``ngram_part_fn``), on the pre-beam candidates
+    ngram_weight: float = 0.0
     # attend widths of the early steps: entries <= 1 are fractions of the
     # max decode length, > 1 absolute columns; each rounds up to width_tile
     phase_widths: tuple = ()
     # the JAX package's cache tile: 8, or 32 for cache_dtype: int8 (kept so
     # that the phase schedule is the JAX package's step for step)
     width_tile: int = 8
+
+
+def _map_tensors(state, fn):
+    """``fn`` on every tensor of a nest of lists, tuples and dicts."""
+    if torch.is_tensor(state):
+        return fn(state)
+    if isinstance(state, dict):
+        return {k: _map_tensors(v, fn) for k, v in state.items()}
+    return type(state)(_map_tensors(v, fn) for v in state)
 
 
 class BeamSearchResult(NamedTuple):
@@ -133,6 +166,7 @@ def beam_search(
     sos: int,
     eos: int,
     config: BeamSearchConfig,
+    lm_score_fn: Optional[Callable] = None,
     blank_id: int = 0,
     att_state=None,
     att_gather_fn: Optional[Callable] = None,
@@ -141,15 +175,17 @@ def beam_search(
 ) -> BeamSearchResult:
     """att_score_fn(ys (N, L+2), pos int) -> (N, V) step log-probs, or, with
     ``att_state``, ``(ys, pos, state) -> (logp, state)`` whose state
-    ``att_gather_fn(state, g_src (N,), pos)`` carries through each reorder.
+    ``att_gather_fn(state, g_src (N,), pos)`` carries through each reorder
+    (by default every tensor of the state is reordered by rows).
     ``att_fn_for_width(w)`` gives the stateful scorer of a phase of width w.
-    An LM is folded into the stateful scorer (``Speech2Text``).
+    ``lm_score_fn(ys, pos) -> (N, V)`` adds with ``lm_weight`` to the
+    selection scores; ``ngram_part_fn(ys, pos, cand (N, P)) -> (N, P)``
+    with ``ngram_weight`` to the pre-beam candidates' scores.
     """
-    if ngram_part_fn is not None:
-        raise not_ported("the n-gram part scorer (ngram_part_fn)", 7)
     stateful = att_state is not None
     if stateful and att_gather_fn is None:
-        raise not_ported("the default state gather of a stateful scorer (reorder_beam_rows)", 7)
+        def att_gather_fn(st, g_src, pos):
+            return _map_tensors(st, lambda x: x[g_src])
     dev = ctc_logp.device
     b, t, v = ctc_logp.shape
     k = config.beam_size
@@ -199,7 +235,10 @@ def beam_search(
         # with att_w == 0 (pure CTC) select candidates on the unweighted
         # decoder posterior; the accumulated totals still use 0 * att
         sel_w = att_w if att_w > 0.0 else 1.0
-        step_logp = sel_w * att_logp + config.penalty
+        step_logp = sel_w * att_logp
+        if lm_score_fn is not None and config.lm_weight > 0.0:
+            step_logp = step_logp + config.lm_weight * lm_score_fn(ys_flat, pos)
+        step_logp = step_logp + config.penalty
 
         # eos gating: block eos before minlen, force eos at maxlen
         block_eos = (i < minlen)[:, None]  # (B, 1)
@@ -218,6 +257,8 @@ def beam_search(
             cand_scores = pre_scores + config.ctc_weight * (psi - ctc_state.score[:, None])
         else:
             cand_scores = pre_scores
+        if ngram_part_fn is not None and config.ngram_weight > 0.0:
+            cand_scores = cand_scores + config.ngram_weight * ngram_part_fn(ys_flat, pos, cand_ids)
         total = torch.clamp(scores.reshape(n, 1) + cand_scores, min=NEG_INF)  # (N, P)
 
         # finished (eos) candidates merge into the finished buffer

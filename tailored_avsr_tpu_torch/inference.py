@@ -1,10 +1,11 @@
 """Speech2Text: config + weights -> batched serving on one device
-(counterpart of ``tailored_avsr_tpu/inference.py:133``): greedy CTC and the
-label-synchronous joint CTC/attention beam search with Transformer-LM
-shallow fusion over the ancestry KV cache, for the AVSR models (``task:
-avsr``: tailored or conventional encoder) and the Branchformer ASR / VSR
-models (``task: asr | vsr``: one ``speech`` stream), the model picked by
-the task as the JAX engine picks it.
+(counterpart of ``tailored_avsr_tpu/inference.py:133``): greedy CTC, the
+label-synchronous joint CTC/attention beam search with Transformer-LM and
+n-gram shallow fusion, and the time-synchronous CTC beam with decoder and
+LM rescoring, for the AVSR models (``task: avsr``: tailored or
+conventional encoder) and the Branchformer ASR / VSR models (``task: asr |
+vsr``: one ``speech`` stream), the model picked by the task as the JAX
+engine picks it.
 
 The constructor takes the JAX engine's arguments plus ``device``; the
 weights come from ``ckpt_path`` / ``lm_ckpt_path`` (PyTorch state dicts in
@@ -16,17 +17,39 @@ Under ``dtype: bfloat16`` both run in bf16.
 ``greedy(batch) -> List[str]`` follows ``inference.py:1051``, including the
 dequantisation of uint8 video and int16 audio on the device
 (``inference.py:412-423``). ``nbest`` / ``__call__`` follow
-``inference.py:954-982`` with the beam of ``inference.py:580-771``: the
-decoder and the LM score each step through their never-reordered group
-caches (``score_step_anc``, group attend K4), the step's columns are written
-in place after the reorder (K5) and an (N, Lc) ancestry table tracks which
-slot holds each column. ``inference_conf fused_group_attend: false`` takes
-the plain group attend on the card (the JAX package's A/B switch).
-``cache_dtype: int8`` stores the beam caches as int8 payloads with per-column
-scales (group attend K6, quantised column writes through K5) and
-``mem_dtype: int8`` the decoder's cross-attention memory K/V, as
-``inference.py:218-246`` and ``:663-699`` do. The other protocols and decode
-modes raise, naming their ``ROADMAP.md`` item.
+``inference.py:954-982``; the label-synchronous beam
+(``inference.py:580-929``) runs one of three cache protocols:
+
+- ``cache_protocol: anc`` (the default): the decoder and the LM score each
+  step through their never-reordered group caches (``score_step_anc``,
+  group attend K4), the step's columns are written in place after the
+  reorder (the step write K5) and an (N, Lc) ancestry table tracks which
+  slot holds each column. ``fused_group_attend: false`` takes the plain
+  group attend on the card (the JAX package's A/B switch). ``cache_dtype``
+  stores the group caches as ``int8`` payloads with per-column scales
+  (K6, quantised column writes through K5), or in the other float type
+  than the model's (K4 over a wider or narrower cache); ``mem_dtype:
+  int8`` the decoder's cross-attention memory K/V (``inference.py:218-246``,
+  ``:663-699``);
+- ``cache_protocol: append``: (N, H, Lc, dk) caches read by the step and
+  permuted with the step's column inserted after each reorder
+  (``insert_permute_rows``);
+- ``cache_segments`` > 1: the decoder's cache in length segments that
+  the step writes and the reorder gathers only up to the live length
+  (``score_step_cached_seg``), the LM's a plain cache it writes itself.
+
+The LM rides in the decoder's scorer unless ``ctc_weight`` is 1.0; then it
+scores each step's whole prefix (``TransformerLM.score_step``). An n-gram
+(``ngram_file`` or the ``ngram_path`` argument, which wins, with
+``ngram_weight`` > 0; ``decode/ngram.py``) joins the LM's scores rescaled
+onto ``lm_weight`` or stands in the LM's place (``ngram_scorer: full``),
+or scores the pre-beam candidates only (``part``). ``decode_mode:
+timesync`` (``time_sync: true``), and every model without a decoder, runs
+the time-synchronous CTC beam (``decode/ctc_timesync.py``, the n-gram in
+its loop) and rescores its K hypotheses with the decoder's and the LM's
+``nll`` (``inference.py:528-577``). ``quantize_asr_model`` /
+``quantize_lm`` keep the model's / the LM's weights quantised on the device
+(``utils/quantize.py``), from the first decode on.
 
 ``nbest`` dispatches as the JAX engine does (``inference.py:447-525``): a
 transducer model (``decoder: transducer``) runs the ALSD beam
@@ -39,13 +62,20 @@ unless set). Both return ids without ``<sos>``, the transducer beam all K
 hypotheses, the others one with score 0; an ``lm_config`` takes no part in
 them, as in the JAX engine. ``greedy`` is CTC greedy for every model.
 
+The input side (``inference.py:985-1049``): ``device_put_batch`` uploads
+a batch's model inputs (under ``device_normalize`` float audio first
+becomes int16), and ``stream`` decodes an iterable of batches while the
+next one uploads, on a side CUDA stream from pinned host memory.
+
 The engine runs on the CUDA card unless ``device="cpu"`` is asked for.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import dataclasses
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tailored_avsr_tpu_torch import not_ported
@@ -53,10 +83,13 @@ from tailored_avsr_tpu_torch.decode.beam_search import (
     BeamSearchConfig,
     BeamSearchResult,
     beam_search,
+    insert_permute_rows,
     update_ancestry,
     write_beam_step,
 )
+from tailored_avsr_tpu_torch.decode.ctc_timesync import ctc_timesync_beam_search
 from tailored_avsr_tpu_torch.decode.greedy import ctc_greedy_collapse
+from tailored_avsr_tpu_torch.decode.ngram import NgramScorer
 from tailored_avsr_tpu_torch.decode.maskctc import maskctc_decode
 from tailored_avsr_tpu_torch.decode.transducer_beam import transducer_beam_search
 from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
@@ -66,6 +99,7 @@ from tailored_avsr_tpu_torch.tasks import lm as lm_task
 from tailored_avsr_tpu_torch.tasks.common import build_model, resolve_device, task_of
 from tailored_avsr_tpu_torch.train.checkpoint import load_model, read_state_dict
 from tailored_avsr_tpu_torch.utils.convert import lm_state_dict
+from tailored_avsr_tpu_torch.utils.quantize import quantize_model
 
 _SPACE = "<space>"
 
@@ -145,9 +179,10 @@ def _normalize_inference_conf(inf: dict, config) -> dict:
     return inf
 
 
-def _check_inference_conf(inf: dict, ngram_path: Optional[str], dtype: torch.dtype) -> None:
-    """Raise for each ``inference_conf`` choice the port does not run; the
-    cache and memory dtypes as ``tailored_avsr_tpu/inference.py:218-246``."""
+def _check_inference_conf(inf: dict) -> None:
+    """The cache protocol and the cache and memory dtypes, checked as
+    ``tailored_avsr_tpu/inference.py:212-246`` checks them; ``data_parallel``
+    is refused, naming its ``ROADMAP.md`` item."""
     protocol = str(inf.get("cache_protocol", "anc"))
     if protocol not in ("anc", "append"):
         raise ValueError(f"cache_protocol must be 'anc' or 'append', got {protocol!r}")
@@ -164,20 +199,14 @@ def _check_inference_conf(inf: dict, ngram_path: Optional[str], dtype: torch.dty
             f"mem_dtype={mem_dtype!r}: supported values are '' (compute dtype) and 'int8'")
     if mem_dtype == "int8" and protocol != "anc":
         raise NotImplementedError("mem_dtype: int8 requires cache_protocol: anc")
-    if _DTYPE_NAMES.get(cache_dtype, dtype) != dtype:  # needs K4 with mixed query and cache types
-        raise not_ported(f"cache_dtype: {cache_dtype} under a {str(dtype).replace('torch.', '')} model", 7)
-    if str(inf.get("decode_mode", "label_sync")) != "label_sync":
-        raise not_ported("decode_mode: timesync", 7)
-    if protocol == "append":
-        raise not_ported("cache_protocol: append", 7)
-    if int(inf.get("cache_segments", 1)) > 1:
-        raise not_ported("cache_segments > 1", 7)
-    if ngram_path or inf.get("ngram_file"):
-        raise not_ported("n-gram fusion", 7)
-    if inf.get("quantize_asr_model") or inf.get("quantize_lm"):
-        raise not_ported("quantised weights (quantize_asr_model / quantize_lm)", 7)
     if inf.get("data_parallel"):
         raise not_ported("data_parallel", 9)
+
+
+def _cast_kv(new_kv, dtype: torch.dtype) -> list:
+    """A scorer's step columns in the model's dtype, the dtype the JAX
+    engine's beam state keeps them in (``inference.py:635-641``)."""
+    return [(kn.to(dtype), vn.to(dtype)) for kn, vn in new_kv]
 
 
 class Speech2Text:
@@ -205,12 +234,17 @@ class Speech2Text:
             if str(getattr(config, "dtype", "float32")) in ("bfloat16", "bf16")
             else torch.float32
         )
-        _check_inference_conf(inf, ngram_path, self.dtype)
+        _check_inference_conf(inf)
         self.config = config
         self.token_list = load_token_list(config.token_list)
         self.device = resolve_device(device, "Speech2Text")
-        self.quantized_cache = str(inf.get("cache_dtype", "") or "") == "int8"
+        cache_dtype = str(inf.get("cache_dtype", "") or "")
+        self.quantized_cache = cache_dtype == "int8"
+        self.cache_dtype = _DTYPE_NAMES.get(cache_dtype)  # None: the model's dtype
         self.quantized_memory = str(inf.get("mem_dtype", "") or "") == "int8"
+        self.cache_protocol = str(inf.get("cache_protocol", "anc"))
+        self.cache_segments = int(inf.get("cache_segments", 1))
+        self.decode_mode = str(inf.get("decode_mode", "label_sync"))
         # the beam (``unroll`` is accepted and not used: the port runs one
         # step per iteration, the result-exact form)
         self.beam_config = BeamSearchConfig(
@@ -226,6 +260,8 @@ class Speech2Text:
             # the int8 cache phases at the JAX package's int8 tile
             width_tile=32 if self.quantized_cache else 8,
         )
+        # the time-sync beam's pre-beam: 1.5 x the beam unless set (espnet's ratio)
+        self.pre_beam = int(inf.get("pre_beam", int(1.5 * self.beam_config.beam_size)))
         # group-attend choice per engine: None = K4 on the card, plain on the CPU
         fga = inf.get("fused_group_attend", None)
         self.fused_group_attend = None if fga is None else bool(fga)
@@ -253,6 +289,32 @@ class Speech2Text:
         self.video_scale = float(inf.get("video_scale", 250.0))
         self.video_mean = float(inf.get("video_mean", 0.421))
         self.video_std = float(inf.get("video_std", 0.165))
+        self.quantize_audio = bool(inf.get("device_normalize", False))
+        # weight-only quantisation, applied at the first decode (the JAX
+        # engine's ensure_params), so weights loaded after construction count
+        self.quantize_asr_model = bool(inf.get("quantize_asr_model", False))
+        self.quantize_lm = bool(inf.get("quantize_lm", False))
+        self.quantize_dtype = str(inf.get("quantize_dtype", "qint8"))
+        self.quantize_min_size = int(inf.get("quantize_min_size", 4096))
+        self._quantize_pending = self.quantize_asr_model or (self.quantize_lm and self.lm is not None)
+        # n-gram fusion: 'full' rides the LM slot, 'part' scores the pre-beam candidates
+        self.ngram = None
+        self.ngram_weight = float(inf.get("ngram_weight", 0.0))
+        self.ngram_mode = str(inf.get("ngram_scorer", "full"))
+        ngram_path = ngram_path or inf.get("ngram_file")
+        if ngram_path and self.ngram_weight > 0:
+            self.ngram = NgramScorer(ngram_path, self.token_list, device=self.device)
+
+    def _ensure_quantized(self) -> None:
+        """Quantise the weights ``quantize_asr_model`` / ``quantize_lm`` name,
+        once, before the first decode."""
+        if not self._quantize_pending:
+            return
+        if self.quantize_asr_model:
+            quantize_model(self.model, self.quantize_dtype, self.quantize_min_size)
+        if self.quantize_lm and self.lm is not None:
+            quantize_model(self.lm, self.quantize_dtype, self.quantize_min_size)
+        self._quantize_pending = False
 
     def load_checkpoint(self, path: str) -> List[str]:
         """Strict load of a PyTorch state dict (``.pth`` / ``.pt``); keys the
@@ -317,14 +379,15 @@ class Speech2Text:
         result on the device and the column of each hypothesis' first token
         (1 after ``<sos>``, 0 where there is none)."""
         model = self.model
-        if model.joint_network is None and model.decoder is None:
-            raise not_ported("beam decoding of a CTC-only model (decode_mode: timesync)", 7)
+        self._ensure_quantized()
         enc, enc_lens, _ = model.encode(*self.inputs(batch))
         if model.joint_network is not None:
             return self._transducer(enc, enc_lens), 0
         ctc_logp = model.ctc.log_softmax(enc)
         if self.is_maskctc:
             return self._maskctc(enc, enc_lens, ctc_logp), 0
+        if self.decode_mode == "timesync" or model.decoder is None:
+            return self._timesync(enc, enc_lens, ctc_logp), 0
         return self._beam(enc, enc_lens, ctc_logp), 1
 
     def _transducer(self, enc: torch.Tensor, enc_lens: torch.Tensor) -> BeamSearchResult:
@@ -364,37 +427,136 @@ class Speech2Text:
         return BeamSearchResult(tokens=res.tokens[:, None], scores=torch.zeros((enc.shape[0], 1), device=enc.device),
                                 lengths=res.lengths[:, None])
 
-    def _beam(self, enc: torch.Tensor, enc_lens: torch.Tensor, ctc_logp: torch.Tensor) -> BeamSearchResult:
-        cfg, dec, lm = self.beam_config, self.model.decoder, self.lm
-        b, t, _ = enc.shape
-        k = cfg.beam_size
+    def _timesync(self, enc: torch.Tensor, enc_lens: torch.Tensor, ctc_logp: torch.Tensor) -> BeamSearchResult:
+        """``tailored_avsr_tpu/inference.py:528-577``: the time-synchronous
+        CTC beam (the n-gram in its loop), its CTC scores weighted by
+        ``ctc_weight`` and its fusion terms at full weight, then the K
+        hypotheses rescored by the decoder's and the LM's ``nll``, batched;
+        the ``nbest`` best."""
+        cfg, model, k = self.beam_config, self.model, self.beam_config.beam_size
+        v, ngram = ctc_logp.shape[-1], self.ngram
+        toks, tlens, tscores, cscores = ctc_timesync_beam_search(
+            ctc_logp, enc_lens, beam_size=k, pre_beam=min(self.pre_beam, v - 1), max_len=max(2, enc.shape[1]),
+            penalty=cfg.penalty, ngram_scorer=ngram.score_candidates if ngram is not None else None,
+            ngram_weight=self.ngram_weight if ngram is not None else 0.0)
+        score = cfg.ctc_weight * cscores + (tscores - cscores)
         att_w = 1.0 - cfg.ctc_weight
-        fold_lm = lm is not None and cfg.lm_weight > 0.0
-        if fold_lm and att_w <= 0.0:
-            raise not_ported("LM fusion with ctc_weight 1.0 (full-prefix LM scoring)", 7)
+        b, _, lmax = toks.shape
+        flens = tlens.reshape(-1)
+        flat = torch.where(torch.arange(lmax, device=toks.device)[None] < flens[:, None], toks.reshape(b * k, lmax), -1)
+        if model.decoder is not None and att_w > 0:
+            nll = model.nll(enc.repeat_interleave(k, 0), enc_lens.repeat_interleave(k, 0), flat, flens)
+            score = score + att_w * -nll.reshape(b, k)
+        if self.lm is not None and cfg.lm_weight > 0:
+            score = score + cfg.lm_weight * -self.lm.nll(flat, flens)[0].reshape(b, k)
+        order = torch.sort(-score, dim=1, stable=True).indices[:, :min(cfg.nbest, k)]
+        return BeamSearchResult(tokens=torch.gather(toks, 1, order[..., None].expand(-1, -1, lmax)),
+                                scores=torch.gather(score, 1, order), lengths=torch.gather(tlens, 1, order))
+
+    def _beam(self, enc: torch.Tensor, enc_lens: torch.Tensor, ctc_logp: torch.Tensor) -> BeamSearchResult:
+        """The label-synchronous beam over the configured cache protocol
+        (``tailored_avsr_tpu/inference.py:580-929``)."""
+        cfg, dec, lm = self.beam_config, self.model.decoder, self.lm
+        ngram, ngram_w = self.ngram, self.ngram_weight
+        if ngram is not None and self.ngram_mode == "part":
+            cfg = dataclasses.replace(cfg, ngram_weight=ngram_w)
+        elif ngram is not None and lm is None:  # the n-gram alone takes the LM's slot
+            cfg = dataclasses.replace(cfg, lm_weight=ngram_w)
+        ngram_full = ngram if self.ngram_mode == "full" else None
+        b, t, _ = enc.shape
+        k, dt = cfg.beam_size, enc.dtype
+        n = b * k
+        att_w = 1.0 - cfg.ctc_weight
+        fold_lm = lm is not None and cfg.lm_weight > 0.0 and att_w > 0.0
+        lm_scale = cfg.lm_weight / att_w if fold_lm else 0.0
+
+        def with_ngram(lm_lp, ys, pos):  # the full n-gram rescaled onto the LM weight
+            if ngram_full is None:
+                return lm_lp
+            return lm_lp + (ngram_w / cfg.lm_weight) * ngram_full.score_step(ys, pos)
+
         mem_mask = make_valid_mask(enc_lens, t)
         mem_kv = dec.precompute_memory(enc)  # B rows, shared by each beam group
+        n_seg = max(1, min(self.cache_segments, t))
+        att_fn_for_width = None
+        if self.cache_protocol == "anc" and n_seg == 1:
+            att_fn_for_width, state, att_gather_fn = self._anc_protocol(
+                enc, mem_kv, mem_mask, fold_lm, lm_scale, with_ngram, cfg)
+            att_fn = att_fn_for_width(None)
+        else:
+            mem_kv = [(mk.repeat_interleave(k, 0), mv.repeat_interleave(k, 0)) for mk, mv in mem_kv]
+            mem_mask = mem_mask.repeat_interleave(k, 0)
+            seg = n_seg > 1
+            state = {"dec": dec.init_cache_seg(n, t, dtype=dt, num_segments=n_seg) if seg
+                     else dec.init_cache(n, t, dtype=dt)}
+            if fold_lm:
+                state["lm"] = lm.init_cache(n, t + 2, dtype=dt)
+
+            def att_fn(ys, pos, st):
+                if seg:  # the segmented decoder and the LM write their caches themselves
+                    st = dict(st)
+                    lp, st["dec"] = dec.score_step_cached_seg(mem_kv, mem_mask, ys, pos, st["dec"])
+                    if fold_lm:
+                        lm_lp, st["lm"] = lm.score_step_cached(ys, pos, st["lm"])
+                        lp = lp + lm_scale * with_ngram(lm_lp, ys, pos)
+                    return lp, st
+                lp, dec_new = dec.score_step_append(mem_kv, mem_mask, ys, pos, st["dec"])
+                st = dict(st, dec_new=_cast_kv(dec_new, dt))
+                if fold_lm:
+                    lm_lp, lm_new = lm.score_step_append(ys, pos, st["lm"])
+                    lp = lp + lm_scale * with_ngram(lm_lp, ys, pos)
+                    st["lm_new"] = _cast_kv(lm_new, dt)
+                return lp, st
+
+            def att_gather_fn(st, g_src, pos):
+                if seg:
+                    out = {"dec": type(dec).gather_cache_seg(st["dec"], g_src, pos)}
+                    if fold_lm:
+                        out["lm"] = [tuple(x[g_src] for x in layer) for layer in st["lm"]]
+                    return out
+                src_bk = g_src.reshape(-1, k) % k  # the reorder with the step's columns inserted
+                return {side: [(insert_permute_rows(ck, kn, src_bk, pos), insert_permute_rows(cv, vn, src_bk, pos))
+                               for (ck, cv), (kn, vn) in zip(st[side], st[side + "_new"])]
+                        for side in (("dec", "lm") if fold_lm else ("dec",))}
+
+        lm_fn = None
+        if lm is not None and cfg.lm_weight > 0.0 and not fold_lm:
+            def lm_fn(ys, pos):  # the full-prefix LM (ctc_weight 1.0)
+                return with_ngram(lm.score_step(ys, pos), ys, pos)
+        elif ngram_full is not None:
+            lm_fn = ngram_full.score_step
+        return beam_search(att_fn, ctc_logp, enc_lens, self.model.sos, self.model.eos, cfg, lm_score_fn=lm_fn,
+                           att_state=state, att_gather_fn=att_gather_fn, att_fn_for_width=att_fn_for_width,
+                           ngram_part_fn=ngram.score_step_candidates if ngram is not None and self.ngram_mode == "part"
+                           else None)
+
+    def _anc_protocol(self, enc, mem_kv, mem_mask, fold_lm: bool, lm_scale: float, with_ngram, cfg):
+        """The ancestry protocol's (scorer of a width, state, gather): group
+        caches in ``cache_dtype`` (int8 payloads with scales, or a float
+        type), the memory K/V int8 under ``mem_dtype: int8``."""
+        dec, lm = self.model.decoder, self.lm
+        b, t, _ = enc.shape
+        k, dt = cfg.beam_size, enc.dtype
         if self.quantized_memory:  # once per request, per (b, h, t) column
             mem_kv = [(quantize_kv_column(mk), quantize_kv_column(mv)) for mk, mv in mem_kv]
-        quantized = self.quantized_cache
+        quantized, cache_dt = self.quantized_cache, self.cache_dtype or dt
         state = {
-            "dec": dec.init_cache_group(b, k, t, dtype=enc.dtype, quantized=quantized),
+            "dec": dec.init_cache_group(b, k, t, dtype=cache_dt, quantized=quantized),
             # as wide as the widest (8-rounded) group cache
             "anc": torch.zeros((b * k, -(-(t + 2) // 8) * 8), dtype=torch.int32, device=enc.device),
         }
         if fold_lm:
-            state["lm"] = lm.init_cache_group(b, k, t + 2, dtype=enc.dtype, quantized=quantized)
-            lm_scale = cfg.lm_weight / att_w
+            state["lm"] = lm.init_cache_group(b, k, t + 2, dtype=cache_dt, quantized=quantized)
         fused = self.fused_group_attend
 
         def att_fn_for_width(width):
             def att_fn(ys, pos, st):
-                lp, dec_new = dec.score_step_anc(mem_kv, mem_mask, ys, pos, st["dec"], st["anc"], k,
-                                                 width, fused)
-                st = dict(st, dec_new=dec_new)
+                lp, dec_new = dec.score_step_anc(mem_kv, mem_mask, ys, pos, st["dec"], st["anc"], k, width, fused)
+                st = dict(st, dec_new=_cast_kv(dec_new, dt))
                 if fold_lm:
-                    lm_lp, st["lm_new"] = lm.score_step_anc(ys, pos, st["lm"], st["anc"], k, width, fused)
-                    lp = lp + lm_scale * lm_lp
+                    lm_lp, lm_new = lm.score_step_anc(ys, pos, st["lm"], st["anc"], k, width, fused)
+                    lp = lp + lm_scale * with_ngram(lm_lp, ys, pos)
+                    st["lm_new"] = _cast_kv(lm_new, dt)
                 return lp, st
             return att_fn
 
@@ -407,13 +569,73 @@ class Speech2Text:
             st["anc"] = update_ancestry(st["anc"], g_src, g_src.reshape(-1, k) % k, pos)
             return st
 
-        return beam_search(att_fn_for_width(None), ctc_logp, enc_lens, self.model.sos, self.model.eos,
-                           cfg, att_state=state, att_gather_fn=att_gather_fn,
-                           att_fn_for_width=att_fn_for_width)
+        return att_fn_for_width, state, att_gather_fn
+
+    # -- the input side: uploads that overlap the decode ----------------------
+    _DEVICE_KEYS = ("audio", "audio_lengths", "video", "video_lengths", "speech", "speech_lengths")
+
+    def device_put_batch(self, batch: Dict) -> Dict:
+        """The batch with its model inputs on the device (host-only keys, refs
+        and text, pass through): copies from pinned host memory, issued on
+        the current stream without waiting. Under ``device_normalize`` float
+        audio (2-D ``audio`` / ``speech``) first becomes int16,
+        ``clip(a * 32768, -32768, 32767)``, half the bytes; ``inputs``
+        dequantises it on the device."""
+        out = dict(batch)
+        for key in self._DEVICE_KEYS:
+            if key not in out or (torch.is_tensor(out[key]) and out[key].device == self.device):
+                continue
+            a = out[key].numpy() if torch.is_tensor(out[key]) else np.asarray(out[key])
+            if self.quantize_audio and key in ("audio", "speech") and a.ndim == 2 and a.dtype == np.float32:
+                a = np.clip(a * 32768.0, -32768, 32767).astype(np.int16)
+            x = torch.from_numpy(np.ascontiguousarray(a))
+            if self.device.type == "cuda":
+                x = x.pin_memory().to(self.device, non_blocking=True)
+            out[key] = x
+        return out
+
+    def stream(self, batches: Iterable[Dict], nbest: bool = False) -> Iterator[Tuple[Dict, list]]:
+        """Decode an iterable of batches -> (batch on the device, results)
+        pairs, ``nbest`` or ``__call__`` results. A worker thread uploads
+        batch i + 1 while batch i decodes, as the JAX engine's does; on the
+        card the upload runs on a side stream, the decode stream waits on an
+        event recorded after it, and the uploaded tensors are marked as used
+        by the decode stream, so no copy races the decode that reads it."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        decode = self.nbest if nbest else self.__call__
+        it = iter(batches)
+        cuda = self.device.type == "cuda"
+        side = torch.cuda.Stream(self.device) if cuda else None
+
+        def upload(batch):
+            if batch is None or not cuda:
+                return (None if batch is None else self.device_put_batch(batch)), None
+            with torch.cuda.stream(side):
+                out = self.device_put_batch(batch)
+                done = torch.cuda.Event()
+                done.record(side)
+            return out, done
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            pending = pool.submit(upload, next(it, None))
+            while True:
+                cur, done = pending.result()
+                if cur is None:
+                    return
+                if cuda:
+                    main = torch.cuda.current_stream(self.device)
+                    main.wait_event(done)
+                    for key in self._DEVICE_KEYS:
+                        if torch.is_tensor(cur.get(key)):
+                            cur[key].record_stream(main)
+                pending = pool.submit(upload, next(it, None))  # overlaps this batch's decode
+                yield cur, decode(cur)
 
     @torch.inference_mode()
     def greedy(self, batch: Dict) -> List[str]:
         """CTC greedy decoding: one transcript per utterance of the batch."""
+        self._ensure_quantized()
         ids, lens = self.model.ctc_greedy(*self.inputs(batch))
         hyps = ctc_greedy_collapse(ids.cpu().numpy(), lens.cpu().numpy())
         return [

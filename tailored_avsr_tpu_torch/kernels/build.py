@@ -102,12 +102,12 @@ def load() -> ctypes.CDLL:
     lib.avsr_fused_csgu.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.avsr_fused_csgu.restype = i32
     # k, v, q, k_new, v_new, anc, out, partial, groups, heads, beam, lc, n_live, chunk, per,
-    # split, is_bf16, stream
-    lib.avsr_group_attend.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
+    # split, is_bf16, cache_type, stream
+    lib.avsr_group_attend.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
     lib.avsr_group_attend.restype = i32
     # k, k_scale, v, v_scale, q, k_new, v_new, anc, out, partial, groups, heads, beam, lc,
-    # n_live, chunk, per, split, is_bf16, stream
-    lib.avsr_group_attend_q.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
+    # n_live, chunk, per, split, is_bf16, cache_type, stream
+    lib.avsr_group_attend_q.argtypes = [ptr] * 10 + [i32] * 10 + [ptr]
     lib.avsr_group_attend_q.restype = i32
     # leaves (host table), n_leaves, max_rows, dk, cache_type, col_type, vec, stream
     lib.avsr_write_step_columns.argtypes = [ptr] + [i32] * 6 + [ptr]

@@ -50,6 +50,21 @@ def sos_eos_targets(model: nn.Module, text, text_lengths, generator=None):
     return add_sos_eos(text, model.sos, model.eos, model.ignore_id)
 
 
+def nll(model: nn.Module, enc_out: torch.Tensor, enc_lens: torch.Tensor, ys_pad: torch.Tensor,
+        ys_lens: torch.Tensor) -> torch.Tensor:
+    """Per-sequence negative log-likelihood (B,) of ``ys_pad`` (padded with
+    ``ignore_id`` past ``ys_lens``) under the attention decoder, sos / eos
+    added (``tailored_avsr_tpu/models/asr_model.py:232``): the rescoring
+    pass of the time-synchronous beam. Bound as ``ASRModel.nll`` and
+    ``AVSRModel.nll``."""
+    ys_in, ys_out = add_sos_eos(ys_pad, model.sos, model.eos, model.ignore_id)
+    memory_mask = make_valid_mask(enc_lens, enc_out.shape[1])
+    logp = torch.log_softmax(model.decoder(enc_out, memory_mask, ys_in, ys_lens + 1).float(), dim=-1)
+    valid = ys_out != model.ignore_id
+    tok_ll = torch.gather(logp, -1, torch.where(valid, ys_out, 0)[..., None].long())[..., 0]
+    return -(tok_ll * valid).sum(dim=-1)
+
+
 def hybrid_loss(model: nn.Module, enc_out, enc_lens, text, text_lengths, return_ctc_argmax: bool = False,
                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """``model``'s loss over its encoder output (f32) and its stats
@@ -176,6 +191,7 @@ class ASRModel(nn.Module):
         return self.ctc.log_softmax(enc_out), enc_lens
 
     def decoder_score_step(self, memory, memory_mask, ys, pos):
-        """The full-prefix decoder step; the port's beam steps through
-        ``score_step_anc`` instead, and this raises naming item 7."""
+        """The full-prefix decoder step (``TransformerDecoder.score_step``)."""
         return self.decoder.score_step(memory, memory_mask, ys, pos)
+
+    nll = nll

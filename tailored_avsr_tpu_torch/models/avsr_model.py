@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tailored_avsr_tpu_torch.models.asr_model import hybrid_loss, sos_eos_targets
+from tailored_avsr_tpu_torch.models.asr_model import hybrid_loss, nll, sos_eos_targets
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask, mask_lengths
 
 
@@ -159,3 +159,9 @@ class AVSRModel(nn.Module):
         """Best-path CTC ids (B, T) and encoder lengths (B,)."""
         enc_out, enc_lens, _ = self.encode(audio, audio_lengths, video, video_lengths)
         return self.ctc.argmax(enc_out), enc_lens
+
+    def decoder_score_step(self, memory, memory_mask, ys, pos):
+        """The full-prefix decoder step (``TransformerDecoder.score_step``)."""
+        return self.decoder.score_step(memory, memory_mask, ys, pos)
+
+    nll = nll

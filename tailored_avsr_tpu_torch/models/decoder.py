@@ -3,11 +3,21 @@
 
 Token embedding + absolute pos-enc -> N x (causal self-attention,
 cross-attention over the encoder memory, FFN), pre-norm, final LayerNorm and
-the vocabulary projection. Ported: the full forward, ``precompute_memory``,
-``init_cache_group`` (exact cache) and ``score_step_anc``, the step the
-label-synchronous beam runs. The other beam-step protocols raise, naming
-their ``ROADMAP.md`` item; the other layer variants are refused by
-``tasks/common.build_decoder_and_ctc``.
+the vocabulary projection. The full forward, ``precompute_memory`` and the
+beam steps of every cache protocol of the JAX engine: ``score_step_anc``
+over the never-reordered group cache (``init_cache_group``), the append
+protocol's ``score_step_append`` over a physically reordered (N, H, Lc,
+dk) cache (``init_cache``), whose in-scorer-write twin is
+``score_step_cached``, the length-segmented cache
+(``init_cache_seg``, ``score_step_cached_seg``, ``gather_cache_seg``) and
+the full-prefix recompute ``score_step``. The other layer variants are
+refused by ``tasks/common.build_decoder_and_ctc``.
+
+A group cache wider than the model (``cache_dtype: float32`` under a bf16
+model) makes the first self-attention's output f32, and, as flax promotes
+its inputs and kernels, the rest of the step then runs in f32 on the bf16
+weights: here through an f32 copy of the model made once
+(``widened``).
 
 ``MLMDecoder`` (Mask-CTC, ``decoder.py:682``) is the same stack with full
 self-attention among each sequence's valid tokens: a (B, L) key-side
@@ -16,12 +26,12 @@ validity mask in place of the causal one.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
 from torch import nn
 
-from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.ops.attention import MultiHeadedAttention
 from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
 from tailored_avsr_tpu_torch.ops.posenc import AbsolutePositionalEncoding
@@ -54,6 +64,39 @@ def group_cache(layers: int, b: int, beam: int, max_len: int, heads: int, dk: in
         def side():
             return torch.zeros(shape, dtype=dtype, device=device)
     return [(side(), side()) for _ in range(layers)]
+
+
+def widened(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """An eval-mode copy of ``module`` with its floating parameters in
+    ``dtype`` (the bf16 weights upcast exactly), kept beside it and made
+    again only when a parameter was replaced or written."""
+    key = tuple((p.data_ptr(), p._version) for p in module.parameters())
+    twins = module.__dict__.pop("_widened", {})  # not copied into the twin
+    try:
+        if twins.get(dtype, (None,))[0] != key:
+            with torch.inference_mode(False), torch.no_grad():  # plain tensors: kept across calls
+                twins[dtype] = (key, copy.deepcopy(module).to(dtype).eval())
+    finally:
+        module.__dict__["_widened"] = twins
+    return twins[dtype][1]
+
+
+def by_dtype(module: nn.Module):
+    """dtype -> ``module`` for inputs of its own dtype, else its ``widened``
+    copy (looked up once a call)."""
+    found = {module.dtype: module}
+
+    def get(dtype: torch.dtype) -> nn.Module:
+        if dtype not in found:
+            found[dtype] = widened(module, dtype)
+        return found[dtype]
+    return get
+
+
+def plain_cache(layers: int, n: int, max_len: int, heads: int, dk: int, dtype, device) -> list:
+    """Per-layer zero (K, V) caches (N, H, max_len, dk), rows N leading."""
+    return [tuple(torch.zeros((n, heads, max_len, dk), dtype=dtype, device=device) for _ in range(2))
+            for _ in range(layers)]
 
 
 def cache_width(cache) -> int:
@@ -121,14 +164,119 @@ class TransformerDecoder(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         return self.output_layer(self.after_norm(x))
 
-    def forward(self, memory, memory_mask, ys_in, ys_in_lengths) -> torch.Tensor:
-        """(B, T) tokens -> (B, T, V) logits, causal over each length."""
-        b, t = ys_in.shape
-        tgt_mask = causal_mask(b, t, ys_in_lengths, device=ys_in.device)
-        x = self.embed(ys_in)
+    @property
+    def dtype(self) -> torch.dtype:
+        """The parameters' floating dtype (LayerNorm weights are never quantised)."""
+        return self.after_norm.weight.dtype
+
+    def _embed_step(self, ys: torch.Tensor, pos: int, lc: int) -> torch.Tensor:
+        """The (N, 1, D) input of a beam step: token ``ys[:, pos - 1]`` (the
+        index clamped into the buffer) at position ``pos - 1``, in the
+        model's dtype (a bf16 embedding table under an f32 model:
+        ``AbsolutePositionalEncoding``)."""
+        p = min(max(pos - 1, 0), ys.shape[1] - 1)
+        x = self.embed[0](ys[:, p:p + 1])  # (N, 1, D)
+        return self.embed[1].at_position(x, pos - 1, lc, dtype=self.dtype)
+
+    def _run(self, ys, tgt_mask, memory, memory_mask) -> torch.Tensor:
+        x = self.embed[1](self.embed[0](ys), dtype=self.dtype)
         for layer in self.decoders:
             x = layer(x, tgt_mask, memory, memory_mask)
         return self._head(x)
+
+    def forward(self, memory, memory_mask, ys_in, ys_in_lengths) -> torch.Tensor:
+        """(B, T) tokens -> (B, T, V) logits, causal over each length."""
+        b, t = ys_in.shape
+        return self._run(ys_in, causal_mask(b, t, ys_in_lengths, device=ys_in.device), memory, memory_mask)
+
+    def score_step(self, memory, memory_mask, ys: torch.Tensor, pos: int) -> torch.Tensor:
+        """Log-probs (N, V) of the token at ``pos`` given ``ys[:, :pos]``: the
+        whole (N, L) buffer recomputed, the first ``pos`` tokens visible."""
+        b, t = ys.shape
+        mask = causal_mask(b, t, device=ys.device) & (torch.arange(t, device=ys.device) < pos)[None, None, :]
+        logits = self._run(ys, mask, memory, memory_mask)
+        return torch.log_softmax(logits[:, pos - 1], dim=-1)
+
+    def init_cache(self, n: int, max_len: int, dtype=torch.float32, *, device=None):
+        """Per-layer zero (K, V) caches (N, H, max_len, dk) for
+        ``score_step_cached`` / ``score_step_append``."""
+        device = device if device is not None else self.after_norm.weight.device
+        return plain_cache(len(self.decoders), n, max_len, self.heads, self.d_k, dtype, device)
+
+    def score_step_cached(self, mem_kv, memory_mask, ys: torch.Tensor, pos: int, cache):
+        """Beam step over (N, H, Lc, dk) caches that it writes itself at
+        column ``pos - 1`` (in place) -> ((N, V) f32 log-probs, the caches).
+        ``mem_kv``: per-layer (K, V) of the memory, N rows."""
+        lc = cache[0][0].shape[2]
+        x = self._embed_step(ys, pos, lc)
+        self_mask = (torch.arange(lc, device=ys.device) < pos)[None].expand(ys.shape[0], lc)
+        for layer, (mk, mv), (ck, cv) in zip(self.decoders, mem_kv, cache):
+            h = layer.norm1(x)
+            k_new, v_new = layer.self_attn.project_kv(h)  # (N, H, 1, dk)
+            ck[:, :, pos - 1] = k_new[:, :, 0].to(ck.dtype)
+            cv[:, :, pos - 1] = v_new[:, :, 0].to(cv.dtype)
+            x = x + layer.self_attn.attend_kv(h, ck, cv, self_mask)
+            h = layer.norm2(x)
+            x = x + layer.src_attn.attend_kv(h, mk, mv, memory_mask)
+            x = x + layer.feed_forward(layer.norm3(x))
+        return torch.log_softmax(self._head(x)[:, 0].float(), dim=-1), cache
+
+    def score_step_append(self, mem_kv, memory_mask, ys: torch.Tensor, pos: int, cache):
+        """Cache-read-only beam step (the append protocol) -> ((N, V) f32
+        log-probs, per-layer (k_new, v_new) (N, H, 1, dk) columns, which the
+        beam's reorder writes: ``decode/beam_search.insert_permute_rows``)."""
+        lc = cache[0][0].shape[2]
+        x = self._embed_step(ys, pos, lc)
+        cache_mask = (torch.arange(lc, device=ys.device) < pos - 1)[None].expand(ys.shape[0], lc)
+        new_kv = []
+        for layer, (mk, mv), (ck, cv) in zip(self.decoders, mem_kv, cache):
+            h = layer.norm1(x)
+            q, k_new, v_new = layer.self_attn.project_qkv(h)
+            x = x + layer.self_attn.attend_kv_append(h, ck, cv, k_new, v_new, cache_mask, q_heads=q)
+            h = layer.norm2(x)
+            x = x + layer.src_attn.attend_kv(h, mk, mv, memory_mask)
+            x = x + layer.feed_forward(layer.norm3(x))
+            new_kv.append((k_new, v_new))
+        return torch.log_softmax(self._head(x)[:, 0].float(), dim=-1), new_kv
+
+    def init_cache_seg(self, n: int, max_len: int, dtype=torch.float32, num_segments: int = 4, *,
+                       device=None):
+        """Per-layer (K segments, V segments): ``num_segments`` zero (N, H,
+        S, dk) tensors a side, S = ceil(max_len / num_segments)."""
+        device = device if device is not None else self.after_norm.weight.device
+        seg = -(-max_len // num_segments)
+        return [tuple(tuple(torch.zeros((n, self.heads, seg, self.d_k), dtype=dtype, device=device)
+                            for _ in range(num_segments)) for _ in range(2))
+                for _ in self.decoders]
+
+    @staticmethod
+    def gather_cache_seg(cache, g_src: torch.Tensor, pos: int):
+        """The beam reorder of a segmented cache: rows ``g_src`` of every
+        segment that starts before ``pos``; later segments, never written,
+        are kept as they are."""
+        seg = cache[0][0][0].shape[2]
+        return [tuple(tuple(x[g_src] if pos > i * seg else x for i, x in enumerate(side)) for side in layer)
+                for layer in cache]
+
+    def score_step_cached_seg(self, mem_kv, memory_mask, ys: torch.Tensor, pos: int, cache):
+        """``score_step_cached`` over a segmented cache: the step's column
+        goes into the segment that holds ``pos - 1`` (in place), and the
+        attend skips the segments at or past ``pos``. -> ((N, V) f32
+        log-probs, the caches)."""
+        seg = cache[0][0][0].shape[2]
+        x = self._embed_step(ys, pos, seg * len(cache[0][0]))
+        si, off = divmod(pos - 1, seg)
+        for layer, (mk, mv), (ks, vs) in zip(self.decoders, mem_kv, cache):
+            h = layer.norm1(x)
+            k_new, v_new = layer.self_attn.project_kv(h)
+            if si < len(ks):
+                ks[si][:, :, off] = k_new[:, :, 0].to(ks[si].dtype)
+                vs[si][:, :, off] = v_new[:, :, 0].to(vs[si].dtype)
+            x = x + layer.self_attn.attend_kv_segmented(h, ks, vs, pos, seg)
+            h = layer.norm2(x)
+            x = x + layer.src_attn.attend_kv(h, mk, mv, memory_mask)
+            x = x + layer.feed_forward(layer.norm3(x))
+        return torch.log_softmax(self._head(x)[:, 0].float(), dim=-1), cache
 
     def precompute_memory(self, memory: torch.Tensor):
         """Per-layer cross-attention (K, V), each (B, H, T, dk)."""
@@ -157,36 +305,24 @@ class TransformerDecoder(nn.Module):
     ):
         """Ancestry-cache beam step -> ((N, V) f32 log-probs of the token at
         ``pos``, per-layer (k_new, v_new) (N, H, 1, dk) columns to write)."""
-        n, l = ys.shape
         lc = cache_width(cache)
-        p = min(max(pos - 1, 0), l - 1)
-        x = self.embed[0](ys[:, p:p + 1])  # (N, 1, D)
-        x = self.embed[1].at_position(x, pos - 1, lc)
+        x = self._embed_step(ys, pos, lc)
         anc = anc_columns(anc, lc)
-        new_kv = []
-        for layer, (mk, mv), (ck, cv) in zip(self.decoders, mem_kv, cache):
+        at, new_kv = by_dtype(self), []
+        for i, ((mk, mv), (ck, cv)) in enumerate(zip(mem_kv, cache)):
+            layer = at(x.dtype).decoders[i]
             h = layer.norm1(x)
             q, k_new, v_new = layer.self_attn.project_qkv(h)  # (N, H, 1, dk)
             x = x + layer.self_attn.attend_kv_anc(ck, cv, k_new, v_new, anc, pos, beam, q,
                                                   width=width, fused=fused)
+            layer = at(x.dtype).decoders[i]  # f32 past a wider cache
             h = layer.norm2(x)
             x = x + layer.src_attn.attend_kv_mem_grouped(h, mk, mv, memory_mask, beam)
             h = layer.norm3(x)
             x = x + layer.feed_forward(h)
             new_kv.append((k_new, v_new))
-        return torch.log_softmax(self._head(x)[:, 0].float(), dim=-1), new_kv
-
-    def score_step(self, *args, **kwargs):
-        raise not_ported("TransformerDecoder.score_step (full-prefix recompute)", 7)
-
-    def score_step_cached(self, *args, **kwargs):
-        raise not_ported("TransformerDecoder.score_step_cached", 7)
-
-    def score_step_append(self, *args, **kwargs):
-        raise not_ported("TransformerDecoder.score_step_append (cache_protocol: append)", 7)
-
-    def score_step_cached_seg(self, *args, **kwargs):
-        raise not_ported("TransformerDecoder.score_step_cached_seg (cache_segments > 1)", 7)
+        logits = at(x.dtype)._head(x)
+        return torch.log_softmax(logits[:, 0].float(), dim=-1), new_kv
 
 
 class MLMDecoder(TransformerDecoder):
@@ -197,10 +333,7 @@ class MLMDecoder(TransformerDecoder):
         """(B, L) tokens -> (B, L, V) logits, every valid token seeing every
         valid token."""
         tgt_mask = torch.arange(ys_in.shape[1], device=ys_in.device)[None, :] < ys_in_lengths[:, None]
-        x = self.embed(ys_in)
-        for layer in self.decoders:
-            x = layer(x, tgt_mask, memory, memory_mask)
-        return self._head(x)
+        return self._run(ys_in, tgt_mask, memory, memory_mask)
 
 
 def anc_columns(anc: torch.Tensor, lc: int) -> torch.Tensor:

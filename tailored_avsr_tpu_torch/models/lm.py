@@ -9,6 +9,13 @@ FFN, pre-norm) -> LayerNorm -> vocabulary projection.
 Module names follow espnet's ``TransformerLM`` (the key grammar of the JAX
 export, less its ``lm.`` prefix): ``embed``, ``encoder.embed.{0,1}``,
 ``encoder.encoders.{i}``, ``encoder.after_norm``, ``decoder``.
+
+Beam steps of every cache protocol of the JAX engine, as the decoder's
+(``models/decoder.py``): ``score_step_anc`` over the group cache,
+``score_step_append`` and ``score_step_cached`` over an (N, H, Lc, dk)
+cache, and the full-prefix ``score_step`` that scores an LM left out of
+the decoder's scorer (``ctc_weight: 1.0``); ``nll`` the per-sequence
+negative log-likelihood for rescoring.
 """
 
 from __future__ import annotations
@@ -18,8 +25,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from tailored_avsr_tpu_torch import not_ported
-from tailored_avsr_tpu_torch.models.decoder import anc_columns, cache_width, causal_mask, group_cache
+from tailored_avsr_tpu_torch.models.decoder import (
+    anc_columns,
+    cache_width,
+    causal_mask,
+    by_dtype,
+    group_cache,
+    plain_cache,
+)
 from tailored_avsr_tpu_torch.ops.attention import MultiHeadedAttention
 from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
 from tailored_avsr_tpu_torch.ops.posenc import AbsolutePositionalEncoding
@@ -92,21 +105,99 @@ class TransformerLM(nn.Module):
         self.posenc = AbsolutePositionalEncoding(positional_dropout_rate) if pos_enc else None
         self.decoder = nn.Linear(att_unit, vocab_size, **kw)
 
-    def _embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Token ids -> att_unit features (embedding + input stack, no pos-enc)."""
+    @property
+    def dtype(self) -> torch.dtype:
+        """The parameters' floating dtype (LayerNorm weights are never quantised)."""
+        return self.encoder.after_norm.weight.dtype
+
+    def _embed_in(self, tokens: torch.Tensor, pos: Optional[int] = None, lc: int = 0) -> torch.Tensor:
+        """Token ids -> att_unit features with the pos-enc (at position
+        ``pos`` of a table of ``lc`` rows for a one-token step), in the
+        model's dtype (a bf16 embedding table under an f32 model:
+        ``AbsolutePositionalEncoding``)."""
         x = self.embed(tokens)
-        return self.encoder.embed(x) if self.encoder.embed is not None else x
+        if self.encoder.embed is not None:
+            x = self.encoder.embed(x.to(self.dtype))
+        if self.posenc is not None:
+            x = self.posenc(x, self.dtype) if pos is None else self.posenc.at_position(x, pos, lc, self.dtype)
+        return x.to(self.dtype)
+
+    def _run(self, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        x = self._embed_in(tokens)
+        for layer in self.encoder.encoders:
+            x = layer(x, mask)
+        return self.decoder(self.encoder.after_norm(x))
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """(B, T) token ids -> (B, T, V) next-token logits."""
         b, t = tokens.shape
-        mask = causal_mask(b, t, lengths, device=tokens.device)
-        x = self._embed_in(tokens)
-        if self.posenc is not None:
-            x = self.posenc(x)
-        for layer in self.encoder.encoders:
-            x = layer(x, mask)
-        return self.decoder(self.encoder.after_norm(x))
+        return self._run(tokens, causal_mask(b, t, lengths, device=tokens.device))
+
+    def score_step(self, ys: torch.Tensor, pos: int) -> torch.Tensor:
+        """f32 log-probs (N, V) of the token at ``pos`` given ``ys[:, :pos]``:
+        the whole (N, L) buffer recomputed, the first ``pos`` tokens visible."""
+        b, t = ys.shape
+        mask = causal_mask(b, t, device=ys.device) & (torch.arange(t, device=ys.device) < pos)[None, None, :]
+        return torch.log_softmax(self._run(ys, mask)[:, pos - 1].float(), dim=-1)
+
+    def _step_input(self, ys: torch.Tensor, pos: int, lc: int) -> torch.Tensor:
+        p = min(max(pos - 1, 0), ys.shape[1] - 1)
+        return self._embed_in(ys[:, p:p + 1], pos - 1, lc)
+
+    def init_cache(self, n: int, max_len: int, dtype=torch.float32, *, device=None):
+        """Per-layer zero (K, V) caches (N, H, max_len, dk) for
+        ``score_step_cached`` / ``score_step_append``."""
+        device = device if device is not None else self.decoder.weight.device
+        return plain_cache(len(self.encoder.encoders), n, max_len, self.heads, self.d_k, dtype, device)
+
+    def score_step_cached(self, ys: torch.Tensor, pos: int, cache):
+        """Beam step over (N, H, Lc, dk) caches that it writes itself at
+        column ``pos - 1`` (in place) -> ((N, V) f32 log-probs, the caches)."""
+        lc = cache[0][0].shape[2]
+        x = self._step_input(ys, pos, lc)
+        self_mask = (torch.arange(lc, device=ys.device) < pos)[None].expand(ys.shape[0], lc)
+        for layer, (ck, cv) in zip(self.encoder.encoders, cache):
+            h = layer.norm1(x)
+            k_new, v_new = layer.self_attn.project_kv(h)
+            ck[:, :, pos - 1] = k_new[:, :, 0].to(ck.dtype)
+            cv[:, :, pos - 1] = v_new[:, :, 0].to(cv.dtype)
+            x = x + layer.self_attn.attend_kv(h, ck, cv, self_mask)
+            x = x + layer.feed_forward(layer.norm2(x))
+        logits = self.decoder(self.encoder.after_norm(x))
+        return torch.log_softmax(logits[:, 0].float(), dim=-1), cache
+
+    def score_step_append(self, ys: torch.Tensor, pos: int, cache):
+        """Cache-read-only beam step (the append protocol) -> ((N, V) f32
+        log-probs, per-layer (k_new, v_new) (N, H, 1, dk) columns)."""
+        lc = cache[0][0].shape[2]
+        x = self._step_input(ys, pos, lc)
+        cache_mask = (torch.arange(lc, device=ys.device) < pos - 1)[None].expand(ys.shape[0], lc)
+        new_kv = []
+        for layer, (ck, cv) in zip(self.encoder.encoders, cache):
+            h = layer.norm1(x)
+            q, k_new, v_new = layer.self_attn.project_qkv(h)
+            x = x + layer.self_attn.attend_kv_append(h, ck, cv, k_new, v_new, cache_mask, q_heads=q)
+            x = x + layer.feed_forward(layer.norm2(x))
+            new_kv.append((k_new, v_new))
+        logits = self.decoder(self.encoder.after_norm(x))
+        return torch.log_softmax(logits[:, 0].float(), dim=-1), new_kv
+
+    def nll(self, tokens: torch.Tensor, lengths: torch.Tensor):
+        """Per-sequence (negative log-likelihood, token count) of (B, L)
+        sos/eos-free token rows padded with negatives past ``lengths``,
+        wrapped in sos / eos (both ``V - 1``) as espnet's LM does."""
+        eos = self.decoder.out_features - 1
+        b, l = tokens.shape
+        real = tokens >= 0
+        ys_in = torch.cat([torch.full((b, 1), eos, dtype=tokens.dtype, device=tokens.device),
+                           torch.where(real, tokens, eos)], dim=-1)
+        pos = torch.arange(l + 1, device=tokens.device)[None, :]
+        ys_out = torch.cat([torch.where(real, tokens, 0), torch.zeros_like(tokens[:, :1])], dim=-1)
+        ys_out = torch.where(pos == lengths[:, None], eos, ys_out)
+        valid = pos <= lengths[:, None]
+        logp = torch.log_softmax(self(ys_in, lengths + 1).float(), dim=-1)
+        tok_ll = torch.gather(logp, -1, ys_out[..., None].long())[..., 0]
+        return -(tok_ll * valid).sum(dim=-1), valid.sum(dim=-1)
 
     def init_cache_group(self, b: int, beam: int, max_len: int, dtype=torch.float32, *, device=None,
                          quantized: bool = False):
@@ -121,30 +212,19 @@ class TransformerLM(nn.Module):
                        width: Optional[int] = None, fused: Optional[bool] = None):
         """Ancestry-cache beam step -> ((N, V) f32 log-probs of the token at
         ``pos``, per-layer (k_new, v_new) (N, H, 1, dk) columns to write)."""
-        n, l = ys.shape
         lc = cache_width(cache)
-        p = min(max(pos - 1, 0), l - 1)
-        x = self._embed_in(ys[:, p:p + 1])
-        if self.posenc is not None:
-            x = self.posenc.at_position(x, pos - 1, lc)
+        x = self._step_input(ys, pos, lc)
         anc = anc_columns(anc, lc)
-        new_kv = []
-        for layer, (ck, cv) in zip(self.encoder.encoders, cache):
+        at, new_kv = by_dtype(self), []
+        for i, (ck, cv) in enumerate(cache):
+            layer = at(x.dtype).encoder.encoders[i]
             h = layer.norm1(x)
             q, k_new, v_new = layer.self_attn.project_qkv(h)
             x = x + layer.self_attn.attend_kv_anc(ck, cv, k_new, v_new, anc, pos, beam, q,
                                                   width=width, fused=fused)
-            h = layer.norm2(x)
-            x = x + layer.feed_forward(h)
+            layer = at(x.dtype).encoder.encoders[i]  # f32 past a wider cache
+            x = x + layer.feed_forward(layer.norm2(x))
             new_kv.append((k_new, v_new))
-        logits = self.decoder(self.encoder.after_norm(x))
+        head = at(x.dtype)
+        logits = head.decoder(head.encoder.after_norm(x))
         return torch.log_softmax(logits[:, 0].float(), dim=-1), new_kv
-
-    def score_step(self, *args, **kwargs):
-        raise not_ported("TransformerLM.score_step (full-prefix recompute)", 7)
-
-    def score_step_cached(self, *args, **kwargs):
-        raise not_ported("TransformerLM.score_step_cached", 7)
-
-    def score_step_append(self, *args, **kwargs):
-        raise not_ported("TransformerLM.score_step_append (cache_protocol: append)", 7)

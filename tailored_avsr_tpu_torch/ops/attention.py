@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import parametrize
 
 from tailored_avsr_tpu_torch.ops.masking import MASK_MIN
 
@@ -43,6 +44,16 @@ def _masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch
     m = mask[:, None, None, :] if mask.dim() == 2 else mask[:, None, :, :]
     attn = torch.softmax(scores.masked_fill(~m, MASK_MIN), dim=-1)
     return attn.masked_fill(~m, 0.0)
+
+
+def promoted_linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``m(x)`` computed in the wider of x's and m's types, as a flax Dense
+    promotes its input and kernel: a group attend over a cache wider than
+    the model (``cache_dtype: float32`` under bf16) returns f32."""
+    if x.dtype == m.weight.dtype:
+        return m(x)
+    dt = torch.promote_types(x.dtype, m.weight.dtype)
+    return F.linear(x.to(dt), m.weight.to(dt), None if m.bias is None else m.bias.to(dt))
 
 
 class MultiHeadedAttention(nn.Module):
@@ -94,9 +105,12 @@ class MultiHeadedAttention(nn.Module):
     def _qkv_params(self):
         """The concatenated q/k/v weight and bias, rebuilt only when a
         parameter was replaced or written in place (the beam loop calls this
-        every step)."""
-        params = [m.weight for m in (self.linear_q, self.linear_k, self.linear_v)]
-        params += [m.bias for m in (self.linear_q, self.linear_k, self.linear_v)]
+        every step). Quantised weights (``utils/quantize.py``) dequantise at
+        each access, and are concatenated each call."""
+        mods = (self.linear_q, self.linear_k, self.linear_v)
+        params = [m.weight for m in mods] + [m.bias for m in mods]
+        if any(parametrize.is_parametrized(m) for m in mods):
+            return torch.cat(params[:3]), torch.cat(params[3:])
         key = tuple((p.data_ptr(), p._version, p.dtype) for p in params)
         if self._qkv[0] != key:
             with torch.no_grad():
@@ -109,6 +123,74 @@ class MultiHeadedAttention(nn.Module):
         w, b = self._qkv_params()
         q, k, v = F.linear(x, w, b).chunk(3, dim=-1)
         return self._heads(q), self._heads(k), self._heads(v)
+
+    def attend_kv(self, query: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Single-query attention of (B, 1, D) inputs over cached (B, H, T, dk)
+        keys and values with a (B, T) key mask -> (B, 1, D)."""
+        q = self._heads(self.linear_q(query))  # (B, H, 1, dk)
+        scores = (q @ k.transpose(-2, -1)).float() / math.sqrt(self.d_k)
+        attn = _masked_softmax(scores, mask).to(v.dtype)
+        return self.linear_out(self._merge(attn @ v))
+
+    def attend_kv_append(
+        self,
+        query: torch.Tensor,  # (B, 1, D) single-step input
+        k: torch.Tensor,  # (B, H, T, dk) cached keys, the step's column not written
+        v: torch.Tensor,  # (B, H, T, dk) cached values
+        k_new: torch.Tensor,  # (B, H, 1, dk) this step's key column
+        v_new: torch.Tensor,  # (B, H, 1, dk) this step's value column
+        mask: Optional[torch.Tensor] = None,  # (B, T) cache-column validity
+        q_heads: Optional[torch.Tensor] = None,  # precomputed (B, H, 1, dk) query heads
+    ) -> torch.Tensor:
+        """Single-query attention over the cache plus the step's own column,
+        appended logically (the append protocol writes it afterwards, in the
+        beam's reorder: ``decode/beam_search.insert_permute_rows``) -> (B, 1, D)."""
+        q = q_heads if q_heads is not None else self._heads(self.linear_q(query))
+        scale = 1.0 / math.sqrt(self.d_k)
+        s_cache = (q @ k.transpose(-2, -1)).float() * scale  # (B, H, 1, T)
+        s_new = (q @ k_new.transpose(-2, -1)).float() * scale  # (B, H, 1, 1)
+        scores = torch.cat([s_cache, s_new], dim=-1)
+        if mask is not None:
+            mask = torch.cat([mask, torch.ones_like(mask[:, :1])], dim=-1)
+        attn = _masked_softmax(scores, mask).to(v.dtype)
+        out = attn[..., :-1] @ v + attn[..., -1:] * v_new
+        return self.linear_out(self._merge(out))
+
+    def attend_kv_segmented(self, query: torch.Tensor, k_segs, v_segs, pos: int, seg_len: int) -> torch.Tensor:
+        """Single-query attention over a length-segmented cache (sequences of
+        (B, H, S, dk) segments, rows < ``pos`` valid) by an online softmax
+        carried across the segments; a segment at or past ``pos`` is skipped
+        (a host ``if``: ``pos`` is a host integer). -> (B, 1, D), the
+        unsegmented attend's result up to the order of the sums."""
+        q = self._heads(self.linear_q(query))  # (B, H, 1, dk)
+        b, h = q.shape[:2]
+        scale = 1.0 / math.sqrt(self.d_k)
+        m = torch.full((b, h, 1, 1), MASK_MIN, device=q.device)
+        lsum = torch.zeros((b, h, 1, 1), device=q.device)
+        acc = torch.zeros((b, h, 1, self.d_k), device=q.device)
+        for si, (k, v) in enumerate(zip(k_segs, v_segs)):
+            lo = si * seg_len
+            if pos <= lo:
+                continue
+            s = (q @ k.transpose(-2, -1)).float() * scale  # (B, H, 1, S)
+            valid = (torch.arange(seg_len, device=q.device) + lo < pos)[None, None, None, :]
+            s = torch.where(valid, s, MASK_MIN)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new) * valid
+            corr = torch.exp(m - m_new)
+            lsum = lsum * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + (p.to(v.dtype) @ v).float()
+            m = m_new
+        out = (acc / torch.clamp(lsum, min=1e-30)).to(query.dtype)
+        return self.linear_out(self._merge(out))
+
+    def apply_scores(self, values: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+        """Project ``values`` (B, Tk, D) and weight them by precomputed
+        (B, H, Tq, Tk) attention scores -> (B, Tq, D), no output projection
+        (the Sim-T decoder's post-attention)."""
+        v = self._heads(self.linear_v(values))
+        return self._merge(self.dropout(scores.to(v.dtype)) @ v)
 
     def attend_kv_anc(
         self,
@@ -144,7 +226,7 @@ class MultiHeadedAttention(nn.Module):
         else:
             attend = ga.group_attend_anc_plain if fused is False else ga.group_attend_anc
         out = attend(*args, width=width)  # (B, H, beam, dk)
-        return self.linear_out(out.transpose(1, 2).reshape(n, 1, h * dk))
+        return promoted_linear(self.linear_out, out.transpose(1, 2).reshape(n, 1, h * dk))
 
     def attend_kv_mem_grouped(
         self,

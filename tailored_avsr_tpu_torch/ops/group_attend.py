@@ -16,6 +16,14 @@ the group layout: dense (K, dk) x (dk, K*Lc) products with a one-hot
 ancestry mask; the products round to the input dtype before the f32
 upcast, where the kernel sums in f32.
 
+K4 takes the cache in the queries' dtype or in the other float type
+(``cache_dtype`` other than the model's): a bf16 query over an f32 cache
+and an f32 query over a bf16 cache. Its output then is f32, the promoted
+type, as the JAX XLA form's is: the logits are products in the promoted
+type; the softmax weights round to the cache's dtype before they meet the
+cache's values (a bf16 product over a bf16 cache) and the step's own
+value column (then promoted), as ``ops/attention.py:357-364`` rounds them.
+
 K6 reads an int8 payload with one f32 scale per (b, h, j, t) column
 (``ops/kv_quant.py``): the key scale folds into the column's logit and the
 value scale into its softmax weight; the step's own column stays
@@ -29,11 +37,14 @@ the inputs and returns the launch's integers. A wrapper runs the plain
 version for CPU tensors only; for CUDA tensors it launches the kernel (and,
 when a group's ancestry takes several blocks, the kernel that combines
 their partial results) or raises. ``<wrapper>.launches`` counts the
-kernels launched, the combining kernel included.
+kernels launched, the combining kernel included; ``<wrapper>.combines``
+counts the combining launches alone, and ``group_attend_anc.pairs`` the
+group-attend launches by (query dtype, cache dtype).
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import Optional, Tuple
@@ -45,6 +56,7 @@ from tailored_avsr_tpu_torch.ops.kv_quant import dequantize_cache
 from tailored_avsr_tpu_torch.ops.masking import MASK_MIN
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # csrc/group_attend.cu
 _KERNEL_DK = 64  # the head size of the decoder and the LM
 _MAX_LC = 16384
 _MAX_BEAM = 64  # a warp a query, 10 warps a block taking the queries in turn
@@ -79,13 +91,15 @@ def group_attend_anc_plain(
     *,
     width: Optional[int] = None,
 ) -> torch.Tensor:
-    """The group attend as dense masked products -> (B, H, K, dk) in v's dtype."""
+    """The group attend as dense masked products -> (B, H, K, dk) in the
+    promoted type of q's and the cache's dtypes."""
     b, h, km, lc, dk = k.shape
     _check_width(width, lc)
     if width is not None and width < lc:
         k, v, lc = k[:, :, :, :width], v[:, :, :, :width], width
     scale = 1.0 / math.sqrt(dk)
-    s = torch.einsum("bhid,bhjtd->bhijt", q, k).float() * scale  # (B, H, i, j, t)
+    wide = torch.promote_types(q.dtype, k.dtype)
+    s = torch.einsum("bhid,bhjtd->bhijt", q.to(wide), k.to(wide)).float() * scale  # (B, H, i, j, t)
     slot = torch.arange(km, device=k.device)[None, None, None, :, None]
     live = (torch.arange(lc, device=k.device) < pos - 1)[None, None, None, None, :]
     valid = (anc[:, :, :lc][:, None, :, None, :] == slot) & live
@@ -161,8 +175,9 @@ def launch_shape(entry: str, k: torch.Tensor, v: torch.Tensor, scales: tuple, q:
         raise ValueError(f"{entry}: k must be (B, H, K, Lc, dk), got {tuple(k.shape)}")
     b, h, km, lc, dk = k.shape
     _check_width(width, lc)
-    if q.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{entry} kernel takes float32 or bfloat16 queries, got {q.dtype}")
+    if q.dtype not in _KERNEL_DTYPES or cache_dtype not in _KERNEL_DTYPES + (torch.int8,):
+        raise TypeError(f"{entry} kernel takes float32 or bfloat16 queries and caches (K6: int8), got "
+                        f"{q.dtype} queries over a {cache_dtype} cache")
     if dk != _KERNEL_DK:
         raise ValueError(f"{entry} kernel takes head dim {_KERNEL_DK}, got {dk}")
     if not 0 < lc <= _MAX_LC or b * h * km * lc > 2 ** 31 - 1:
@@ -182,14 +197,22 @@ def launch_shape(entry: str, k: torch.Tensor, v: torch.Tensor, scales: tuple, q:
             "per": per, "split": split}
 
 
+def out_dtype(q_dtype: torch.dtype, cache_dtype: torch.dtype) -> torch.dtype:
+    """The group attend's output dtype: the promoted type of the queries'
+    and a float cache's; the queries' over an int8 cache (K6)."""
+    return q_dtype if cache_dtype == torch.int8 else torch.promote_types(q_dtype, cache_dtype)
+
+
 def _launch(entry: str, k: torch.Tensor, v: torch.Tensor, scales: tuple, q: torch.Tensor,
             k_new: torch.Tensor, v_new: torch.Tensor, anc: torch.Tensor, shape: dict) -> torch.Tensor:
-    """Allocate the output and, when a group takes more than one block, the
-    (groups, split, K, 66) f32 partial triples, and launch ``entry`` as
-    ``shape`` (``launch_shape``'s integers) cuts the work."""
+    """Allocate the output (``out_dtype``) and, when a group takes more than
+    one block, the (groups, split, K, 66) f32 partial triples, and launch
+    ``entry`` as ``shape`` (``launch_shape``'s integers) cuts the work. The
+    ABI's type flags: the queries' (1 = bf16) and the cache's (0 f32, 1
+    bf16, 2 int8)."""
     from tailored_avsr_tpu_torch.kernels import build
 
-    out = torch.empty_like(v_new)
+    out = torch.empty(v_new.shape, dtype=out_dtype(q.dtype, k.dtype), device=v_new.device)
     partial = None
     if shape["split"] > 1:
         partial = torch.empty((shape["groups"], shape["split"], shape["beam"], _PARTIAL),
@@ -199,7 +222,8 @@ def _launch(entry: str, k: torch.Tensor, v: torch.Tensor, scales: tuple, q: torc
         err = getattr(build.load(), entry)(
             *ptr, None if partial is None else partial.data_ptr(),
             *(shape[x] for x in ("groups", "heads", "beam", "lc", "n_live", "chunk", "per", "split")),
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(k.device).cuda_stream,
+            int(q.dtype == torch.bfloat16), _CACHE_CODES[k.dtype],
+            torch.cuda.current_stream(k.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
@@ -217,18 +241,23 @@ def group_attend_anc(
     *,
     width: Optional[int] = None,
 ) -> torch.Tensor:
-    """K4: the group attend of ``group_attend_anc_plain`` -> (B, H, K, dk).
-    ``pos`` is a host integer."""
+    """K4: the group attend of ``group_attend_anc_plain`` -> (B, H, K, dk)
+    in ``out_dtype``. The cache is f32 or bf16, the queries' type or the
+    other one. ``pos`` is a host integer."""
     if not use_kernel(k, v, q, k_new, v_new, anc):
         return group_attend_anc_plain(k, v, q, k_new, v_new, anc, pos, width=width)
-    shape = launch_shape("avsr_group_attend", k, v, (), q, k_new, v_new, anc, pos, width, q.dtype,
+    shape = launch_shape("avsr_group_attend", k, v, (), q, k_new, v_new, anc, pos, width, k.dtype,
                          sms=_sm_count(k.device))
     out = _launch("avsr_group_attend", k, v, (), q, k_new, v_new, anc, shape)
     group_attend_anc.launches += 1 + (shape["split"] > 1)  # the combining kernel too
+    group_attend_anc.combines += shape["split"] > 1
+    group_attend_anc.pairs[q.dtype, k.dtype] += 1
     return out
 
 
 group_attend_anc.launches = 0
+group_attend_anc.combines = 0
+group_attend_anc.pairs = collections.Counter()
 
 
 def group_attend_anc_q_plain(
@@ -273,7 +302,9 @@ def group_attend_anc_q(
                          torch.int8, sms=_sm_count(k.device))
     out = _launch("avsr_group_attend_q", k, v, scales, q, k_new, v_new, anc, shape)
     group_attend_anc_q.launches += 1 + (shape["split"] > 1)
+    group_attend_anc_q.combines += shape["split"] > 1
     return out
 
 
 group_attend_anc_q.launches = 0
+group_attend_anc_q.combines = 0

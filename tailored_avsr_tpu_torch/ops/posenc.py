@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,24 +38,38 @@ def rel_pos_table(t: int, d_model: int) -> np.ndarray:
 
 
 class AbsolutePositionalEncoding(nn.Module):
-    """x * sqrt(d) + PE, then dropout."""
+    """x * sqrt(d) + PE, then dropout. sqrt(d) and PE are rounded to x's
+    dtype, as the JAX module takes them; ``dtype`` (default x's) is the
+    dtype the sum is computed and returned in: a bf16 embedding table
+    under an f32 model (``quantize_dtype: bfloat16``) sums in f32, as the
+    jitted JAX graph does once XLA drops the bf16 rounding its next f32
+    use would undo."""
 
     def __init__(self, dropout_rate: float = 0.1):
         super().__init__()
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         t, d = x.shape[-2], x.shape[-1]
+        dt = dtype or x.dtype
         pe = torch.from_numpy(abs_pos_table(t, d)).to(device=x.device, dtype=x.dtype)
-        return self.dropout(x * math.sqrt(d) + pe)
+        return self.dropout(x.to(dt) * _root(d, x.dtype) + pe.to(dt))
 
-    def at_position(self, x: torch.Tensor, pos: int, max_len: int) -> torch.Tensor:
+    def at_position(self, x: torch.Tensor, pos: int, max_len: int,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Single-step form: x (N, 1, D) at position ``pos`` of a table of
         ``max_len`` rows."""
         if not 0 <= pos < max_len:  # the JAX form clamps the index; a beam step never needs it
             raise IndexError(f"position {pos} outside a table of {max_len} rows")
-        d = x.shape[-1]
-        return x * math.sqrt(d) + _abs_table(max_len, d, x.device, x.dtype)[pos]
+        d, dt = x.shape[-1], dtype or x.dtype
+        return x.to(dt) * _root(d, x.dtype) + _abs_table(max_len, d, x.device, x.dtype)[pos].to(dt)
+
+
+@functools.lru_cache(maxsize=16)
+def _root(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to ``dtype`` (the JAX package multiplies by it
+    as an array of x's dtype: in bf16 sqrt(32) is 5.65625)."""
+    return float(torch.tensor(math.sqrt(d_model), dtype=torch.float64).to(dtype))
 
 
 @functools.lru_cache(maxsize=16)
@@ -74,4 +89,4 @@ class RelPositionalEncoding(nn.Module):
     def forward(self, x: torch.Tensor):
         t, d = x.shape[-2], x.shape[-1]
         pos = torch.from_numpy(rel_pos_table(t, d)).to(device=x.device, dtype=x.dtype)[None]
-        return self.dropout(x * math.sqrt(d)), self.dropout(pos)
+        return self.dropout(x * _root(d, x.dtype)), self.dropout(pos)

@@ -163,19 +163,24 @@ def torch_key_for(path: List[str], params_root: Dict) -> str:
     return ".".join(segs + [_LEAF_RENAME.get(leaf, leaf)])
 
 
+# torch axis i of a kernel holds flax axis _KERNEL_PERMS[ndim][i]
+_KERNEL_PERMS = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+
+
 def _from_flax(value: np.ndarray, leaf: str) -> np.ndarray:
     """A flax leaf in torch's layout."""
     v = np.asarray(value)
-    if leaf == "kernel":
-        if v.ndim == 2:
-            v = v.T
-        elif v.ndim == 3:
-            v = v.transpose(2, 1, 0)
-        elif v.ndim == 4:
-            v = v.transpose(3, 2, 0, 1)
-        elif v.ndim == 5:
-            v = v.transpose(4, 3, 0, 1, 2)
+    if leaf == "kernel" and v.ndim in _KERNEL_PERMS:
+        v = v.transpose(_KERNEL_PERMS[v.ndim])
     return v
+
+
+def torch_axis_of_flax_last(leaf: str, ndim: int) -> int:
+    """The torch axis that holds a flax ``leaf``'s last axis after
+    ``_from_flax`` (a kernel's output features; an embedding's width)."""
+    if leaf == "kernel" and ndim in _KERNEL_PERMS:
+        return _KERNEL_PERMS[ndim].index(ndim - 1)
+    return ndim - 1
 
 
 _LSTM_GATES = ("i", "f", "g", "o")  # torch's row order, the flax gate names

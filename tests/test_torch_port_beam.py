@@ -240,24 +240,6 @@ def test_lm_forward_and_score_step_anc(embed_unit, pos_enc):
     _walk_beam(jax_step, port_step, jax_write, port_write, 7, b, beam, 16, seed=9)
 
 
-def test_unported_steps_name_their_item():
-    from tailored_avsr_tpu_torch.decode import beam_search as bs
-    from tailored_avsr_tpu_torch.models.decoder import TransformerDecoder
-    from tailored_avsr_tpu_torch.models.lm import TransformerLM
-
-    dec = TransformerDecoder(5, 16, 2, 8, 1)
-    lm = TransformerLM(5, 16, 2, 8, 1)
-    for fn in (dec.score_step, dec.score_step_cached, dec.score_step_append,
-               dec.score_step_cached_seg, lm.score_step, lm.score_step_cached,
-               lm.score_step_append, bs.reorder_beam_rows, bs.insert_permute_rows):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn()
-    for kw in ({"att_state": {}}, {"ngram_part_fn": lambda *a: None}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            bs.beam_search(lambda *a: None, torch.zeros(1, 2, 3), torch.ones(1), 2, 2,
-                           bs.BeamSearchConfig(beam_size=2), **kw)
-
-
 @pytest.mark.parametrize("decoder,decoder_conf", [("sim_t", {}), ("transformer", {"use_output_layer": False})])
 def test_unported_decoders_name_item_8(decoder, decoder_conf):
     from tailored_avsr_tpu_torch.tasks.avsr import build_model
@@ -420,13 +402,11 @@ def test_speech2text_nbest_full_width_matches_jax():
 
 
 @pytest.mark.parametrize("conf,item", [
-    ({"cache_protocol": "append"}, 7), ({"cache_segments": 2}, 7), ({"cache_dtype": "bfloat16"}, 7),
-    ({"time_sync": True}, 7), ({"decode_mode": "timesync"}, 7), ({"ngram_file": "x.arpa"}, 7),
-    ({"quantize_asr_model": True}, 7), ({"data_parallel": True}, 9),
+    ({"data_parallel": True}, 9),
 ])
 def test_unported_inference_choices_name_their_item(conf, item):
-    """The f32 tiny config: ``cache_dtype: bfloat16`` there needs K4 with
-    mixed query and cache types, which is not ported."""
+    """The one ``inference_conf`` choice the port does not serve:
+    ``data_parallel`` (mesh decoding)."""
     from tailored_avsr_tpu_torch.inference import Speech2Text
 
     cfg = graft._flagship_cfg(tiny=True)

@@ -834,13 +834,13 @@ def test_cli_refusals_name_their_item(corpus, tmp_path, override, item):
 
 
 def test_cli_ngram_file_and_missing_card_raise(corpus, tmp_path):
+    """The CLI's default device is the card: without one it raises. (The
+    CLI with ``--ngram-file`` decodes: ``tests/test_torch_port_ngram_quantize.py``.)"""
     from tailored_avsr_tpu_torch import avsr_main
 
     csv_path, token_path = corpus
     cfg = _cli_config(tmp_path, token_path)
     args = _cli_args(cfg, csv_path, str(tmp_path / "exp"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        avsr_main.main(args + ["--ngram-file", "lm.arpa"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             avsr_main.main(args[:-2])  # the default device is the card
