@@ -175,10 +175,15 @@ def test_decoder_steps_match_jax_and_the_full_prefix(protocol):
     def full_p(ys, pos):
         return pm.score_step(t(mem_r), t(mm_r), ys, pos)
 
-    def jax_step(ys, pos):
+    full_j = jax.jit(lambda ys, pos: jm.apply(v, mem_r, mm_r, ys, pos, method="score_step"))
+    step_j = jax.jit(lambda ys, pos, cache: jm.apply(v, mem_kv_j, mm_r, ys, pos, cache, method=method))
+    insert_j = jax.jit(jbs.insert_permute_rows)
+    gather_j = jax.jit(J.gather_cache_seg)
+
+    def jax_step(ys, pos):  # jitted once: op by op, each lax.cond of the segments compiles
         if method is None:
-            return jm.apply(v, mem_r, mm_r, ys, jnp.asarray(pos), method="score_step")
-        lp, st["jn"] = jm.apply(v, mem_kv_j, mm_r, ys, jnp.asarray(pos), st["j"], method=method)
+            return full_j(ys, jnp.asarray(pos))
+        lp, st["jn"] = step_j(ys, jnp.asarray(pos), st["j"])
         return lp
 
     def port_step(ys, pos):
@@ -189,11 +194,11 @@ def test_decoder_steps_match_jax_and_the_full_prefix(protocol):
 
     def jax_reorder(src_bk, g_src, pos):
         if protocol == "append":
-            st["j"] = [(jbs.insert_permute_rows(ck, kn, jnp.asarray(src_bk), pos),
-                        jbs.insert_permute_rows(cv, vn, jnp.asarray(src_bk), pos))
+            st["j"] = [(insert_j(ck, kn, jnp.asarray(src_bk), jnp.asarray(pos)),
+                        insert_j(cv, vn, jnp.asarray(src_bk), jnp.asarray(pos)))
                        for (ck, cv), (kn, vn) in zip(st["j"], st["jn"])]
         elif segs:
-            st["j"] = J.gather_cache_seg(st["jn"], jnp.asarray(g_src), jnp.asarray(pos))
+            st["j"] = gather_j(st["jn"], jnp.asarray(g_src), jnp.asarray(pos))
         elif method:
             st["j"] = jax.tree_util.tree_map(lambda x: jbs.reorder_beam_rows(x, jnp.asarray(src_bk)), st["jn"])
 
@@ -241,10 +246,14 @@ def test_lm_steps_match_jax_and_the_full_prefix(protocol, embed_unit, pos_enc):
     st = {"j": jm.init_cache(n, lc), "p": pm.init_cache(n, lc)}
     method = {"full": None, "cached": "score_step_cached", "append": "score_step_append"}[protocol]
 
+    full_j = jax.jit(lambda ys, pos: jm.apply(v, ys, pos, method="score_step"))
+    step_j = jax.jit(lambda ys, pos, cache: jm.apply(v, ys, pos, cache, method=method))
+    insert_j = jax.jit(jbs.insert_permute_rows)
+
     def jax_step(ys, pos):
         if method is None:
-            return jm.apply(v, ys, jnp.asarray(pos), method="score_step")
-        lp, st["jn"] = jm.apply(v, ys, jnp.asarray(pos), st["j"], method=method)
+            return full_j(ys, jnp.asarray(pos))
+        lp, st["jn"] = step_j(ys, jnp.asarray(pos), st["j"])
         return lp
 
     def port_step(ys, pos):
@@ -255,8 +264,8 @@ def test_lm_steps_match_jax_and_the_full_prefix(protocol, embed_unit, pos_enc):
 
     def jax_reorder(src_bk, g_src, pos):
         if protocol == "append":
-            st["j"] = [(jbs.insert_permute_rows(ck, kn, jnp.asarray(src_bk), pos),
-                        jbs.insert_permute_rows(cv, vn, jnp.asarray(src_bk), pos))
+            st["j"] = [(insert_j(ck, kn, jnp.asarray(src_bk), jnp.asarray(pos)),
+                        insert_j(cv, vn, jnp.asarray(src_bk), jnp.asarray(pos)))
                        for (ck, cv), (kn, vn) in zip(st["j"], st["jn"])]
         elif method:
             st["j"] = jax.tree_util.tree_map(lambda x: jbs.reorder_beam_rows(x, jnp.asarray(src_bk)), st["jn"])
@@ -299,13 +308,16 @@ def test_step_over_a_group_cache_of_another_dtype(model):
         anc = rs.randint(0, beam, (n, lc)).astype(np.int32)
         ys = rs.randint(1, 9, (n, 9)).astype(np.int32)
 
-        def jax_step(dt):
-            cache = [tuple(x.astype(dt) for x in layer) for layer in values]
+        @jax.jit
+        def jstep(v, cache):
             if model == "decoder":
                 mem_kv = jm.apply(v, jnp.asarray(mem, model_dt), method="precompute_memory")
                 return jm.apply(v, mem_kv, mem_mask, ys, jnp.asarray(pos), cache, anc, beam,
                                 method="score_step_anc")
             return jm.apply(v, ys, jnp.asarray(pos), cache, anc, beam, method="score_step_anc")
+
+        def jax_step(dt, v=v, jstep=jstep):
+            return jstep(v, [tuple(x.astype(dt) for x in layer) for layer in values])
 
         want, new_j = jax_step(cache_dt)
         cache_p = [tuple(torch.from_numpy(np.array(x)).to(tdt) for x in layer) for layer in values]
@@ -350,13 +362,14 @@ def test_model_nll_and_decoder_score_step_match_jax():
     ys = rs.randint(1, 30, (3, 5)).astype(np.int32)
     ys_lens = np.array([5, 2, 0], np.int32)
     ys[np.arange(5)[None] >= ys_lens[:, None]] = -1
-    want = js.model.apply(js.variables, enc, lens, ys, ys_lens, method="nll")
+    want = jax.jit(lambda *a: js.model.apply(js.variables, *a, method="nll"))(enc, lens, ys, ys_lens)
     with torch.no_grad():
         got = ps.model.nll(t(enc), t(lens).long(), t(ys).long(), t(ys_lens).long())
     close(got, want)
     mask = np.arange(7)[None] < lens[:, None]
     buf = np.abs(ys).astype(np.int32)
-    want = js.model.apply(js.variables, enc, mask, buf, jnp.asarray(3), method="decoder_score_step")
+    want = jax.jit(lambda *a: js.model.apply(js.variables, *a, method="decoder_score_step"))(
+        enc, mask, buf, jnp.asarray(3))
     with torch.no_grad():
         close(ps.model.decoder_score_step(t(enc), t(mask), t(buf).long(), 3), want)
 
@@ -602,12 +615,14 @@ def test_speech2text_nbest_modes_match_jax(mode):
     group attend), the time-sync beam with decoder and LM rescoring on AVSR
     and ASR (``time_sync: true``), a CTC-only ASR model (which always takes
     it), and ``ctc_weight: 1.0`` with the LM scoring each full prefix.
-    The bf16 cache's scores are held within 1e-3: each step's f32 columns
+    The JAX engine runs one beam step a loop body (``unroll: 1``, which
+    the JAX package holds result-exact; the port ignores the key). The
+    bf16 cache's scores are held within 1e-3: each step's f32 columns
     (equal to ~1e-7 in the two packages) round to bf16, and a value that
     close to a rounding boundary lands one bf16 step (2^-8 relative) apart,
     which later steps' log-probs carry (3.6e-4 measured on scores of -30)."""
     kind, lm, conf = NBEST_MODES[mode]
-    conf = dict({"beam_size": 3, "nbest": 2}, **conf)
+    conf = dict({"beam_size": 3, "nbest": 2, "unroll": 1}, **conf)  # one step a JAX loop body: compiles faster
     if kind == "avsr":
         js, ps, batch = _engines("tiny", LM_TINY if lm else None, **conf)
     else:
@@ -622,7 +637,7 @@ def test_device_normalize_and_stream_match():
     clip and cast) and decodes to the JAX engine's n-best; ``stream`` over
     three batches gives the per-batch ``nbest`` and ``__call__`` results
     and passes the host keys through."""
-    js, ps, batch = _engines("tiny", None, beam_size=3, nbest=2, device_normalize=True)
+    js, ps, batch = _engines("tiny", None, beam_size=3, nbest=2, unroll=1, device_normalize=True)
     put_j, put_p = js.device_put_batch(batch), ps.device_put_batch(batch)
     assert put_p["audio"].dtype == torch.int16
     np.testing.assert_array_equal(put_p["audio"].numpy(), np.asarray(put_j["audio"]))
