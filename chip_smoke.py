@@ -87,8 +87,11 @@ Run from the repository root on a machine with one CUDA card:
    mode's ids equal to the eager path's; the full-prefix LM at
    ``ctc_weight: 1.0`` (8 x 4 s, one call); ``device_normalize`` with
    ``stream`` over four batches, equal to four ``nbest`` calls, with the
-   profiled overlap of its host-to-device copies with compute. Every
-   call's launches are asserted exactly. bf16 walls (median of five warm
+   profiled overlap of its host-to-device copies with compute; last, the
+   bf16 model over f32 caches with its weights and the LM's quantised
+   (``qint8``, then ``bfloat16`` storage), K4 on every cached layer (each
+   model's first on the bf16-query pair), held to its plain twin's
+   envelope. Every call's launches are asserted exactly. bf16 walls (median of three warm
    calls) and a profiled call's device busy ms and idle share per mode.
 9. Train path (``flagship_train_phase``, ``card_vs_cpu_phase``,
    ``learning_canary``): the flagship at full width with
@@ -143,10 +146,29 @@ Run from the repository root on a machine with one CUDA card:
    (ALSD, 198 steps), the f32 1-best held to the eager run by
    ``envelope_gate`` (scores within 1e-3; a near-tied swap of the top two
    passes with its margin printed). bf16 walls (five warm calls) and a
-   profiled call of each path. Then 16 training micro-steps of each
-   config (4 x 20 s, accum_grad 16: one update) in bf16 autocast: no
-   kernel, finite, every parameter moved, peak memory printed.
-12. Prints one JSON line of train numbers, one of the Branchformer
+   profiled call of each path; then the f32 transducer with
+   ``quantize_dtype: bfloat16`` at the config's ``quantize_min_size``:
+   greedy ids equal to the eager path's on the same quantised weights, the
+   beam's 1-best held to it by ``envelope_gate``. Then 16 training
+   micro-steps of each config (4 x 20 s, accum_grad 16: one update) in
+   bf16 autocast: no kernel, finite, every parameter moved, peak memory
+   printed.
+12. The rest of the recipe (``recipe_phase``), counts set to 0 first: the
+   16-layer LM trained by ``lm_main.main`` (2 epochs over 256 seeded
+   Spanish lines, batch 32: losses finite and falling, the average
+   written; step walls and peak memory), then served from its averaged
+   ``.pth`` beside the flagship (f32 beam 10 at request (a): K4 on 22
+   layers of every step, the step write once a step, 1-best held to the
+   plain group attend); the flagship micro-step at 4 x 20 s with and
+   without ``remat`` (loss within 1e-5, gradients' relative L2 gap within
+   1e-3, BatchNorm statistics equal, lower peak memory; walls and peaks,
+   and both peaks at 16 x 20 s); ``init: xavier_uniform`` and two
+   micro-steps; the fusion weights of ``study_adaptive_fusion`` at (b)
+   (K1, K3) and (a) (K2, K3), masks none and audio, bf16 and f32, against
+   the plain path (``FUSION_TOL``); ``get_val_accs`` over two seeded
+   checkpoints on a synthetic split and ``average_model --val-accs`` (the
+   mean of the two); ``compute_flops`` at (a) and (b).
+13. Prints one JSON line of train numbers, one of the Branchformer
    family's numbers, one of the Mask-CTC and transducer paths' numbers,
    one JSON line of per-kernel results (launches: K1-K3
    from the greedy path, K4, K5 (the step write) and K5' from the beam
@@ -154,8 +176,9 @@ Run from the repository root on a machine with one CUDA card:
    where no serving code may launch it; beside them the serving modes'
    launches and K4's mixed pairs' numbers, the train path's
    launches in its train steps and in its eval step, each
-   Branchformer path's and each Mask-CTC and transducer path's), then the
-   result line ``{"ok": true, "device": {...}}`` last.
+   Branchformer path's, each Mask-CTC and transducer path's, and the
+   recipe phase's), one of the recipe's numbers before it, then the result
+   line ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises, so the run exits non-zero and prints no result line.
 Nothing here imports JAX.
@@ -620,8 +643,11 @@ def beam_kernel_phases(device) -> dict:
                 if pos == 1 and not torch.equal(got, v_new):
                     raise AssertionError("K4: at pos 1 the output must be exactly v_new")
                 bound = _group_attend_bound(a, pos, width, 2 * dk * esize, (q, k_new, v_new, got), h, dtype)
+                library_ms = (_k4_library_ms(*args, got, f"{tag} {shape}")
+                              if h == 8 and pos == 53 and width is None else None)
                 r4 = _result(err, cold_time_ms(lambda: ga.group_attend_anc(*args, width=width)),
-                             cold_time_ms(lambda: ga.group_attend_anc_plain(*args, width=width)), bound)
+                             cold_time_ms(lambda: ga.group_attend_anc_plain(*args, width=width)), bound,
+                             library_ms)
                 # K6 over the int8 payload and its f32 column scales
                 qargs = (kq, ks, vq, vs, q, k_new, v_new, a, pos)
                 got = ga.group_attend_anc_q(*qargs, width=width)
@@ -685,6 +711,30 @@ def beam_kernel_phases(device) -> dict:
                 results["K5'", "bf16"] = r5p
     results["K5", "bf16"] = _step_write_phase(cu, gen, device)
     return results
+
+
+def _k4_library_ms(k, v, q, k_new, v_new, anc, pos: int, want, shape: str) -> float:
+    """K4's one-call yardstick, L2-cold: ``scaled_dot_product_attention``
+    of the (B, H, K, dk) queries over the group cache flattened to (B, H,
+    K*Lc, dk), the step's own column written first into column pos-1 of
+    each query's own slot (a column K4 never reads), and the ancestry test
+    ``anc[i, t] == j and t < pos-1`` (or the own column) as a boolean
+    mask; its output held to K4's by K4's tolerance."""
+    b, h, km, lc, dk = k.shape
+    kf, vf = k.clone(), v.clone()
+    kf[:, :, :, pos - 1], vf[:, :, :, pos - 1] = k_new, v_new
+    t, j = torch.arange(lc, device=k.device), torch.arange(km, device=k.device)
+    ancestry = (anc.long()[:, :, None, :] == j[None, None, :, None]) & (t < pos - 1)  # (B, i, j, t)
+    own = (j[:, None, None] == j[None, :, None]) & (t == pos - 1)
+    mask = (ancestry | own[None]).reshape(b, 1, km, km * lc)
+    kf, vf = kf.reshape(b, h, km * lc, dk), vf.reshape(b, h, km * lc, dk)
+
+    def library():
+        return F.scaled_dot_product_attention(q, kf, vf, attn_mask=mask)
+
+    _compare(f"K4 library yardstick (scaled_dot_product_attention, ancestry mask) {shape}", "group_attend",
+             library(), want)
+    return cold_time_ms(library)
 
 
 def _host_ms(fn, n: int = 50) -> float:
@@ -1590,14 +1640,9 @@ def _device_breakdown(prof, wall_ms: float) -> dict:
 def _set_kernels(model, on: bool) -> None:
     """Flash attention (K1/K2) and the fused cgMLP gate (K3) on or off in
     every layer (the eager path when off)."""
-    from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
-    from tailored_avsr_tpu_torch.ops.cgmlp import ConvolutionalSpatialGatingUnit
+    from tailored_avsr_tpu_torch.tasks.common import set_kernels
 
-    for m in model.modules():
-        if isinstance(m, RelPositionMultiHeadedAttention):
-            m.use_flash = on
-        elif isinstance(m, ConvolutionalSpatialGatingUnit):
-            m.use_fused = on
+    set_kernels(model, on)
 
 
 def _valid_ids(out) -> list:
@@ -2286,6 +2331,32 @@ def transducer_phase(device) -> dict:
     out["beam_a"] = call_profile(lambda: bf16.nbest(req_a), f"bf16 transducer beam {beam} (a) 32 x 4 s",
                                  host_events=False)
     out["beam_launches"] = _path_counts("transducer beam", ("K2", "K3"))
+
+    # bf16 weight storage at the config's own quantize_min_size (it picks the
+    # prediction network's embedding, whose bf16 rows meet the f32 LSTM):
+    # greedy and the beam through the kernels against the eager path on the
+    # same quantised weights
+    f32.quantize_asr_model, f32.quantize_dtype, f32._quantize_pending = True, "bfloat16", True
+    print(f"transducer with quantize_dtype: bfloat16 (quantize_min_size {f32.quantize_min_size}), f32 model, "
+          "request (a)")
+    _set_beam(f32, 1)
+    got, want = _kernel_vs_eager(f32, "bf16-stored transducer greedy (a)", lambda: f32.nbest(req_a), expect_a)
+    same = _ids(got) == _ids(want)
+    print(f"  bf16-stored transducer greedy (a): ids identical to the eager path: {same} "
+          f"({sum(len(i) for i in _ids(got))} tokens)")
+    if not same:
+        raise AssertionError("the bf16-stored transducer's greedy ids through the kernels differ from the eager path")
+    _set_beam(f32, beam)
+    hyp_k, hyp_e = _kernel_vs_eager(f32, f"bf16-stored transducer beam {beam} (a)", lambda: f32.nbest(req_a),
+                                    expect_a)
+    stable, bad = envelope_gate(hyp_k, [hyp_e], MT_ATOL)
+    _beam_margins(hyp_k, hyp_e)
+    equal = sum(g == w for g, w in zip(_ids(hyp_k), _ids(hyp_e)))
+    print(f"  bf16-stored transducer beam (a): 1-best equal to the eager path's on {equal}/32; "
+          f"{len(bad)} beyond the gate ({MT_ATOL:g} or 8 ulps, near-tied swaps allowed)")
+    if bad:
+        raise AssertionError("the bf16-stored transducer beam through the kernels disagrees with the eager path")
+    out["bf16_stored"] = {"greedy_tokens": sum(len(i) for i in _ids(got)), "beam_equal_1best": equal}
     return out
 
 
@@ -2500,10 +2571,67 @@ def _stream_check(engine, device) -> dict:
     return {"streamed_wall_ms": streamed, "per_batch_wall_ms": per_batch, **ov}
 
 
+def _plain_envelope(engine, req, name: str) -> list:
+    """The plain twin's runs for ``envelope_gate``: ``engine`` with the plain
+    group attend, un-noised and under NOISE_SEEDS (relative noise 1e-6 in
+    f32 on each step's new columns, which a cache of the other type
+    rounds)."""
+    from tailored_avsr_tpu_torch import inference as inf_mod
+
+    write = inf_mod.write_beam_step
+    with _engine_set(engine, fused_group_attend=False):
+        runs = [_mode_call(engine, f"{name}, plain group attend", req, 0)]
+        for seed in NOISE_SEEDS:
+            gen = torch.Generator(device=engine.device).manual_seed(seed)
+
+            def noisy(leaves, pos, gen=gen):
+                def jitter(x):
+                    return x.float() * (1 + 1e-6 * torch.randn(x.shape, generator=gen, device=x.device))
+                return write([(ck, cv, jitter(kn), jitter(vn)) for ck, cv, kn, vn in leaves], pos)
+
+            with mock.patch.object(inf_mod, "write_beam_step", noisy):
+                runs.append(_mode_call(engine, f"  plain + noise seed {seed}", req, 0))
+    return runs
+
+
+def _envelope_gate_k4(hyp, runs, what: str) -> None:
+    """``hyp`` (through K4) held to the plain twin's ``runs`` by
+    ``envelope_gate`` at SCORE_ATOL["K4 bf16 cache"]; the fixed gate's
+    reading printed beside it."""
+    _against_plain(hyp, runs[0], "K4 bf16 cache", f"{what} (fixed gate, printed)")
+    stable, bad = envelope_gate(hyp, runs, SCORE_ATOL["K4 bf16 cache"])
+    for u, reason in bad:
+        print(f"    utterance {u}: {reason}")
+    print(f"  {what} against the plain twin's envelope ({len(runs)} runs): {stable}/{len(hyp)} "
+          f"stable, {len(bad)} beyond the gate ({SCORE_ATOL['K4 bf16 cache']:g} or 8 ulps)")
+    if bad:
+        raise AssertionError(f"{what} falls outside the plain twin's envelope")
+
+
+def _quantized_f32_cache_phase(device, req, layers: int) -> dict:
+    """The bf16 model over f32 caches with its weights and the LM's
+    quantised (``qint8``, then ``bfloat16`` storage; ``quantize_min_size``
+    4096), nbest 2: K4 on every cached layer of every step (each model's
+    first layer on the bf16-query pair, past it f32, as flax promotes), held
+    to the plain twin's envelope; bf16 walls and a profiled call."""
+    out = {}
+    for qdtype in ("qint8", "bfloat16"):
+        engine = _beam_engine(device, "bfloat16", nbest=2, cache_dtype="float32", quantize_asr_model=True,
+                              quantize_lm=True, quantize_dtype=qdtype)
+        name = f"bf16 model, {qdtype} weights, f32 caches"
+        hyp = _mode_call(engine, f"{name} (first call)", req, layers,
+                         pairs={"bfloat16 q, float32 cache": 2, "float32 q, float32 cache": layers - 2})
+        _envelope_gate_k4(hyp, _plain_envelope(engine, req, name), f"{name}, K4")
+        out[qdtype] = call_profile(lambda: engine.nbest(req), f"bf16 {name}", repeats=3, host_events=False)
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
 def serving_modes_phase(device) -> tuple:
     """Every decode mode of the engine at full width (flagship + 16-layer
     LM, beam 10, request (a) unless named), counts set to 0 first; bf16
-    walls (median of 5 warm calls) and a profiled call of each mode; the
+    walls (median of 3 warm calls) and a profiled call of each mode; the
     f32 gates. Returns (numbers, the path's launch counts)."""
     import dataclasses as dc
 
@@ -2521,7 +2649,7 @@ def serving_modes_phase(device) -> tuple:
     walls = {}
 
     def wall(name, engine, batch=req):
-        walls[name] = call_profile(lambda: engine.nbest(batch), f"bf16 {name}", host_events=False)
+        walls[name] = call_profile(lambda: engine.nbest(batch), f"bf16 {name}", repeats=3, host_events=False)
 
     print(f"serving modes: flagship + 16-layer LM, beam 10, request (a) 32 x 4 s ({layers} cached layers)")
     _reset_counts()
@@ -2534,29 +2662,7 @@ def serving_modes_phase(device) -> tuple:
         wall("anc, f32 caches", bf16)
     with _engine_set(f32, cache_dtype=torch.bfloat16):
         hyp = _mode_call(f32, "f32 model, bf16 caches", req, layers, pairs={"float32 q, bfloat16 cache": layers})
-        with _engine_set(f32, fused_group_attend=False):
-            plain = _mode_call(f32, "f32 model, bf16 caches, plain group attend", req, 0)
-            runs = [plain]
-            from tailored_avsr_tpu_torch import inference as inf_mod
-            write = inf_mod.write_beam_step
-            for seed in NOISE_SEEDS:
-                gen = torch.Generator(device=device).manual_seed(seed)
-
-                def noisy(leaves, pos, gen=gen):  # relative noise 1e-6 on the columns the bf16 cache rounds
-                    def jitter(x):
-                        return x * (1 + 1e-6 * torch.randn(x.shape, generator=gen, device=x.device))
-                    return write([(ck, cv, jitter(kn), jitter(vn)) for ck, cv, kn, vn in leaves], pos)
-
-                with mock.patch.object(inf_mod, "write_beam_step", noisy):
-                    runs.append(_mode_call(f32, f"  plain + noise seed {seed}", req, 0))
-    _against_plain(hyp, plain, "K4 bf16 cache", "f32 K4 over bf16 caches (fixed gate, printed)")
-    stable, bad = envelope_gate(hyp, runs, SCORE_ATOL["K4 bf16 cache"])
-    for u, reason in bad:
-        print(f"    utterance {u}: {reason}")
-    print(f"  f32 K4 over bf16 caches against the plain twin's envelope ({len(runs)} runs): {stable}/{len(hyp)} "
-          f"stable, {len(bad)} beyond the gate ({SCORE_ATOL['K4 bf16 cache']:g} or 8 ulps)")
-    if bad:
-        raise AssertionError("f32 K4 over bf16 caches falls outside the plain twin's envelope")
+        _envelope_gate_k4(hyp, _plain_envelope(f32, req, "f32 model, bf16 caches"), "f32 K4 over bf16 caches")
 
     # cache protocols: append and segmented against the ancestry protocol (f32)
     anc = _mode_call(f32, "f32 anc", req, layers)
@@ -2631,16 +2737,385 @@ def serving_modes_phase(device) -> tuple:
         raise AssertionError("the quantised leaves are not a quarter of their f32 bytes on the card")
     _same_ids(got, _eager_run(qf32, "f32 qint8 weights", req), "f32 qint8 weights, kernels vs eager")
     out["qint8_payload_mib"] = q_bytes / 2 ** 20
+    del bf16, f32, qbf16, qf32
+    torch.cuda.empty_cache()
+    # quantised weights on the bf16 model over f32 caches: dequantised once a
+    # call, the f32 copy of each model made from the dequantised weights
+    walls["quantised, bf16 model, f32 caches"] = _quantized_f32_cache_phase(device, req, layers)
     launches = _counts()
     print(f"  launches over the serving modes: {launches}")
     if min(launches[k] for k in ("K2", "K3", "K4", "K5")) <= 0:
         raise AssertionError(f"a kernel of the serving modes never launched: {launches}")
-    del bf16, f32, qbf16, qf32
-    torch.cuda.empty_cache()
     out["walls"] = walls
     return out, launches
 
 
+
+# ------------------------------------------------------------------ recipe
+#
+# The rest of the paper's recipe at full width, seeded weights and data:
+# the 16-layer LM trained by ``lm_main`` and served through the beam (K4,
+# the step write), ``remat`` and a config ``init`` in the flagship's train
+# step, ``study_adaptive_fusion`` (K1 or K2, and K3), ``get_val_accs`` with
+# ``average_model``, and ``compute_flops``. Readings: PERF.md.
+RECIPE_LOSS_ATOL = 1e-5  # remat against the plain micro-step: the same forward
+# gradients' relative L2 gap: CUDA's ctc_loss and cuDNN's backward add in a
+# run-dependent order (PERF.md section 7)
+RECIPE_GRAD_RTOL = 1e-3
+# fusion weights through the kernels vs the plain path, (atol, rtol): f32
+# 1e-4; a bf16 weight is a softmax output rounded to bf16 (a step of 2^-8,
+# 3.9e-3, at weights in [0.5, 1)) after twelve layers whose bf16 attention
+# kernels are held to their plain versions at TOL's bf16 attention
+# tolerance, which holds the weights too; the counts beyond 2e-3 and beyond
+# one bf16 step are printed
+FUSION_TOL = {"bfloat16": TOL[("attention", torch.bfloat16)], "float32": (1e-4, 0.0)}
+
+
+def _bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp(min=2.0 ** -126))) - 7)
+_SPANISH_WORDS = ("EL", "LA", "DE", "QUE", "Y", "EN", "UN", "UNA", "LOS", "LAS", "POR", "CON", "PARA", "COMO",
+                  "PERO", "MAS", "TODO", "ESTE", "OTRO", "CUANDO", "MUY", "SIN", "TIEMPO", "CASA", "DÍA", "AÑO",
+                  "NIÑO", "MAÑANA", "CIUDAD", "GOBIERNO", "PAÍS", "MUNDO", "VIDA", "HOMBRE", "MUJER", "PARTE",
+                  "AQUÍ", "TAMBIÉN", "DESPUÉS", "SIEMPRE", "NUNCA", "AHORA", "HABLAR", "ESCRIBIR", "CAMINO")
+
+
+class _GradRecorder:
+    """An optimizer stand-in for the train step: keeps the first micro-step's
+    gradients on the host and clears them, as ``Optimizer.step`` does."""
+
+    def __init__(self, model):
+        self.model, self.grads, self.acc = model, None, None
+
+    def step(self):
+        if self.grads is None:
+            self.grads = {n: p.grad.detach().cpu() for n, p in self.model.named_parameters() if p.grad is not None}
+        self.model.zero_grad(set_to_none=True)
+
+
+def _spanish_lines(rs, n: int, lo: int = 80, hi: int = 200) -> list:
+    """``n`` lines of seeded Spanish words, each ``lo``-``hi`` characters."""
+    lines = []
+    for _ in range(n):
+        target, words = rs.randint(lo, hi + 1), []
+        while len(" ".join(words)) < target:
+            words.append(_SPANISH_WORDS[rs.randint(len(_SPANISH_WORDS))])
+        lines.append(" ".join(words)[:hi].strip())
+    return lines
+
+
+def _lm_trainer(device, tmp: str) -> tuple:
+    """``lm_main.main`` on the card: the 16-layer 512-d LM of
+    ``configs/LM/lm-spanish.yaml``, 2 epochs over 256 lines (64 seeded
+    Spanish lines of 80-200 characters, four times), batch 32, Noam warmup
+    100; each train step timed. Returns (numbers, the averaged .pth)."""
+    from tailored_avsr_tpu_torch import lm_main
+
+    path = os.path.join(tmp, "text.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(_spanish_lines(np.random.RandomState(70), 64) * 4) + "\n")
+    walls = []
+    make = lm_main.make_lm_train_step
+
+    def timed_make(lm, optimizer, generator):
+        step = make(lm, optimizer, generator)
+
+        def timed(tokens, lengths):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(tokens, lengths)
+            float(loss)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            return loss
+        return timed
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(lm_main, "make_lm_train_step", timed_make):
+        res = lm_main.main(["--config-file", LM_CONFIG, "--training-dataset", path, "--output-dir",
+                            os.path.join(tmp, "lm_exp"), "--device", "cuda", "--yaml-overrides",
+                            "training_settings:epochs:2", "training_settings:average_epochs:2",
+                            "training_settings:warmup_steps:100",
+                            f"token_list:{os.path.join(ROOT, 'tokenizers/char/spanish.txt')}"])
+    peak = torch.cuda.max_memory_allocated()
+    losses, ppl = res["losses"], res["ppl"]
+    warm = walls[1:]
+    out = {"epoch_losses": losses, "val_ppl": ppl, "steps": len(walls), "step_ms_median": float(np.median(warm)),
+           "step_ms_min": float(min(warm)), "step_ms_max": float(max(warm)), "peak_bytes": int(peak)}
+    print(f"  LM trainer: {len(walls)} steps of 32 lines, epoch losses {losses}, val ppl {ppl}; warm step ms "
+          f"median {out['step_ms_median']:.1f} (min {out['step_ms_min']:.1f}, max {out['step_ms_max']:.1f}); "
+          f"torch.cuda.max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or not os.path.exists(res["average"]):
+        raise AssertionError(f"the LM trainer's losses {losses} are not finite and falling, or no average")
+    return out, res["average"]
+
+
+def _trained_lm_beam(device, lm_path: str) -> dict:
+    """The averaged LM in ``Speech2Text`` beside the flagship: beam 10 at
+    request (a) in f32, K4 on all 22 cached layers of every step and the
+    step write once a step (the trained LM lets the early exit end the
+    search before 100 steps), its 1-best held to the plain group
+    attend's."""
+    from tailored_avsr_tpu_torch.ops import cache_update as cu
+
+    req = _request(1, 32, 4)
+    engine = _beam_engine(device, "float32", nbest=2)
+    engine.load_lm_checkpoint(lm_path)
+    layers = len(engine.model.decoder.decoders) + len(engine.lm.encoder.encoders)
+    steps = cu.write_step_columns.launches
+    hyp = _mode_call(engine, "f32 beam 10 + the trained LM (a) 32 x 4 s", req, layers)
+    steps = cu.write_step_columns.launches - steps
+    with _engine_set(engine, fused_group_attend=False):
+        plain = _mode_call(engine, "f32 beam 10 + the trained LM (a), plain group attend", req, 0)
+    _held_against_plain(hyp, plain, "K4")
+    bf16 = _beam_engine(device, "bfloat16")
+    bf16.load_lm_checkpoint(lm_path)
+    out = {"bf16_wall_ms": nbest_walls(bf16, req, "bf16 beam 10 + the trained LM (a)"),
+           "f32_steps": steps, "k4_launches": layers * steps, "sample_1best": hyp[0][0][0][:60]}
+    del engine, bf16
+    torch.cuda.empty_cache()
+    return out
+
+
+def _remat_step_runs(cfg, tokens, device, batch, remat: bool, steps: int) -> dict:
+    """``steps`` micro-steps (bf16 autocast) of a freshly seeded model on one
+    batch, the optimizer a ``_GradRecorder``: the first step's loss and
+    gradients, the BatchNorm statistics after, peak memory, warm walls."""
+    from tailored_avsr_tpu_torch.tasks.avsr import build_model
+    from tailored_avsr_tpu_torch.train.loop import TrainState, make_train_step
+
+    model = build_model(cfg, tokens, generator=torch.Generator().manual_seed(0), device=device,
+                        dtype=torch.float32)
+    rec = _GradRecorder(model)
+    state = TrainState(step=0, model=model, optimizer=rec, schedule=None, generator=torch.Generator().manual_seed(7))
+    step = make_train_step(torch.bfloat16, remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(state, batch)[1]["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out = {"loss": losses[0], "grads": rec.grads, "peak_bytes": int(torch.cuda.max_memory_allocated()),
+           "walls": walls, "bn": {k: v.detach().cpu() for k, v in model.state_dict().items() if "running" in k}}
+    del model, rec, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _remat_check(device) -> dict:
+    """The flagship micro-step at 4 x 20 s in bf16 autocast, ``remat`` off
+    then on from the same weights and seed: loss within RECIPE_LOSS_ATOL,
+    gradients' relative L2 gap within RECIPE_GRAD_RTOL, BatchNorm
+    statistics equal, peak memory lower with ``remat``; then both at
+    16 x 20 s for their peak memory."""
+    from tailored_avsr_tpu_torch.inference import load_token_list
+
+    cfg = _flagship_train_cfg()
+    tokens = load_token_list(cfg.token_list)
+    batch = _train_batch(80, 4, 20, len(tokens), (250, 300), device)
+    plain = _remat_step_runs(cfg, tokens, device, batch, False, 4)
+    remat = _remat_step_runs(cfg, tokens, device, batch, True, 4)
+    num = sum(float((remat["grads"][k] - g).double().pow(2).sum()) for k, g in plain["grads"].items())
+    den = sum(float(g.double().pow(2).sum()) for g in plain["grads"].values())
+    gap = (num / den) ** 0.5
+    bn_equal = all(torch.equal(remat["bn"][k], v) for k, v in plain["bn"].items())
+    d_loss = abs(remat["loss"] - plain["loss"])
+    out = {"loss_diff": d_loss, "grad_rel_l2": gap, "bn_equal": bn_equal}
+    for name, r in (("plain", plain), ("remat", remat)):
+        out[name] = {"peak_bytes": r["peak_bytes"], "step_ms_median": float(np.median(r["walls"][1:]))}
+    print(f"  remat vs plain micro-step (flagship, 4 x 20 s, bf16 autocast): loss {remat['loss']:.6f} vs "
+          f"{plain['loss']:.6f} (|diff| {d_loss:.2e}, tol {RECIPE_LOSS_ATOL:g}); gradients' relative L2 gap "
+          f"{gap:.3e} (tol {RECIPE_GRAD_RTOL:g}); BatchNorm statistics equal: {bn_equal}")
+    print(f"  peak memory plain {plain['peak_bytes'] / 2 ** 30:.2f} GiB, remat {remat['peak_bytes'] / 2 ** 30:.2f} "
+          f"GiB; warm micro-step ms median plain {out['plain']['step_ms_median']:.1f}, remat "
+          f"{out['remat']['step_ms_median']:.1f}")
+    if d_loss > RECIPE_LOSS_ATOL or gap > RECIPE_GRAD_RTOL or not bn_equal:
+        raise AssertionError("the remat micro-step disagrees with the plain one")
+    if remat["peak_bytes"] >= plain["peak_bytes"]:
+        raise AssertionError("remat did not lower the micro-step's peak memory")
+    big = _train_batch(81, 16, 20, len(tokens), (250, 300), device)
+    for name, on in (("plain", False), ("remat", True)):
+        r = _remat_step_runs(cfg, tokens, device, big, on, 1)
+        out[f"{name}_16x20s_peak_bytes"] = r["peak_bytes"]
+        print(f"  {name} micro-step at 16 x 20 s: {r['walls'][0]:.1f} ms (first call), peak memory "
+              f"{r['peak_bytes'] / 2 ** 30:.2f} GiB; loss {r['loss']:.3f}")
+        if not np.isfinite(r["loss"]):
+            raise AssertionError(f"the {name} micro-step at 16 x 20 s is not finite")
+    return out
+
+
+def _init_check(device) -> dict:
+    """The flagship built under ``init: xavier_uniform`` on the card (the
+    seeded init, then ``initialize`` as ``avsr_main`` applies it): two
+    micro-steps, finite."""
+    from tailored_avsr_tpu_torch.train.loop import make_train_step
+    from tailored_avsr_tpu_torch.utils.initialize import initialize, scheme_std
+
+    cfg = _flagship_train_cfg()
+    cfg.init = "xavier_uniform"
+    state, tokens = _train_state(cfg, device, seed=3)
+    initialize(state.model, cfg.init, torch.Generator().manual_seed(3))
+    w = state.model.decoder.decoders[0].feed_forward.w_1.weight.detach()
+    std, want = float(w.std()), scheme_std(cfg.init, w.shape[1], w.shape[0])
+    batch = _train_batch(82, 4, 20, len(tokens), (250, 300), device)
+    losses = _train_micro_steps(state, make_train_step(torch.bfloat16), [batch], 1, 2)
+    print(f"  init {cfg.init}: a decoder FFN kernel's std {std:.5f} (scheme {want:.5f}); two micro-steps, losses "
+          f"{losses[0]:.3f}, {losses[1]:.3f}, finite")
+    if abs(std / want - 1) > 0.05:
+        raise AssertionError(f"init {cfg.init} did not redraw the kernels")
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ffn_kernel_std": std}
+
+
+def _fusion_check(device) -> dict:
+    """``study_adaptive_fusion``'s forward on the flagship, bf16 and f32,
+    through the kernels at (b) 24 x 20 s (K1 19, K3 5 a call) and (a) 32 x 4
+    s (K2 19, K3 5), masks none and audio, against the plain path (kernels
+    off) on the same inputs: FUSION_TOL."""
+    from tailored_avsr_tpu_torch import study_adaptive_fusion as saf
+
+    out = {}
+    shapes = (("(b) 24 x 20 s", _request(2, 24, 20), {"K1": 19, "K3": 5}),
+              ("(a) 32 x 4 s", _request(1, 32, 4), {"K2": 19, "K3": 5}))
+    for dtype in ("bfloat16", "float32"):
+        engine = _greedy_engine(device, dtype, True)
+        for name, req, expect in shapes:
+            for mask in ("none", "audio"):
+                args = engine.inputs(saf.masked(req, mask))
+                what = f"{dtype} fusion weights {name}, mask {mask}"
+                got = _exact_call(what, lambda: saf.fusion_weights(engine.model, *args), expect)
+                _set_kernels(engine.model, False)
+                try:
+                    want = _exact_call(f"{what}, plain path", lambda: saf.fusion_weights(engine.model, *args), {})
+                finally:
+                    _set_kernels(engine.model, True)
+                atol, rtol = FUSION_TOL[dtype]
+                d = {k: (got[k].float() - want[k].float()).abs() for k in got}
+                diff = max(float(v.max()) for v in d.values())
+                over = sum(int((d[k] > atol + rtol * want[k].float().abs()).sum()) for k in d)
+                mean = float(got["acoustic_weight"].float().mean())
+                print(f"    max |weight diff| {diff:.3e} (tol {atol:g} + {rtol:g} |w|: {over} beyond; beyond 2e-3: "
+                      f"{sum(int((v > 2e-3).sum()) for v in d.values())}, beyond one bf16 step: "
+                      f"{sum(int((d[k] > _bf16_step(want[k])).sum()) for k in d)} of {2 * d['acoustic_weight'].numel()}); "
+                      f"mean acoustic weight {mean:.4f}")
+                if over:
+                    raise AssertionError(f"{what}: the kernels' fusion weights differ from the plain path's")
+                out[f"{dtype} {name} {mask}"] = {"max_diff": diff, "mean_acoustic_weight": mean}
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def _synthetic_split(root: str, tokens: list, n: int = 8) -> str:
+    """A split CSV of ``n`` seeded utterances of 2-4 s (int16 WAV at 16 kHz,
+    96x96 lip crops in an .npz, one-line Spanish transcripts), written with
+    ``csv`` (the card's machine has no pandas)."""
+    import csv
+
+    from scipy.io import wavfile
+
+    rs = np.random.RandomState(90)
+    rows = []
+    for i in range(n):
+        frames = rs.randint(50, 101)
+        paths = {k: os.path.join(root, f"s{i}.{ext}") for k, ext in (("wav", "wav"), ("lips", "npz"), ("txt", "txt"))}
+        wavfile.write(paths["wav"], 16000, np.clip(rs.randn(frames * 640) * 3000, -32768, 32767).astype(np.int16))
+        np.savez(paths["lips"], data=(rs.rand(frames, 96, 96) * 250).astype(np.float32))
+        with open(paths["txt"], "w", encoding="utf-8") as f:
+            f.write(_spanish_lines(rs, 1, 10, 40)[0] + "\n")
+        rows.append({"database": "synthetic", "sampleID": f"s{i}", "nframes": frames, "wav_path": paths["wav"],
+                     "lips_path": paths["lips"], "transcription_path": paths["txt"], "delimiter": ",",
+                     "text_enc": "utf-8"})
+    path = os.path.join(root, "split.csv")
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    return path
+
+
+def _val_accs_check(device, tmp: str) -> dict:
+    """Two seeded flagship checkpoints decoded over a synthetic split by
+    ``get_val_accs`` on the card (``Speech2Text.stream``, the config's beam
+    10, K1-K3 on), then ``average_model --val-accs --top-k 2``: the mean of
+    the two state dicts."""
+    from tailored_avsr_tpu_torch import average_model, get_val_accs
+    from tailored_avsr_tpu_torch.inference import load_token_list
+    from tailored_avsr_tpu_torch.tasks.avsr import build_model
+    from tailored_avsr_tpu_torch.train.checkpoint import save_model
+
+    cfg = _flagship_train_cfg()
+    tokens = load_token_list(cfg.token_list)
+    exp = os.path.join(tmp, "exp")
+    for epoch in (1, 2):
+        model = build_model(cfg, tokens, generator=torch.Generator().manual_seed(epoch), device=device)
+        save_model(model, os.path.join(exp, "models", f"model_{epoch:03d}.pth"))
+        del model
+    split = _synthetic_split(tmp, tokens)
+    overrides = [f"token_list:{cfg.token_list}", "encoder_conf:use_fused_csgu:true"]
+    before = _counts()
+    t0 = time.perf_counter()
+    rows = get_val_accs.main(["--config-file", FLAGSHIP, "--yaml-overrides", *overrides, "--validation-dataset",
+                              split, "--exp-dir", exp, "--output-dir", os.path.join(tmp, "va"), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+    print(f"  get_val_accs: {len(rows)} checkpoints over 8 utterances in {wall:.1f} s, launches {launched}; "
+          f"rows {[(r['epoch'], r['wer'], r['cer']) for r in rows]}")
+    if sorted(r["epoch"] for r in rows) != [1, 2] or not launched.get("K4") or \
+            not (launched.get("K1", 0) + launched.get("K2", 0)) or not launched.get("K3"):
+        raise AssertionError("get_val_accs did not decode both checkpoints through the kernels")
+    avg = os.path.join(tmp, "avg.pth")
+    average_model.main(["--val-accs", os.path.join(tmp, "va", "val_accs.csv"), "--top-k", "2", "--output", avg])
+    got = torch.load(avg, weights_only=True)
+    a, b = (torch.load(os.path.join(exp, "models", f"model_{e:03d}.pth"), weights_only=True) for e in (1, 2))
+    same = all(torch.equal(got[k], ((a[k].double() + b[k].double()) / 2).to(a[k].dtype)) for k in a)
+    print(f"  average_model --val-accs --top-k 2: the mean of the two state dicts: {same}")
+    if not same or set(got) != set(a):
+        raise AssertionError("average_model's output is not the mean of the two checkpoints")
+    return {"rows": [{k: r[k] for k in ("epoch", "wer", "cer")} for r in rows], "wall_s": wall,
+            "launches": launched}
+
+
+def _flops_check(device) -> dict:
+    """``compute_flops`` on the flagship at (a) 32 x 4 s and (b) 24 x 20 s."""
+    from tailored_avsr_tpu_torch import compute_flops
+
+    out = {}
+    for name, seconds, batch in (("(a) 32 x 4 s", 4, 32), ("(b) 24 x 20 s", 20, 24)):
+        r = compute_flops.main(["--config-file", FLAGSHIP, "--yaml-overrides",
+                                f"token_list:{os.path.join(ROOT, 'tokenizers/char/spanish.txt')}", "--seconds",
+                                str(seconds), "--batch-size", str(batch), "--device", "cuda"])
+        out[name] = {"parameters": r["parameters"], "encode_gflop": r["flops"] / 1e9}
+    torch.cuda.empty_cache()
+    return out
+
+
+def recipe_phase(device, smi: str) -> tuple:
+    """The recipe's remaining entry points on the card, counts set to 0
+    first; returns (numbers, the phase's launch counts)."""
+    out = {}
+    _reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (("lm_trainer", None), ("lm_beam", None), ("remat", _remat_check), ("init", _init_check),
+                         ("study_adaptive_fusion", _fusion_check),
+                         ("val_accs", lambda d: _val_accs_check(d, tmp)), ("compute_flops", _flops_check)):
+            t0 = time.perf_counter()
+            print(f"recipe: {name}")
+            if name == "lm_trainer":
+                out[name], lm_path = _lm_trainer(device, tmp)
+            elif name == "lm_beam":
+                out[name] = _trained_lm_beam(device, lm_path)
+            else:
+                out[name] = fn(device)
+            out[name]["phase_s"] = time.perf_counter() - t0
+            print(f"  ({name}: {out[name]['phase_s']:.1f} s; card {smi})")
+    launches = _counts()
+    print(f"  launches over the recipe phase: {launches}")
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4", "K5")) <= 0:
+        raise AssertionError(f"a kernel of the recipe's paths never launched: {launches}")
+    return out, launches
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2732,6 +3207,11 @@ def main() -> int:
         "transducer_train_steps": mt["transducer_train"].pop("launches"),
     }
     print(json.dumps({"maskctc_transducer": {**mt, "card": smi}}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recipe, recipe_launches = recipe_phase(device, smi)
+    print(f"  (recipe phase: {time.perf_counter() - t0:.1f} s)")
+    print(json.dumps({"recipe": recipe, "card": smi}))
 
     kernels = []
     for key, (name, source, replaces) in sources.items():
@@ -2744,6 +3224,7 @@ def main() -> int:
                         "launches_branchformer": {path: c[key] for path, c in family_launches.items()},
                         "launches_maskctc_transducer": {path: c[key] for path, c in mt_launches.items()},
                         "launches_serving_modes": modes_launches[key],
+                        "launches_recipe": recipe_launches[key],
                         **({"mixed_pairs": modes["k4_mixed"]} if key == "K4" else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,7 +20,10 @@ AVSR encoder of ``configs/AVSR/tailored_maskctc_spanish.yaml``) and the
 RNN-T transducer (loss, prediction and joint networks, greedy,
 multi-blank and ALSD beam decoding, on the ASR Branchformer of
 ``configs/ASR/branchformer_transducer_spanish.yaml``), so every model
-config of ``configs/`` builds, serves and trains:
+config of ``configs/`` builds, serves and trains; with activation
+recomputation (``training_settings remat``) and a config ``init`` scheme;
+and the rest of the paper's recipe: the Transformer-LM trainer and the
+analysis scripts, each run with ``python -m``:
 
 - ``ops/``     : frontends, MVN, subsampling, positional encodings, rel-pos
                  and absolute multi-head attention, cgMLP, FFN, the int8
@@ -34,7 +37,7 @@ config of ``configs/`` builds, serves and trains:
                  tailored, Branchformer and conventional encoders, adaptive
                  fusion, CTC head, the Transformer and MLM decoders, the
                  Transformer LM, the AVSR and ASR / VSR models and their
-                 Mask-CTC variants;
+                 Mask-CTC variants, activation recomputation (``remat.py``);
 - ``tasks/``   : config -> model for the avsr, asr and vsr tasks and the LM,
                  over one registry (``tasks/common.py``);
 - ``decode/``  : greedy CTC collapse, CTC prefix scorer, beam search,
@@ -46,10 +49,15 @@ config of ``configs/`` builds, serves and trains:
 - ``data/``, ``evaluation/``: tokenizers, transforms, dataset and loader;
                  WER / CER;
 - ``avsr_main``: the training and inference CLI;
+- ``lm_main``  : the Transformer-LM trainer (perplexity, top-K averaging);
 - ``study_branches``: the per-layer branch scores of an ASR / VSR model;
+- ``study_adaptive_fusion``: the per-utterance adaptive-fusion weights;
+- ``average_model``, ``get_val_accs``: checkpoint averaging, by validation
+                 statistics or by decoded validation error;
+- ``compute_flops``: parameter count and encode FLOPs;
 - ``utils/``   : JAX parameters -> port state dict (the port's own copy of
-                 the key-grammar export), seeded initialisation,
-                 weight-only quantisation;
+                 the key-grammar export), seeded initialisation and the
+                 config ``init`` schemes, weight-only quantisation;
 - ``csrc/``    : CUDA C++ sources for ``sm_90a``;
 - ``kernels/`` : nvcc build and ctypes bindings.
 

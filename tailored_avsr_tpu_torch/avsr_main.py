@@ -25,9 +25,11 @@ interrupted epoch from the last completed one.
 
 The config's ``task`` picks the model and the batch keys: ``avsr``
 (audio + video), ``asr`` (audio) or ``vsr`` (video), each a ``speech``
-stream. Refused, naming their ``ROADMAP.md`` item: training_settings
-``data_parallel`` / ``model_parallel`` > 1 (item 9), ``remat`` and a
-config ``init`` scheme (item 12).
+stream. training_settings ``remat`` recomputes the activations in the
+backward (``models/remat.py``); a config ``init`` scheme redraws the
+seeded weights (``utils/initialize.initialize``). Refused, naming its
+``ROADMAP.md`` item: training_settings ``data_parallel`` /
+``model_parallel`` > 1 (item 9).
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ from tailored_avsr_tpu_torch.train.checkpoint import (
 from tailored_avsr_tpu_torch.train.loop import create_train_state, make_eval_step, make_train_step
 from tailored_avsr_tpu_torch.train.optim import set_optimizer
 from tailored_avsr_tpu_torch.utils.config import load_config, security_checks
+from tailored_avsr_tpu_torch.utils.initialize import initialize
 
 BATCH_KEYS = {
     "asr": ("speech", "speech_lengths", "text", "text_lengths"),
@@ -101,8 +104,6 @@ def _check_training_settings(config) -> None:
     ts = config.training_settings
     if bool(ts.get("data_parallel", False)) or int(ts.get("model_parallel", 1)) > 1:
         raise not_ported("training_settings data_parallel / model_parallel", 9)
-    if getattr(config, "init", None):
-        raise not_ported(f"config init scheme {config.init!r}", 12)
 
 
 def run_training(args, config, tokenizer, converter, transforms, device) -> bool:
@@ -112,6 +113,10 @@ def run_training(args, config, tokenizer, converter, transforms, device) -> bool
     model = build_model(config, converter.token_list,
                         generator=torch.Generator().manual_seed(int(ts.get("seed", 0))),
                         device=device, dtype=torch.float32)  # f32 master weights
+    init_scheme = getattr(config, "init", None)
+    if init_scheme:
+        initialize(model, init_scheme, torch.Generator().manual_seed(int(ts.get("seed", 0))))
+        print(f"re-initialized parameters with {init_scheme}")
 
     def loader(path, is_training, audio_tf, video_tf):
         ds = AVSRDataset(path, task=task, nframes_limit=ts.get("nframes") if is_training else None,

@@ -77,6 +77,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.nn.utils import parametrize
 
 from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.decode.beam_search import (
@@ -307,7 +308,10 @@ class Speech2Text:
 
     def _ensure_quantized(self) -> None:
         """Quantise the weights ``quantize_asr_model`` / ``quantize_lm`` name,
-        once, before the first decode."""
+        once, before the first decode, outside inference mode (the payloads
+        are kept across calls). Each ``greedy`` / ``nbest`` call then runs
+        under ``parametrize.cached()``: every weight is dequantised once a
+        call, as the JAX decode graph dequantises at its top."""
         if not self._quantize_pending:
             return
         if self.quantize_asr_model:
@@ -359,7 +363,9 @@ class Speech2Text:
     def nbest(self, batch: Dict) -> List[List[Tuple[str, List[str], List[int], float]]]:
         """Batch dict -> per utterance the n-best list [(text, tokens, ids,
         score)], best first."""
-        res, first = self._decode(batch)
+        self._ensure_quantized()
+        with torch.inference_mode(), parametrize.cached():
+            res, first = self._decode(batch)
         tokens, lengths, scores = (x.cpu().numpy() for x in (res.tokens, res.lengths, res.scores))
         results = []
         for i in range(tokens.shape[0]):
@@ -372,14 +378,12 @@ class Speech2Text:
             results.append(hyps)
         return results
 
-    @torch.inference_mode()
     def _decode(self, batch: Dict) -> Tuple[BeamSearchResult, int]:
         """Encoder, then the model's search: the transducer's, Mask-CTC, or
         CTC log-probs and the label-synchronous beam. Returns the (B, n, L)
         result on the device and the column of each hypothesis' first token
         (1 after ``<sos>``, 0 where there is none)."""
         model = self.model
-        self._ensure_quantized()
         enc, enc_lens, _ = model.encode(*self.inputs(batch))
         if model.joint_network is not None:
             return self._transducer(enc, enc_lens), 0
@@ -632,11 +636,11 @@ class Speech2Text:
                 pending = pool.submit(upload, next(it, None))  # overlaps this batch's decode
                 yield cur, decode(cur)
 
-    @torch.inference_mode()
     def greedy(self, batch: Dict) -> List[str]:
         """CTC greedy decoding: one transcript per utterance of the batch."""
         self._ensure_quantized()
-        ids, lens = self.model.ctc_greedy(*self.inputs(batch))
+        with torch.inference_mode(), parametrize.cached():
+            ids, lens = self.model.ctc_greedy(*self.inputs(batch))
         hyps = ctc_greedy_collapse(ids.cpu().numpy(), lens.cpu().numpy())
         return [
             "".join(" " if t == _SPACE else t for t in (self.token_list[i] for i in h))

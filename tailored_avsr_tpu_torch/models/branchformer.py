@@ -36,12 +36,13 @@ interCTC taps and conditioning.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from tailored_avsr_tpu_torch import not_ported
+from tailored_avsr_tpu_torch.models import remat
 from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
 from tailored_avsr_tpu_torch.ops.cgmlp import ConvolutionalGatingMLP
 from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
@@ -160,10 +161,21 @@ class BranchformerEncoderLayer(nn.Module):
         elif merge_method == "fixed_ave" and both:
             self.merge_proj = nn.Linear(size, size, **kw)
 
+    def coins(self, generator: Optional[torch.Generator]) -> Tuple[bool, bool]:
+        """(skip the layer, drop the attention branch): the step's coins in
+        the order the forward uses them (the branch-drop coin only for a
+        kept learned-average layer)."""
+        skip = coin(self.stochastic_depth_rate, self.training, generator)
+        learned = self.use_attn and self.use_cgmlp and self.merge_method == "learned_ave"
+        return skip, not skip and learned and coin(self.attn_branch_drop_rate, self.training, generator)
+
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor, mask: Optional[torch.Tensor],
-                generator: Optional[torch.Generator] = None):
-        """Returns (x, aux); aux holds the learned merge weights, (B,) each."""
-        if coin(self.stochastic_depth_rate, self.training, generator):
+                generator: Optional[torch.Generator] = None, coins: Optional[Tuple[bool, bool]] = None):
+        """Returns (x, aux); aux holds the learned merge weights, (B,) each.
+        ``coins``: ``self.coins(generator)`` drawn by the caller (a
+        recomputed region must not draw them again); None draws them here."""
+        skip, drop = self.coins(generator) if coins is None else coins
+        if skip:
             return x, {}  # the layer is skipped this step
         coeff = 1.0 / (1.0 - self.stochastic_depth_rate) if self.training else 1.0
         aux = {}
@@ -183,7 +195,7 @@ class BranchformerEncoderLayer(nn.Module):
                 w2l = attention_pooled_weight(x2, mask, self.pooling_proj2, self.weight_proj2, self.size)
                 w = torch.softmax(torch.cat([w1l, w2l], dim=-1).float(), dim=-1).to(x.dtype)
                 w1, w2 = w[:, 0], w[:, 1]
-                if coin(self.attn_branch_drop_rate, self.training, generator):
+                if drop:
                     w1, w2 = torch.zeros_like(w1), torch.ones_like(w2)
                 aux["weight_global"], aux["weight_local"] = w1, w2
                 merged = self.merge_proj(w1[:, None, None] * x1 + w2[:, None, None] * x2)
@@ -196,6 +208,15 @@ class BranchformerEncoderLayer(nn.Module):
         x = x + coeff * self.dropout(merged)
         x = x + self.ff_scale * self.dropout(self.feed_forward(self.norm_ff(x)))
         return self.norm_final(x), aux
+
+
+def run_layer(layer: BranchformerEncoderLayer, generator: Optional[torch.Generator], x, pos_emb, mask):
+    """One layer's (x, aux), its coins drawn first and the layer run as a
+    recomputed region under ``remat``."""
+    coins = layer.coins(generator)
+    if coins[0]:
+        return x, {}  # the layer is skipped this step
+    return remat.run(layer, x, pos_emb, mask, coins=coins)
 
 
 def check_rel_pos_pairing(attention_layer_type: str, pos_enc_layer_type: str, rel_pos_type: str,
@@ -307,7 +328,7 @@ class BranchformerEncoder(nn.Module):
         mask = make_valid_mask(ilens, xs.shape[1])
         branch_weights = []
         for i, layer in enumerate(self.encoders):
-            xs, aux = layer(xs, pos_emb, mask, generator)
+            xs, aux = run_layer(layer, generator, xs, pos_emb, mask)
             if aux:
                 branch_weights.append((i + 1, aux))
         if self.after_norm is not None:

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from tailored_avsr_tpu_torch import not_ported
-from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoderLayer, per_layer
+from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoderLayer, per_layer, run_layer
 
 _LN_EPS = 1e-6  # flax LayerNorm default
 
@@ -102,8 +102,8 @@ class ConventionalEncoder(nn.Module):
         after their ``after_norm``; ``generator`` (CPU) draws the coins."""
         branch_weights = []
         for i, (a_layer, v_layer) in enumerate(zip(self.acoustic_encoder.encoders, self.visual_encoder.encoders)):
-            audio, a_aux = a_layer(audio, audio_pos_emb, audio_mask, generator)
-            video, v_aux = v_layer(video, video_pos_emb, video_mask, generator)
+            audio, a_aux = run_layer(a_layer, generator, audio, audio_pos_emb, audio_mask)
+            video, v_aux = run_layer(v_layer, generator, video, video_pos_emb, video_mask)
             if a_aux or v_aux:
                 branch_weights.append((i + 1, {"acoustic": a_aux, "visual": v_aux}))
         return (self.acoustic_encoder.norm(audio), audio_mask, self.visual_encoder.norm(video), video_mask,

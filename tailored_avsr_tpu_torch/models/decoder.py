@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from tailored_avsr_tpu_torch.models import remat
 from tailored_avsr_tpu_torch.ops.attention import MultiHeadedAttention
 from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
 from tailored_avsr_tpu_torch.ops.posenc import AbsolutePositionalEncoding
@@ -66,16 +67,34 @@ def group_cache(layers: int, b: int, beam: int, max_len: int, heads: int, dk: in
     return [(side(), side()) for _ in range(layers)]
 
 
+def _dequantized(module: nn.Module) -> nn.Module:
+    """``module`` with every quantised weight (``utils/quantize.py``) made a
+    plain parameter, dequantised as the JAX package dequantises it (an int8
+    payload x scale rounded to the scale's dtype, a bf16 payload as it
+    is), in place. Its modules are copies: their parametrized class, which
+    ``copy.deepcopy`` shares with the originals, is not touched."""
+    for m in module.modules():
+        plist = m._modules.pop("parametrizations", None)
+        if plist is not None:
+            m.__class__ = type(m).__bases__[0]  # the class before parametrization
+            for name, weights in plist.items():
+                m.register_parameter(name, nn.Parameter(weights(), requires_grad=False))
+    return module
+
+
 def widened(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """An eval-mode copy of ``module`` with its floating parameters in
     ``dtype`` (the bf16 weights upcast exactly), kept beside it and made
-    again only when a parameter was replaced or written."""
+    again only when a parameter was replaced or written. A quantised weight
+    enters the copy dequantised (``_dequantized``), then widened, as flax
+    promotes the weight the JAX package dequantises; the key reads the
+    payloads and scales, which are the parameters."""
     key = tuple((p.data_ptr(), p._version) for p in module.parameters())
     twins = module.__dict__.pop("_widened", {})  # not copied into the twin
     try:
         if twins.get(dtype, (None,))[0] != key:
             with torch.inference_mode(False), torch.no_grad():  # plain tensors: kept across calls
-                twins[dtype] = (key, copy.deepcopy(module).to(dtype).eval())
+                twins[dtype] = (key, _dequantized(copy.deepcopy(module)).to(dtype).eval())
     finally:
         module.__dict__["_widened"] = twins
     return twins[dtype][1]
@@ -181,7 +200,7 @@ class TransformerDecoder(nn.Module):
     def _run(self, ys, tgt_mask, memory, memory_mask) -> torch.Tensor:
         x = self.embed[1](self.embed[0](ys), dtype=self.dtype)
         for layer in self.decoders:
-            x = layer(x, tgt_mask, memory, memory_mask)
+            x = remat.run(layer, x, tgt_mask, memory, memory_mask)
         return self._head(x)
 
     def forward(self, memory, memory_mask, ys_in, ys_in_lengths) -> torch.Tensor:

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tailored_avsr_tpu_torch.models import remat
+
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.1  # torch's convention: flax's momentum 0.9
 
@@ -36,6 +38,9 @@ class _BiasedRunningVar:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        if remat.recomputing():  # the forward moved the statistics already: move copies
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(), self.weight,
+                                self.bias, True, self.momentum, self.eps)
         n = x.numel() // x.shape[1]  # positions per channel
         # torch moves a running variance to (1-m) old + m n/(n-1) var; it gets
         # a copy (autograd keeps it), and the buffer (1-m) old + m var
@@ -99,7 +104,9 @@ class ResNetTrunk(nn.Module):
             setattr(self, f"layer{si + 1}", nn.Sequential(*blocks))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = remat.run(stage, x)
+        return x
 
 
 class Conv3dResNet18(nn.Module):

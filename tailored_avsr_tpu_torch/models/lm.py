@@ -90,7 +90,7 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 f"lm_conf pos_enc={pos_enc!r}: espnet TransformerLM supports only null or 'sinusoidal'")
         kw = {"device": device, "dtype": dtype}
-        self.heads, self.d_k = head, att_unit // head
+        self.att_unit, self.heads, self.d_k = att_unit, head, att_unit // head
         self.embed = nn.Embedding(vocab_size, embed_unit or att_unit, **kw)
         stack = None
         if embed_unit:

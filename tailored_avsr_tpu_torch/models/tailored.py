@@ -25,6 +25,7 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
+from tailored_avsr_tpu_torch.models import remat
 from tailored_avsr_tpu_torch.models.branchformer import coin, per_layer
 from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
 from tailored_avsr_tpu_torch.ops.cgmlp import ConvolutionalGatingMLP
@@ -98,8 +99,12 @@ class TailoredEncoderLayer(nn.Module):
         return x + 0.5 * self.dropout(ffn(norm(x)))
 
     def forward(self, audio, audio_pos_emb, audio_mask, video, video_pos_emb, video_mask,
-                generator: Optional[torch.Generator] = None):
-        if coin(self.stochastic_depth_rate, self.training, generator):
+                generator: Optional[torch.Generator] = None, skip: Optional[bool] = None):
+        """``skip``: the stochastic-depth coin, drawn by the caller (a
+        recomputed region must not draw it again); None draws it here."""
+        if skip is None:
+            skip = coin(self.stochastic_depth_rate, self.training, generator)
+        if skip:
             return audio, video  # the layer is skipped this step
         coeff = 1.0 / (1.0 - self.stochastic_depth_rate) if self.training else 1.0
         stack = audio.shape == video.shape
@@ -186,6 +191,8 @@ class TailoredEncoder(nn.Module):
         audio = audio + mod[0].to(audio.dtype)
         video = video + mod[1].to(video.dtype)
         for layer in self.encoders:
-            audio, video = layer(audio, audio_pos_emb, audio_mask, video, video_pos_emb, video_mask,
-                                 generator)
+            if coin(layer.stochastic_depth_rate, layer.training, generator):
+                continue  # the layer is skipped this step
+            audio, video = remat.run(layer, audio, audio_pos_emb, audio_mask, video, video_pos_emb,
+                                     video_mask, skip=False)
         return self.after_norm(audio), audio_mask, self.after_norm(video), video_mask, {"intermediate_outs": []}

@@ -168,11 +168,23 @@ class LSTMLayer(nn.Module):
         self.bias_hh_l0 = nn.Parameter(torch.empty(4 * hidden_size, **kw))
 
     def cell(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, in), (c, h) -> (c', h')."""
+        """(B, in), (c, h) -> (c', h'), each side in the type flax's cell
+        promotes it to: the input side ``x @ W_ih`` in x's and W_ih's type,
+        the recurrent side ``h @ W_hh + b`` in theirs. They differ only under
+        bf16 weight storage (``utils/quantize.py``), where a bf16 embedding
+        meets a bf16 input kernel and that product is rounded to bf16."""
         c, h = state
-        h, c = torch.lstm_cell(x, (h, c), self.weight_ih_l0, self.weight_hh_l0, self.bias_ih_l0,
-                               self.bias_hh_l0)
-        return c, h
+        w_ih, w_hh, b_hh = self.weight_ih_l0, self.weight_hh_l0, self.bias_hh_l0
+        dt_i = torch.promote_types(x.dtype, w_ih.dtype)
+        dt_h = torch.promote_types(torch.promote_types(h.dtype, w_hh.dtype), b_hh.dtype)
+        if dt_i == dt_h:
+            h, c = torch.lstm_cell(x.to(dt_i), (h.to(dt_i), c.to(dt_i)), w_ih.to(dt_i), w_hh.to(dt_i),
+                                   self.bias_ih_l0.to(dt_i), b_hh.to(dt_i))
+            return c, h
+        gates = F.linear(x.to(dt_i), w_ih.to(dt_i)) + F.linear(h.to(dt_h), w_hh.to(dt_h), b_hh.to(dt_h))
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return c, torch.sigmoid(o) * torch.tanh(c)
 
 
 class PredictionNetwork(nn.Module):
@@ -190,7 +202,7 @@ class PredictionNetwork(nn.Module):
         self.dropout = nn.Dropout(dropout_rate)
 
     def initial_state(self, batch: int) -> State:
-        w = self.embed.weight
+        w = self.decoder[0].bias_hh_l0  # the LSTM's type (an embedding may be stored in bf16)
         zeros = torch.zeros((batch, self.hidden_dim), dtype=w.dtype, device=w.device)
         return tuple((zeros, zeros) for _ in self.decoder)
 
@@ -201,7 +213,8 @@ class PredictionNetwork(nn.Module):
         x = self.embed(torch.where(labels >= 0, labels, 0).long())  # (B, U, E)
         x = self.dropout(F.pad(x, (0, 0, 1, 0)))  # the start token embeds to zeros
         for layer in self.decoder:
-            state = (x.new_zeros(b, self.hidden_dim), x.new_zeros(b, self.hidden_dim))
+            zeros = layer.bias_hh_l0.new_zeros(b, self.hidden_dim)
+            state = (zeros, zeros)
             outs = []
             for u in range(x.shape[1]):
                 state = layer.cell(x[:, u], state)

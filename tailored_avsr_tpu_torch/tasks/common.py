@@ -32,6 +32,8 @@ from tailored_avsr_tpu_torch.models.ctc import CTCHead
 from tailored_avsr_tpu_torch.models.decoder import MLMDecoder, TransformerDecoder
 from tailored_avsr_tpu_torch.models.frontends import Conv3dResNet18
 from tailored_avsr_tpu_torch.models.tailored import TailoredEncoder
+from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
+from tailored_avsr_tpu_torch.ops.cgmlp import ConvolutionalSpatialGatingUnit
 from tailored_avsr_tpu_torch.ops.frontend_audio import LogMelFrontend
 from tailored_avsr_tpu_torch.ops.normalize import UtteranceMVN
 from tailored_avsr_tpu_torch.ops.rnnt import JointNetwork, PredictionNetwork
@@ -146,6 +148,17 @@ def materialize(module: nn.Module, generator: Optional[torch.Generator], device,
 
 
 META = {"device": "meta"}  # no memory, no RNG: weights come from the generator later
+
+
+def set_kernels(model: nn.Module, on: bool) -> nn.Module:
+    """Flash attention (K1 / K2) and the fused cgMLP gate (K3) on or off in
+    every layer of ``model`` (off: the plain path)."""
+    for m in model.modules():
+        if isinstance(m, RelPositionMultiHeadedAttention):
+            m.use_flash = on
+        elif isinstance(m, ConvolutionalSpatialGatingUnit):
+            m.use_fused = on
+    return model
 
 
 def build_frontend(name, conf: Optional[Dict]):

@@ -9,7 +9,8 @@ dtype over f32 master weights: matmuls and convolutions run in bf16,
 LayerNorm, softmax and the losses in f32 (the port's LayerNorms and losses
 upcast explicitly), gradients land in f32; bf16 has f32's exponent range,
 so there is no loss scaling. The JAX loop instead casts every f32 parameter
-and input to bf16 for the whole forward.
+and input to bf16 for the whole forward. ``remat`` is activation
+recomputation (``models/remat.py``), as the JAX loop's ``jax.checkpoint``.
 
 Randomness: each micro-step draws one seed from ``TrainState.generator``
 (CPU). It seeds a CPU generator for the host-side draws (SpecAug, the
@@ -33,7 +34,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from tailored_avsr_tpu_torch import not_ported
+from tailored_avsr_tpu_torch.models import remat as remat_regions
 from tailored_avsr_tpu_torch.train.optim import Optimizer, Schedule
 
 
@@ -70,9 +71,9 @@ def make_train_step(compute_dtype: Optional[torch.dtype] = None, remat: bool = F
     the model's inputs and targets on its device: (audio, audio_lengths,
     video, video_lengths, text, text_lengths) for the AVSR model, (speech,
     speech_lengths, text, text_lengths) for the ASR / VSR model. Stats
-    stay on the device (0-dim tensors)."""
-    if remat:
-        raise not_ported("training_settings remat (activation recomputation)", 12)
+    stay on the device (0-dim tensors). ``remat`` recomputes each encoder
+    layer, decoder layer and ResNet stage in the backward
+    (``models/remat.py``): less memory, the same numbers."""
 
     def step(state: TrainState, batch: Tuple[torch.Tensor, ...]):
         model = state.model
@@ -82,7 +83,7 @@ def make_train_step(compute_dtype: Optional[torch.dtype] = None, remat: bool = F
         host = torch.Generator().manual_seed(seed)
         with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
             torch.manual_seed(seed)
-            with _autocast(device, compute_dtype):
+            with _autocast(device, compute_dtype), remat_regions.enabled(remat):
                 loss, stats = model(*batch, generator=host)
             loss.backward()
         state.optimizer.step()

@@ -8,6 +8,13 @@ shifts 0, BatchNorm running statistics 0 / 1, the modality embedding
 normal with std 1/sqrt(d), the rel-pos u/v biases Xavier-uniform, and an
 LSTM layer as flax's ``OptimizedLSTMCell``: each gate's input kernel
 LeCun-normal, its recurrent kernel orthogonal, biases 0.
+
+``initialize`` is a config's ``init`` scheme
+(``tailored_avsr_tpu/utils/initialize.py``), applied after that init:
+every flax ``kernel`` of ndim >= 2 redrawn by ``xavier_uniform``,
+``xavier_normal``, ``kaiming_uniform`` or ``kaiming_normal`` with flax's
+variance-scaling fans, every ``bias`` 0, every ``scale`` 1; embeddings,
+the rel-pos biases and the BatchNorm statistics kept.
 """
 
 from __future__ import annotations
@@ -75,4 +82,62 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     left = [n for n, t in [*model.named_parameters(), *model.named_buffers()] if id(t) not in done]
     if left:
         raise RuntimeError(f"init_params_: no initialiser for {left[:5]}")
+    return model
+
+
+# flax's variance scaling: (scale, fan mode, distribution)
+_SCHEMES = {
+    "xavier_uniform": (1.0, "fan_avg", "uniform"),
+    "xavier_normal": (1.0, "fan_avg", "truncated_normal"),
+    "kaiming_uniform": (2.0, "fan_in", "uniform"),
+    "kaiming_normal": (2.0, "fan_in", "truncated_normal"),
+}
+_TRUNC_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
+
+
+def scheme_std(scheme: str, fan_in: int, fan_out: int) -> float:
+    """The standard deviation ``scheme`` gives a kernel of these fans."""
+    scale, mode, _ = _SCHEMES[scheme]
+    fan = fan_in if mode == "fan_in" else (fan_in + fan_out) / 2.0
+    return math.sqrt(scale / fan)
+
+
+def _kernels(model: nn.Module):
+    """(weight, fan_in, fan_out) of every flax kernel: a Linear's (out, in)
+    is flax's (in, out); a conv's (out, in / groups, *k) is flax's (*k,
+    in / groups, out), its taps the receptive field; an LSTM's stacked (4H,
+    in) holds four flax (in, H) kernels."""
+    for m in model.modules():
+        if isinstance(m, _KERNELS):
+            w = m.weight
+            rf = w[0, 0].numel()
+            yield w, w.shape[1] * rf, w.shape[0] * rf
+        elif isinstance(m, LSTMLayer):
+            for w in (m.weight_ih_l0, m.weight_hh_l0):
+                yield w, w.shape[1], m.hidden_size
+
+
+@torch.no_grad()
+def initialize(model: nn.Module, scheme: str, generator: torch.Generator) -> nn.Module:
+    """Redraw ``model``'s kernels by ``scheme`` from ``generator`` (CPU), zero
+    its biases and set its norm scales to 1, in place; ValueError for an
+    unknown scheme, as the JAX package raises."""
+    if scheme not in _SCHEMES:
+        raise ValueError(f"unknown init: {scheme} (choices: {sorted(_SCHEMES)})")
+    for w, fan_in, fan_out in _kernels(model):
+        std = scheme_std(scheme, fan_in, fan_out)
+        if _SCHEMES[scheme][2] == "uniform":
+            bound = math.sqrt(3.0) * std
+            value = (torch.rand(w.shape, generator=generator) * 2 - 1) * bound
+        else:
+            s = std / _TRUNC_STD
+            value = nn.init.trunc_normal_(torch.empty(w.shape), 0.0, s, -2 * s, 2 * s, generator=generator)
+        w.copy_(value)
+    for m in model.modules():
+        if isinstance(m, (*_KERNELS, *_NORMS)) and m.bias is not None:
+            m.bias.zero_()
+        if isinstance(m, _NORMS):
+            m.weight.fill_(1.0)
+        elif isinstance(m, LSTMLayer):
+            m.bias_hh_l0.zero_()
     return model

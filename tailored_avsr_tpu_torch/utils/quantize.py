@@ -13,8 +13,9 @@ scale in the weight's dtype), and dequantises as the JAX package does
 (payload x scale in f32, cast to the scale's dtype); ``float16`` and
 ``bfloat16`` both store bf16, as in the JAX package, and a kernel then
 computes in the model's dtype (the bf16 values upcast exactly, as flax
-promotes), an embedding in bf16 (flax's embedding keeps its table's
-dtype).
+promotes), an embedding and an LSTM layer's kernels in bf16 (flax's
+embedding keeps its table's dtype, and its LSTM cell promotes each
+product on its own).
 
 Which torch axis carries the scale follows the layout the key grammar
 gives each leaf (``utils/torch_compat.torch_axis_of_flax_last``): axis 0
@@ -98,7 +99,10 @@ def quantize_model(model: nn.Module, dtype: str = "qint8", min_size: int = 4096)
         w = getattr(m, name)
         if w.dim() < 2 or w.dtype not in _FLOATS or w.numel() // gates < min_size:
             continue
-        out_dtype = torch.bfloat16 if kind == "embedding" else w.dtype
+        # flax keeps a bf16 table's and an LSTM cell's kernels in bf16 and
+        # promotes per product (``ops/rnnt.LSTMLayer.cell``); a Linear or conv
+        # computes in the model's dtype
+        out_dtype = torch.bfloat16 if kind == "embedding" or gates == 4 else w.dtype
         w.requires_grad_(False)
         parametrize.register_parametrization(
             m, name, Dequantize(torch_axis_of_flax_last(kind, w.dim()), dtype, out_dtype), unsafe=True)

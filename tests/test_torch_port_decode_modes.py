@@ -28,7 +28,7 @@ import pytest
 import torch
 
 import __graft_entry__ as graft
-from test_torch_port_beam import LM_TINY, _engines, _same_nbest
+from test_torch_port_beam import LM_TINY, _batch, _engines, _same_nbest
 from test_torch_port_ops import jax_module, load_port, t
 from test_torch_port_slice import TOKENS
 
@@ -280,8 +280,24 @@ def test_lm_steps_match_jax_and_the_full_prefix(protocol, embed_unit, pos_enc):
     _walk(steps, n, beam, steps + 2, jax_step, port_step, pm.score_step, jax_reorder, port_reorder, seed=12)
 
 
+def _dequantized_port(model, v):
+    """A port model of f32 weights loaded from JAX variables (dequantised)."""
+    from tailored_avsr_tpu_torch.models.decoder import TransformerDecoder as P
+    from tailored_avsr_tpu_torch.models.lm import TransformerLM as PL
+    from tailored_avsr_tpu_torch.utils.convert import convert_jax_lm_variables
+
+    v = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), v)
+    if model == "decoder":
+        return load_port(P(11, encoder_output_size=32, attention_heads=4, linear_units=40, num_blocks=2), v,
+                         "decoder")
+    pm = PL(11, att_unit=32, head=4, unit=40, layer=2, embed_unit=16)
+    pm.load_state_dict(convert_jax_lm_variables(v), strict=True)
+    return pm
+
+
+@pytest.mark.parametrize("quantize", [None, "qint8", "bfloat16"], ids=["plain", "qint8", "bf16_weights"])
 @pytest.mark.parametrize("model", ["decoder", "lm"])
-def test_step_over_a_group_cache_of_another_dtype(model):
+def test_step_over_a_group_cache_of_another_dtype(model, quantize):
     """A bf16 model over an f32 group cache (``cache_dtype: float32``): the
     first self-attention returns f32 and the rest of the step runs in f32
     on the bf16 weights, as flax promotes; an f32 model over a bf16 cache
@@ -291,17 +307,39 @@ def test_step_over_a_group_cache_of_another_dtype(model):
     first attend (the two packages' all-bf16 steps differ by ~2e-2), so
     they are held to be nearer the JAX step over the f32 cache than to the
     JAX step over the same values in a bf16 cache, which keeps the stream
-    in bf16."""
+    in bf16.
+
+    With quantised weights (``quantize_min_size`` 256) the JAX variables go
+    through ``quantize_variables`` and its step dequantises them, and the
+    port's step runs as the engine runs it: quantised outside inference
+    mode, stepped under ``torch.inference_mode()`` and
+    ``parametrize.cached()``. The f32 copy of the bf16 model then holds
+    exactly the JAX package's dequantised weights (int8 payload x scale
+    rounded to bf16; the bf16 payload as it is) widened to f32. The
+    quantised cases take the bf16 model over the f32 cache only: under an
+    f32 model a bf16-stored embedding's x * sqrt(d) is rounded to bf16 in
+    this jitted JAX step (3.4e-3 on the decoder's log-probs) and not in the
+    JAX engine's decode graph, which XLA's excess precision decides."""
+    from torch.nn.utils import parametrize
+
+    from tailored_avsr_tpu.utils.quantize import dequantize_variables, quantize_variables
+    from tailored_avsr_tpu_torch.models.decoder import widened
+    from tailored_avsr_tpu_torch.utils.quantize import quantize_model
+
     rs = np.random.RandomState(13)
     beam, b, lc, pos = 3, 2, 16, 6
     n = b * beam
-    for model_dt, cache_dt in ((jnp.bfloat16, jnp.float32), (jnp.float32, jnp.bfloat16)):
+    pairs = ((jnp.bfloat16, jnp.float32), (jnp.float32, jnp.bfloat16))
+    for model_dt, cache_dt in pairs[:1] if quantize else pairs:
         if model == "decoder":
             jm, v, pm, mem, mem_mask = _decoder()
         else:
             jm, v, pm = _lm(16, None)
         v = jax.tree_util.tree_map(lambda x: jnp.asarray(x, model_dt), v)
         pm.to(torch.bfloat16 if model_dt == jnp.bfloat16 else torch.float32)
+        if quantize:
+            v = quantize_variables(v, quantize, min_size=256)
+            assert quantize_model(pm, quantize, 256)
         tdt = torch.bfloat16 if cache_dt == jnp.bfloat16 else torch.float32
         values = [tuple(jnp.asarray(jnp.asarray(rs.randn(b, 4, beam, lc, 8), jnp.bfloat16), jnp.float32)
                         for _ in range(2)) for _ in range(2)]  # bf16 values: exact in either cache
@@ -310,6 +348,7 @@ def test_step_over_a_group_cache_of_another_dtype(model):
 
         @jax.jit
         def jstep(v, cache):
+            v = dequantize_variables(v)
             if model == "decoder":
                 mem_kv = jm.apply(v, jnp.asarray(mem, model_dt), method="precompute_memory")
                 return jm.apply(v, mem_kv, mem_mask, ys, jnp.asarray(pos), cache, anc, beam,
@@ -321,7 +360,7 @@ def test_step_over_a_group_cache_of_another_dtype(model):
 
         want, new_j = jax_step(cache_dt)
         cache_p = [tuple(torch.from_numpy(np.array(x)).to(tdt) for x in layer) for layer in values]
-        with torch.no_grad():
+        with torch.inference_mode(), parametrize.cached():
             if model == "decoder":
                 mem_kv_p = pm.precompute_memory(t(mem).to(pm.dtype))
                 got, new_p = pm.score_step_anc(mem_kv_p, t(mem_mask), t(ys).long(), pos, cache_p, t(anc), beam)
@@ -336,6 +375,35 @@ def test_step_over_a_group_cache_of_another_dtype(model):
             err = np.abs(got.numpy() - np.asarray(want, np.float32)).max()
             other = np.abs(got.numpy() - np.asarray(jax_step(jnp.bfloat16)[0], np.float32)).max()
             assert err < other, (err, other)
+            if quantize:
+                twin, ref = dict(widened(pm, torch.float32).named_modules()), _dequantized_port(
+                    model, dequantize_variables(v))
+                picked = [name for name, m in pm.named_modules() if parametrize.is_parametrized(m, "weight")]
+                assert picked
+                for name in picked:
+                    assert torch.equal(twin[name].weight, ref.get_submodule(name).weight), name
+
+
+@pytest.mark.parametrize("quantize", ["qint8", "bfloat16"])
+def test_bf16_model_over_an_f32_cache_decodes_with_quantised_weights(quantize):
+    """The engine with a bf16 model, ``cache_dtype: float32`` and both the
+    model and the LM quantised (``quantize_min_size`` 256): weights are
+    quantised outside inference mode and the f32 copy of each model is made
+    from its payloads, so the call decodes (the JAX engine decodes this
+    case); the n-best lists are whole and finite."""
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+
+    cfg = graft._flagship_cfg(tiny=True)
+    cfg.token_list, cfg.dtype = TOKENS, "bfloat16"
+    cfg.inference_conf = dict(cfg.inference_conf, beam_size=3, nbest=2, unroll=1, cache_dtype="float32",
+                              quantize_asr_model=True, quantize_lm=True, quantize_dtype=quantize,
+                              quantize_min_size=256)
+    lm_cfg = types.SimpleNamespace(token_list=None, lm_conf=LM_TINY)
+    ps = Speech2Text(cfg, lm_config=lm_cfg, device="cpu")
+    got = ps.nbest(_batch())
+    assert [len(h) for h in got] == [2, 2]
+    assert all(np.isfinite(h[0][3]) and h[0][3] > -1e9 for h in got)
+    assert ps.nbest(_batch()) == got  # the kept f32 copies serve the next call alike
 
 
 def test_lm_nll_matches_jax():

@@ -529,13 +529,6 @@ def test_ctc_weight_ends(ctc_weight):
         assert float(loss) == float(stats["loss_ctc"])
 
 
-def test_remat_names_its_item():
-    from tailored_avsr_tpu_torch.train.loop import make_train_step
-
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_train_step(remat=True)
-
-
 # ---------------------------------------------------------------- checkpoints
 
 
@@ -822,7 +815,6 @@ def test_cli_resume_retrains_the_interrupted_epoch(corpus, tmp_path, monkeypatch
 
 @pytest.mark.parametrize("override,item", [
     ("training_settings:data_parallel:true", 9),
-    ("training_settings:remat:true", 12),
 ])
 def test_cli_refusals_name_their_item(corpus, tmp_path, override, item):
     from tailored_avsr_tpu_torch import avsr_main

@@ -380,11 +380,23 @@ def _engines(path, seed, inference_conf, **extra):
     return js, ps, dict(zip(keys, args))
 
 
+@pytest.mark.parametrize("quantize", [None, "bfloat16", "qint8"], ids=["f32", "bf16_weights", "qint8"])
 @pytest.mark.parametrize("beam", [1, 4], ids=["greedy", "beam4"])
-def test_asr_transducer_speech2text_matches_jax(beam):
+def test_asr_transducer_speech2text_matches_jax(beam, quantize):
     """Tiny ASR transducer: ``nbest`` ids identical (no ``<sos>`` strip),
-    beam scores within 1e-4; greedy stays CTC greedy."""
-    js, ps, batch = _engines(TRANSDUCER, 7, {"beam_size": beam})
+    beam scores within 1e-4; greedy stays CTC greedy. With weight
+    quantisation (``quantize_min_size`` 256 picks the prediction network's
+    embedding, LSTM and joint) the JAX variables go through
+    ``quantize_variables``, as its ``ensure_params`` would: a bf16-stored
+    embedding under the f32 LSTM runs the cell in f32, as flax promotes."""
+    conf = {"beam_size": beam}
+    if quantize:
+        conf.update(quantize_asr_model=True, quantize_dtype=quantize, quantize_min_size=256)
+    js, ps, batch = _engines(TRANSDUCER, 7, conf)
+    if quantize:
+        from tailored_avsr_tpu.utils.quantize import quantize_variables
+
+        js.variables = quantize_variables(js.variables, quantize, min_size=256)
     want, got = js.nbest(batch), ps.nbest(batch)
     assert len(got) == 2 and [len(h) for h in got] == [len(h) for h in want] == [beam, beam]
     for g_hyps, w_hyps in zip(got, want):
