@@ -91,8 +91,8 @@ Run from the repository root on a machine with one CUDA card:
    bf16 model over f32 caches with its weights and the LM's quantised
    (``qint8``, then ``bfloat16`` storage), K4 on every cached layer (each
    model's first on the bf16-query pair), held to its plain twin's
-   envelope. Every call's launches are asserted exactly. bf16 walls (median of three warm
-   calls) and a profiled call's device busy ms and idle share per mode.
+   envelope. Every call's launches are asserted exactly. bf16 walls (one
+   warm call) and a profiled call's device busy ms and idle share per mode.
 9. Train path (``flagship_train_phase``, ``card_vs_cpu_phase``,
    ``learning_canary``): the flagship at full width with
    its training settings (4 x 20 s of seeded int16 audio and uint8 video,
@@ -168,17 +168,40 @@ Run from the repository root on a machine with one CUDA card:
    the plain path (``FUSION_TOL``); ``get_val_accs`` over two seeded
    checkpoints on a synthetic split and ``average_model --val-accs`` (the
    mean of the two); ``compute_flops`` at (a) and (b).
-13. Prints one JSON line of train numbers, one of the Branchformer
+13. The encoders on the Branchformer base (``encoder_variants_phase``, run
+   after 11 and before 12), at the repo's widths (12 blocks, 256-d, 4 heads, 2048 FFN units, k = 31),
+   seeded weights, the encoder kernels on, only the encoder keys named set
+   in the repo's YAML, counts set to 0 first, every call's launches
+   asserted exactly (``_encoder_kernels``): the Conformer ASR greedy at
+   (a) 32 x 4 s (K2 12) and (b) 24 x 20 s (K1 12), then its beam + the
+   16-layer LM at (a), f32 through K4 held to the plain group attend; the
+   Conformer with ``rel_pos_type: legacy`` at (b) (K2 12: the legacy bias
+   never reaches K1); the E-Branchformer (``concat``, its merge conv) at
+   (a) (K2 12, K3 12); the conventional AVSR with Conformer stacks at (a)
+   (K2 24); the Transformer (``abs_pos``, ``selfattn``, ReLU) at (a) (no
+   kernel, as in JAX); the flagship with interCTC taps after layers 4 and
+   8 and audio-visual conditioning at (a) (K2 19, K3 5). Each greedy
+   request in f32 through the kernels and on the eager path: ids
+   identical, CTC log-probs within 1e-3. bf16: the first call's wall,
+   three warm calls (median) and a profiled one. Then two bf16 train
+   micro-steps (4 x 20 s) of the Conformer ASR and of the interCTC
+   flagship (``interctc_weight`` 0.3): no kernel, stats (the taps' CTC
+   losses among them) and accumulated gradients finite, every BatchNorm's
+   running statistics moved; walls and peak memory printed.
+14. Prints one JSON line of train numbers, one of the Branchformer
    family's numbers, one of the Mask-CTC and transducer paths' numbers,
+   one of the encoder variants' numbers, the seconds of each phase,
    one JSON line of per-kernel results (launches: K1-K3
    from the greedy path, K4, K5 (the step write) and K5' from the beam
    path, K6 from the int8 beam path; P1 counted over both beam paths,
    where no serving code may launch it; beside them the serving modes'
    launches and K4's mixed pairs' numbers, the train path's
    launches in its train steps and in its eval step, each
-   Branchformer path's, each Mask-CTC and transducer path's, and the
-   recipe phase's), one of the recipe's numbers before it, then the result
-   line ``{"ok": true, "device": {...}}`` last.
+   Branchformer path's, each Mask-CTC and transducer path's, the encoder
+   variants' and the recipe phase's; K4's library yardstick at the
+   decoder's shape and K5's at one layer beside them), one of the recipe's
+   numbers before it, then the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 Any failed phase raises, so the run exits non-zero and prints no result line.
 Nothing here imports JAX.
@@ -644,7 +667,7 @@ def beam_kernel_phases(device) -> dict:
                     raise AssertionError("K4: at pos 1 the output must be exactly v_new")
                 bound = _group_attend_bound(a, pos, width, 2 * dk * esize, (q, k_new, v_new, got), h, dtype)
                 library_ms = (_k4_library_ms(*args, got, f"{tag} {shape}")
-                              if h == 8 and pos == 53 and width is None else None)
+                              if pos == 53 and width is None else None)
                 r4 = _result(err, cold_time_ms(lambda: ga.group_attend_anc(*args, width=width)),
                              cold_time_ms(lambda: ga.group_attend_anc_plain(*args, width=width)), bound,
                              library_ms)
@@ -660,6 +683,8 @@ def beam_kernel_phases(device) -> dict:
                              cold_time_ms(lambda: ga.group_attend_anc_q_plain(*qargs, width=width)), bound)
                 if h == 8 and pos == 53 and width is None:
                     results["K4", tag], results["K6", tag] = r4, r6
+                elif pos == 53 and width is None:  # the decoder's shape
+                    results["K4 decoder", tag] = r4
                 if pos in (53, 103) and width is None:
                     _plan_sweep(ga, args, qargs, tag)
     _split_cases(ga, randn, gen, device)
@@ -692,12 +717,17 @@ def beam_kernel_phases(device) -> dict:
             same1 = torch.equal(g1, w1)
             print(f"  K5 write_cache_columns_kv {tag} pos={pos}: max_abs_err={err:.3e} tol=0 "
                   f"(bit-exact) -> {'ok' if same else 'FAIL'}")
+            col = min(pos, lc - 1)
+
+            def library_kv():  # the yardstick: indexed assignment of both columns, cast included
+                kc[:, :, :, col] = kcol
+                vc[:, :, :, col] = vcol
+
             r5 = _result(err, cold_time_ms(lambda: cu.write_cache_columns_kv(kc, vc, kcol, vcol, pos)),
                          cold_time_ms(lambda: cu.write_cache_columns_kv_plain(kc, vc, kcol, vcol, pos)),
-                         _bound(2 * col_bytes, 0, torch.float32))
+                         _bound(2 * col_bytes, 0, torch.float32), cold_time_ms(library_kv))
             print(f"  K5' write_cache_column {tag} pos={pos}: max_abs_err={err1:.3e} tol=0 "
                   f"(bit-exact) -> {'ok' if same1 else 'FAIL'}")
-            col = min(pos, lc - 1)
 
             def library():  # the one-call yardstick: indexed assignment, cast included
                 kc[:, :, :, col] = kcol
@@ -708,7 +738,7 @@ def beam_kernel_phases(device) -> dict:
             if not (same and same1):
                 raise AssertionError(f"K5/K5' disagree with the plain write ({tag}, pos {pos})")
             if cache_dtype == torch.bfloat16 and pos == 57:
-                results["K5'", "bf16"] = r5p
+                results["K5'", "bf16"], results["K5 layer", "bf16"] = r5p, r5
     results["K5", "bf16"] = _step_write_phase(cu, gen, device)
     return results
 
@@ -1946,11 +1976,12 @@ def _family_serve(engine, name: str, batch: dict, expect: dict) -> list:
     return hyps
 
 
-def _family_gate(engine, name: str, batch: dict, expect: dict) -> None:
+def _family_gate(engine, name: str, batch: dict, expect: dict, weights: bool = True) -> None:
     """An f32 engine's request through the kernels (launches ``expect``), then
     on the eager path (kernels off, no launch) on the same weights: greedy
     ids identical, CTC log-probs within FAMILY_LOGP_ATOL, every learned
-    branch weight within FAMILY_WEIGHT_ATOL."""
+    branch weight within FAMILY_WEIGHT_ATOL (an encoder with ``weights``
+    must return some)."""
     _family_serve(engine, f"f32 {name}", batch, expect)
     ids_k, logp_k, lens_k, w_k = _family_outputs(engine, batch)
     _set_kernels(engine.model, False)
@@ -1966,7 +1997,8 @@ def _family_gate(engine, name: str, batch: dict, expect: dict) -> None:
     print(f"  f32 {name}: greedy ids identical to the eager path: {same}; max |CTC log-prob diff| {dlogp:.3e} "
           f"(tol {FAMILY_LOGP_ATOL:g}); {len(w_e)} learned branch weights, max |diff| {dw:.3e} "
           f"(tol {FAMILY_WEIGHT_ATOL:g})")
-    if not same or dlogp > FAMILY_LOGP_ATOL or set(w_k) != set(w_e) or not w_e or dw > FAMILY_WEIGHT_ATOL:
+    if not same or dlogp > FAMILY_LOGP_ATOL or set(w_k) != set(w_e) or bool(w_e) != weights \
+            or dw > FAMILY_WEIGHT_ATOL:
         raise AssertionError(f"f32 {name}: the kernel path disagrees with the eager path")
 
 
@@ -2375,6 +2407,199 @@ def maskctc_transducer_phase(device) -> dict:
     return out
 
 
+# -------------------------------------------------------- encoder variants
+#
+# The encoders on the Branchformer base at the repo's widths (12 blocks,
+# 256-d, 4 heads, 2048 FFN units, k = 31), seeded weights, the encoder
+# kernels on, from the repo's YAML with only the encoder keys named: the
+# Conformer ASR (K2 at (a), K1 at (b); no cgMLP, so no K3), the same with
+# the legacy rel-pos (its built bias through K2 at (b), K1 never), the
+# E-Branchformer (K2, K3), the conventional AVSR with Conformer stacks (K2
+# 24), the Transformer (abs_pos + selfattn: no kernel, as in JAX), and the
+# flagship with interCTC taps after layers 4 and 8 and audio-visual
+# conditioning; each f32 call held to the eager path; a bf16 train
+# micro-step of the Conformer and of the interCTC flagship. Readings: PERF.md.
+
+
+def _variant_engine(path: str, device, dtype: str, encoder: str = None, lm: bool = False, **encoder_conf):
+    """``_family_engine`` of the config at ``path`` with ``encoder`` (when
+    given) and ``encoder_conf`` keys set, beam 10 (the beam phase's)."""
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    cfg = load_config(path)
+    cfg.token_list = os.path.join(ROOT, cfg.token_list)
+    cfg.dtype = dtype
+    if encoder is not None:
+        cfg.encoder = encoder
+    cfg.encoder_conf = dict(cfg.encoder_conf, use_flash=True, use_fused_csgu=True, **encoder_conf)
+    cfg.inference_conf = dict(cfg.inference_conf, beam_size=10, nbest=2 if dtype == "float32" else 1)
+    lm_cfg = None
+    if lm:
+        lm_cfg = load_config(LM_CONFIG)
+        lm_cfg.token_list = os.path.join(ROOT, lm_cfg.token_list)
+    return Speech2Text(cfg, lm_config=lm_cfg, rng_seed=0, device=device)
+
+
+def _encoder_kernels(model, t: int, batch: int) -> dict:
+    """The launches one encode of ``batch`` utterances at T frames must make:
+    a rel-pos attention takes K1 when it may (the "latest" shift) and its
+    bias would reach 32 MiB, else K2 (a key-mask attention); every cgMLP
+    gate takes K3; no other attention launches a kernel."""
+    from tailored_avsr_tpu_torch.ops.attention import FLASH_RELPOS_MIN_BIAS_BYTES, RelPositionMultiHeadedAttention
+    from tailored_avsr_tpu_torch.ops.cgmlp import ConvolutionalSpatialGatingUnit
+
+    k = {"K1": 0, "K2": 0, "K3": 0}
+    for m in model.encoder.modules():
+        if isinstance(m, RelPositionMultiHeadedAttention):
+            big = batch * m.h * t * t * next(model.parameters()).element_size() >= FLASH_RELPOS_MIN_BIAS_BYTES
+            k["K1" if big and not (m.legacy or m.zero_triu) else "K2"] += 1
+        elif isinstance(m, ConvolutionalSpatialGatingUnit):
+            k["K3"] += 1
+    return k
+
+
+def _variant_served(name: str, bf16, f32, requests: dict, expect: dict, weights: bool = False) -> dict:
+    """The first bf16 call of each request (its launches ``expect[r]``), the
+    f32 gate against the eager path, then three warm bf16 calls (median)
+    and one profiled; returns the walls and busy times per request."""
+    out = {}
+    for r, req in requests.items():
+        t0 = time.perf_counter()
+        hyps = _family_serve(bf16, f"bf16 {name} request {r} (first call)", req, expect[r])
+        out[r] = {"first_call_ms": (time.perf_counter() - t0) * 1e3}
+        print(f"    sample transcript: {hyps[0][:40]!r}")
+        _family_gate(f32, f"{name} request {r}", req, expect[r], weights=weights)
+        out[r].update(greedy_profile(bf16, req, f"bf16 {name} request {r}", repeats=3))
+    return out
+
+
+def _variant_train(name: str, cfg, device, seed: int, smi: str) -> dict:
+    """Two bf16 train micro-steps (``make_train_step``, autocast over f32
+    master weights, 4 x 20 s) of ``cfg``: no kernel launched, every stat and
+    the accumulated gradients finite, each BatchNorm's running statistics
+    moved; the second micro-step's wall and the peak memory printed."""
+    from tailored_avsr_tpu_torch.inference import load_token_list
+    from tailored_avsr_tpu_torch.tasks.common import build_model
+    from tailored_avsr_tpu_torch.train.loop import create_train_state, make_train_step
+    from tailored_avsr_tpu_torch.train.optim import set_optimizer
+
+    ts = cfg.training_settings
+    tokens = load_token_list(cfg.token_list)
+    model = build_model(cfg, tokens, generator=torch.Generator().manual_seed(0), device=device, dtype=torch.float32)
+    opt, _ = set_optimizer(ts, int(cfg.encoder_conf["output_size"]), 1, model.named_parameters())
+    state = create_train_state(model, opt)
+    make_batch = _train_batch if cfg.task == "avsr" else _asr_train_batch
+    batches = [make_batch(seed + k, 4, 20.0, len(tokens), (250, 300), device) for k in range(2)]
+    running = {k: v.clone() for k, v in model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    step = make_train_step(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    walls, stats = [], {}
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = step(state, b)
+        stats = {k: float(v) for k, v in out.items()}
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if not all(np.isfinite(v) for v in stats.values()):
+            raise AssertionError(f"{name} train micro-step: stats not finite: {stats}")
+    grads = state.optimizer.acc if state.optimizer.acc is not None else list(model.parameters())
+    launches = _counts()
+    now = model.state_dict()
+    still = [k for k, v in running.items() if torch.equal(v, now[k])]
+    print(f"  {name}: bf16 train micro-steps (4 x 20 s): losses finite ({stats['loss']:.2f}), "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(stats.items()) if k.startswith("loss_"))
+          + f"; walls ms {walls[0]:.1f} (first), {walls[1]:.1f}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; {len(running)} BatchNorm "
+          f"running statistics, {len(running) - len(still)} moved (card {smi})")
+    if any(launches.values()) or not _finite(grads) or still:
+        raise AssertionError(f"{name} train: launches {launches}, gradients finite {_finite(grads)}, "
+                             f"running statistics not moved: {still[:4]}")
+    return {"stats": stats, "micro_step_ms": walls, "peak_bytes": int(torch.cuda.max_memory_allocated()),
+            "launches": launches}
+
+
+def encoder_variants_phase(device, smi: str) -> tuple:
+    """The encoder variants' paths in turn, counts set to 0 first, the
+    engines freed between them; returns (numbers, the phase's launch
+    counts)."""
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    out = {}
+    req_a, req_b = _speech_request(1, 32, 4, "asr"), _speech_request(2, 24, 20, "asr")
+    conformer = dict(encoder="conformer", cnn_module_kernel=31)
+    _reset_counts()
+
+    t0 = time.perf_counter()
+    bf16 = _variant_engine(ASR_CONFIG, device, "bfloat16", lm=True, **conformer)
+    f32 = _variant_engine(ASR_CONFIG, device, "float32", lm=True, **conformer)
+    expect = {"(a)": _encoder_kernels(f32.model, 99, 32), "(b)": _encoder_kernels(f32.model, 499, 24)}
+    print(f"Conformer ASR: 12 blocks, 256-d, k 31, rel-pos; expected launches a call {expect}")
+    out["conformer"] = _variant_served("Conformer ASR", bf16, f32, {"(a)": req_a, "(b)": req_b}, expect)
+    print("  Conformer ASR beam + 16-layer LM, beam 10, request (a)")
+    _nbest(bf16, "bf16 Conformer ASR beam (first call)", req_a)
+    hyp_f32 = _nbest(f32, "f32 Conformer ASR beam", req_a)
+    before = _counts()["K4"]
+    f32.fused_group_attend = False
+    hyp_plain = _nbest(f32, "f32 Conformer ASR beam, plain group attend", req_a)
+    f32.fused_group_attend = None
+    if _counts()["K4"] != before:
+        raise AssertionError("fused_group_attend: false launched the group-attend kernel")
+    _held_against_plain(hyp_f32, hyp_plain, "K4")
+    del bf16, f32
+    out["conformer"]["phase_s"] = time.perf_counter() - t0
+
+    cases = (
+        ("Conformer ASR, rel_pos_type legacy", "conformer_legacy", ASR_CONFIG, dict(conformer, rel_pos_type="legacy"),
+         {"(b)": req_b}),
+        # the YAML's learned_ave would win over the registry's concat default,
+        # and the E-Branchformer's conv merge runs under concat only
+        ("E-Branchformer ASR (concat merge, merge conv k 3)", "e_branchformer", ASR_CONFIG,
+         dict(encoder="e_branchformer", merge_method="concat"), {"(a)": req_a}),
+        ("conventional AVSR, Conformer stacks", "conventional_conformer", CONVENTIONAL_CONFIG,
+         dict(encoder_class_type="conformer"), {"(a)": _request(1, 32, 4)}),
+        ("Transformer ASR (abs_pos, selfattn, relu: no Pallas kernel in JAX either)", "transformer", ASR_CONFIG,
+         dict(encoder="transformer", attention_layer_type="selfattn", pos_enc_layer_type="abs_pos",
+              ffn_activation_type="relu"), {"(a)": req_a}),
+        ("flagship, interCTC after layers 4 and 8, audio-visual conditioning", "interctc", FLAGSHIP,
+         dict(interctc_layer_idx=[4, 8], interctc_use_conditioning=True, audiovisual_interctc_conditioning=True),
+         {"(a)": _request(1, 32, 4)}),
+    )
+    for title, key, path, conf, requests in cases:
+        t0 = time.perf_counter()
+        bf16 = _variant_engine(path, device, "bfloat16", **conf)
+        f32 = _variant_engine(path, device, "float32", **conf)
+        # encoder frames: the lip frames of an AVSR request, 99 / 499 from 4 s / 20 s of audio
+        expect = {r: _encoder_kernels(f32.model, req["video"].shape[1] if "video" in req else
+                                      {"(a)": 99, "(b)": 499}[r], _utterances(req)) for r, req in requests.items()}
+        print(f"{title}: expected launches a call {expect}")
+        out[key] = _variant_served(title, bf16, f32, requests, expect)
+        out[key]["phase_s"] = time.perf_counter() - t0
+        del bf16, f32
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = load_config(ASR_CONFIG)
+    cfg.token_list = os.path.join(ROOT, cfg.token_list)
+    cfg.encoder = "conformer"
+    cfg.encoder_conf = dict(cfg.encoder_conf, cnn_module_kernel=31)
+    launches = _counts()
+    out["conformer_train"] = _variant_train("Conformer ASR", cfg, device, 70, smi)
+    cfg = _flagship_train_cfg(interctc_layer_idx=[4, 8], interctc_use_conditioning=True,
+                              audiovisual_interctc_conditioning=True)
+    cfg.model_conf = dict(cfg.model_conf, interctc_weight=0.3)
+    out["interctc_train"] = _variant_train("flagship with interCTC (weight 0.3)", cfg, device, 80, smi)
+    if not {"loss_interctc_layer4", "loss_interctc_layer8"} <= set(out["interctc_train"]["stats"]):
+        raise AssertionError(f"the interCTC train step reported no tap losses: {out['interctc_train']['stats']}")
+    out["train_phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"  launches over the encoder variants' serving paths: {launches}")
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4", "K5")) <= 0:
+        raise AssertionError(f"a kernel of the encoder variants' paths never launched: {launches}")
+    return out, launches
+
+
 # ----------------------------------------------------------- serving modes
 #
 # The engine's other decode modes on the flagship + 16-layer LM at request
@@ -2631,8 +2856,8 @@ def _quantized_f32_cache_phase(device, req, layers: int) -> dict:
 def serving_modes_phase(device) -> tuple:
     """Every decode mode of the engine at full width (flagship + 16-layer
     LM, beam 10, request (a) unless named), counts set to 0 first; bf16
-    walls (median of 3 warm calls) and a profiled call of each mode; the
-    f32 gates. Returns (numbers, the path's launch counts)."""
+    walls (one warm call) and a profiled call of each mode; the f32 gates.
+    Returns (numbers, the path's launch counts)."""
     import dataclasses as dc
 
     from tailored_avsr_tpu_torch.decode.ngram import NgramScorer
@@ -2649,7 +2874,7 @@ def serving_modes_phase(device) -> tuple:
     walls = {}
 
     def wall(name, engine, batch=req):
-        walls[name] = call_profile(lambda: engine.nbest(batch), f"bf16 {name}", repeats=3, host_events=False)
+        walls[name] = call_profile(lambda: engine.nbest(batch), f"bf16 {name}", repeats=1, host_events=False)
 
     print(f"serving modes: flagship + 16-layer LM, beam 10, request (a) 32 x 4 s ({layers} cached layers)")
     _reset_counts()
@@ -3137,11 +3362,17 @@ def main() -> int:
     build.load()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s ({build.library_path().name})")
 
+    seconds = {}
+    t0 = time.perf_counter()
     print("kernel phases (kernel vs plain version on the card):")
     phases = kernel_phases(device)
     phases.update(beam_kernel_phases(device))
     phases.update(probe_phase(device))
+    seconds["kernel phases"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     launches = serve_phase(device)
+    seconds["flagship greedy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     req = _request(1, 32, 4)
     print("beam path: flagship + 16-layer 512-d LM, beam 10, ctc 0.1, lm 0.4, seeded weights, "
           "request (a) 32 x 4 s (T=100, Lc=104)")
@@ -3157,10 +3388,12 @@ def main() -> int:
     same = sum(g[0][2] == w[0][2] for g, w in zip(hyp_int8, hyp_exact))
     print(f"  bf16 int8 1-best equal to the exact bf16 run's on {same}/{len(hyp_exact)} utterances "
           "(not gated: int8 is not exact by design, and the weights are random)")
+    seconds["flagship beam and int8 beam"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     modes, modes_launches = serving_modes_phase(device)
-    print(f"  (serving modes phase: {time.perf_counter() - t0:.1f} s)")
+    seconds["serving modes"] = time.perf_counter() - t0
+    print(f"  (serving modes phase: {seconds['serving modes']:.1f} s)")
     print(json.dumps({"serving_modes": {**modes, "card": smi}}))
 
     sources = {
@@ -3183,13 +3416,17 @@ def main() -> int:
                "scripts/bench_int8_stream.py:34"),
     }
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     train = flagship_train_phase(device, smi)
     card_vs_cpu_phase(device)
     canary = learning_canary(device)
+    seconds["flagship train"] = time.perf_counter() - t0
     train_launches, eval_launches = train.pop("train_launches"), train.pop("eval_launches")
     print(json.dumps({"train": {**train, "canary": canary}}))
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     family = branchformer_phase(device)
+    seconds["branchformer"] = time.perf_counter() - t0
     family_launches = {
         "asr_greedy": family["asr"].pop("greedy_launches"), "asr_beam": family["asr"].pop("beam_launches"),
         "vsr_greedy": family["vsr"].pop("greedy_launches"),
@@ -3198,7 +3435,9 @@ def main() -> int:
     }
     print(json.dumps({"branchformer": family}))
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     mt = maskctc_transducer_phase(device)
+    seconds["maskctc and transducer"] = time.perf_counter() - t0
     mt_launches = {
         "maskctc_nbest": mt["maskctc"].pop("launches"),
         "transducer_greedy": mt["transducer"].pop("greedy_launches"),
@@ -3209,9 +3448,17 @@ def main() -> int:
     print(json.dumps({"maskctc_transducer": {**mt, "card": smi}}))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    variants, variants_launches = encoder_variants_phase(device, smi)
+    seconds["encoder variants"] = time.perf_counter() - t0
+    print(f"  (encoder variants phase: {seconds['encoder variants']:.1f} s)")
+    print(json.dumps({"encoder_variants": {**variants, "card": smi}}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     recipe, recipe_launches = recipe_phase(device, smi)
-    print(f"  (recipe phase: {time.perf_counter() - t0:.1f} s)")
+    seconds["recipe"] = time.perf_counter() - t0
+    print(f"  (recipe phase: {seconds['recipe']:.1f} s)")
     print(json.dumps({"recipe": recipe, "card": smi}))
+    print(json.dumps({"phase_seconds": seconds, "card": smi}))
 
     kernels = []
     for key, (name, source, replaces) in sources.items():
@@ -3225,7 +3472,10 @@ def main() -> int:
                         "launches_maskctc_transducer": {path: c[key] for path, c in mt_launches.items()},
                         "launches_serving_modes": modes_launches[key],
                         "launches_recipe": recipe_launches[key],
-                        **({"mixed_pairs": modes["k4_mixed"]} if key == "K4" else {})})
+                        "launches_encoder_variants": variants_launches[key],
+                        **({"mixed_pairs": modes["k4_mixed"], "decoder_shape_h4": phases["K4 decoder", "bf16"]}
+                           if key == "K4" else {}),
+                        **({"one_layer": phases["K5 layer", "bf16"]} if key == "K5" else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

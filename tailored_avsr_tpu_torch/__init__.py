@@ -22,11 +22,15 @@ multi-blank and ALSD beam decoding, on the ASR Branchformer of
 ``configs/ASR/branchformer_transducer_spanish.yaml``), so every model
 config of ``configs/`` builds, serves and trains; with activation
 recomputation (``training_settings remat``) and a config ``init`` scheme;
+the other encoders on the Branchformer base (E-Branchformer, Conformer,
+Transformer, Longformer, the conventional encoder's Conformer stacks)
+with every attention and positional-encoding type, interCTC taps and
+conditioning, and the ``word`` / none token types;
 and the rest of the paper's recipe: the Transformer-LM trainer and the
 analysis scripts, each run with ``python -m``:
 
-- ``ops/``     : frontends, MVN, subsampling, positional encodings, rel-pos
-                 and absolute multi-head attention, cgMLP, FFN, the int8
+- ``ops/``     : frontends, MVN, subsampling, positional encodings, rel-pos,
+                 absolute and Fastformer attention, cgMLP, FFN, the int8
                  column quantiser (``kv_quant.py``), losses, SpecAug, the
                  RNN-T loss, networks and greedy decoders (``rnnt.py``), plus
                  the wrappers of the hand-written CUDA kernels
@@ -34,7 +38,8 @@ analysis scripts, each run with ``python -m``:
                  ``group_attend.py``, ``cache_update.py``,
                  ``stream_probe.py``);
 - ``models/``  : Conv3D + ResNet-18 visual frontend, AVSR embeddings, the
-                 tailored, Branchformer and conventional encoders, adaptive
+                 tailored, Branchformer, Conformer, Transformer /
+                 Longformer and conventional encoders, adaptive
                  fusion, CTC head, the Transformer and MLM decoders, the
                  Transformer LM, the AVSR and ASR / VSR models and their
                  Mask-CTC variants, activation recomputation (``remat.py``);

@@ -80,6 +80,7 @@ import torch
 from torch.nn.utils import parametrize
 
 from tailored_avsr_tpu_torch import not_ported
+from tailored_avsr_tpu_torch.data.tokenizer import get_tokenizer_converter
 from tailored_avsr_tpu_torch.decode.beam_search import (
     BeamSearchConfig,
     BeamSearchResult,
@@ -101,9 +102,6 @@ from tailored_avsr_tpu_torch.tasks.common import build_model, resolve_device, ta
 from tailored_avsr_tpu_torch.train.checkpoint import load_model, read_state_dict
 from tailored_avsr_tpu_torch.utils.convert import lm_state_dict
 from tailored_avsr_tpu_torch.utils.quantize import quantize_model
-
-_SPACE = "<space>"
-
 
 def load_token_list(token_list) -> List[str]:
     """A token-list file (one token per line) or a list of tokens."""
@@ -226,9 +224,9 @@ class Speech2Text:
         if mesh is not None:
             raise not_ported("mesh-parallel decoding", 9)
         self.task = task_of(config)
-        token_type = getattr(config, "token_type", "char")
-        if token_type != "char":
-            raise not_ported(f"token_type {token_type!r}", 8)
+        # char, word or none (a YAML null: tokens joined by spaces); bpe
+        # needs sentencepiece, as in the JAX engine
+        self.tokenizer, _ = get_tokenizer_converter(config)
         inf = _normalize_inference_conf(dict(getattr(config, "inference_conf", {}) or {}), config)
         self.dtype = (
             torch.bfloat16
@@ -373,8 +371,7 @@ class Speech2Text:
             for j in range(tokens.shape[1]):
                 ids = [int(t) for t in tokens[i, j, first:first + lengths[i, j]]]
                 toks = [self.token_list[t] for t in ids]
-                text = "".join(" " if t == _SPACE else t for t in toks)
-                hyps.append((text, toks, ids, float(scores[i, j])))
+                hyps.append((self.text(toks), toks, ids, float(scores[i, j])))
             results.append(hyps)
         return results
 
@@ -642,7 +639,10 @@ class Speech2Text:
         with torch.inference_mode(), parametrize.cached():
             ids, lens = self.model.ctc_greedy(*self.inputs(batch))
         hyps = ctc_greedy_collapse(ids.cpu().numpy(), lens.cpu().numpy())
-        return [
-            "".join(" " if t == _SPACE else t for t in (self.token_list[i] for i in h))
-            for h in hyps
-        ]
+        return [self.text([self.token_list[i] for i in h]) for h in hyps]
+
+    def text(self, tokens: List[str]) -> str:
+        """A hypothesis' text: the tokenizer's (``token_type`` char: ``<space>``
+        is a space; word: tokens joined by spaces), or the tokens joined by
+        spaces without one."""
+        return self.tokenizer.tokens2text(tokens) if self.tokenizer else " ".join(tokens)

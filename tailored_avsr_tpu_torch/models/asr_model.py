@@ -2,10 +2,15 @@
 (counterpart of ``ASRModel`` in ``tailored_avsr_tpu/models/asr_model.py``).
 
 encode: frontend (log-mel, or the Conv3D + ResNet-18 lip frontend) ->
-SpecAug (training only) -> normalisation -> encoder (the Branchformer).
-``forward`` is the hybrid loss ``ctc_weight * ctc + (1 - ctc_weight) *
-att`` with its stats (``loss``, ``loss_ctc``, ``loss_att``, ``acc``, with
-``return_ctc_argmax`` the greedy ids, and the encoder's ``branch_weights``);
+SpecAug (training only) -> normalisation -> encoder (Branchformer,
+E-Branchformer, Conformer, Transformer or Longformer; the CTC head goes in
+for interCTC conditioning). ``forward`` is the hybrid loss ``ctc_weight *
+ctc + (1 - ctc_weight) * att`` with its stats (``loss``, ``loss_ctc``,
+``loss_att``, ``acc``, with ``return_ctc_argmax`` the greedy ids, and the
+encoder's ``branch_weights``); with ``interctc_weight`` and interCTC taps
+the CTC term is ``(1 - w) * ctc + w * mean of the taps' CTC losses``
+(``loss_interctc_layer{l}`` each), or the taps' mean alone when
+``ctc_weight`` is 0, which then mixes with the attention loss by ``w``.
 ``hybrid_loss`` computes it for this model and for ``AVSRModel``. With a
 transducer branch (``joint_network``; the prediction network is the
 ``decoder`` module, as in the reference's key grammar) the loss is
@@ -66,11 +71,13 @@ def nll(model: nn.Module, enc_out: torch.Tensor, enc_lens: torch.Tensor, ys_pad:
 
 
 def hybrid_loss(model: nn.Module, enc_out, enc_lens, text, text_lengths, return_ctc_argmax: bool = False,
-                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                generator: Optional[torch.Generator] = None,
+                intermediate_outs=()) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """``model``'s loss over its encoder output (f32) and its stats
-    (``tailored_avsr_tpu/models/asr_model.py:117-198`` without the interCTC
-    terms, which the port refuses): the transducer's ``rnnt + ctc_weight *
-    ctc``, or the hybrid CTC/attention loss, whose targets come from
+    (``tailored_avsr_tpu/models/asr_model.py:117-198``): the CTC term with
+    the interCTC taps ``intermediate_outs`` ``[(layer, out)]`` mixed in by
+    ``interctc_weight``, then the transducer's ``rnnt + ctc_weight * ctc``,
+    or the hybrid CTC/attention loss, whose targets come from
     ``model.attention_targets`` (the Mask-CTC draws from ``generator``).
     ``text`` is (B, L) padded with ``ignore_id``."""
     stats: Dict[str, Any] = {}
@@ -78,6 +85,14 @@ def hybrid_loss(model: nn.Module, enc_out, enc_lens, text, text_lengths, return_
     if model.ctc_weight != 0.0:
         loss_ctc = model.ctc.loss(enc_out, enc_lens, text, text_lengths)
         stats["loss_ctc"] = loss_ctc
+    if model.interctc_weight != 0.0 and intermediate_outs:
+        loss_inter = 0.0
+        for layer, out in intermediate_outs:  # the taps keep the encoder's lengths
+            stats[f"loss_interctc_layer{layer}"] = loss_ic = model.ctc.loss(out, enc_lens, text, text_lengths)
+            loss_inter = loss_inter + loss_ic
+        loss_inter = loss_inter / len(intermediate_outs)
+        w = model.interctc_weight
+        loss_ctc = loss_inter if loss_ctc is None else (1 - w) * loss_ctc + w * loss_inter
     if model.joint_network is not None:
         loss_tr = transducer_loss(model, enc_out, enc_lens, text, text_lengths)
         stats["loss_transducer"] = loss_tr
@@ -92,7 +107,12 @@ def hybrid_loss(model: nn.Module, enc_out, enc_lens, text, text_lengths, return_
         stats["loss_att"], stats["acc"] = loss_att, token_accuracy(logits, ys_out, model.ignore_id)
         if model.is_maskctc:
             stats["loss_mlm"] = loss_att
-        loss = loss_att if loss_ctc is None else model.ctc_weight * loss_ctc + (1 - model.ctc_weight) * loss_att
+        if loss_ctc is None:
+            loss = loss_att
+        elif model.ctc_weight == 0.0:  # the interCTC term alone: mixed by its weight
+            loss = (1 - model.interctc_weight) * loss_att + model.interctc_weight * loss_ctc
+        else:
+            loss = model.ctc_weight * loss_ctc + (1 - model.ctc_weight) * loss_att
     stats["loss"] = loss
     if return_ctc_argmax:
         stats["ctc_argmax"] = model.ctc.argmax(enc_out)
@@ -118,6 +138,7 @@ class ASRModel(nn.Module):
         prediction_network: Optional[nn.Module] = None,
         transducer_multi_blank_durations: Tuple[int, ...] = (),
         transducer_multi_blank_sigma: float = 0.05,
+        interctc_weight: float = 0.0,
     ):
         super().__init__()
         self.vocab_size = vocab_size
@@ -133,6 +154,7 @@ class ASRModel(nn.Module):
         self.transducer_multi_blank_sigma = float(transducer_multi_blank_sigma)
         self.ctc = ctc
         self.ctc_weight = float(ctc_weight)
+        self.interctc_weight = float(interctc_weight)
         self.ignore_id = ignore_id
         self.lsm_weight = float(lsm_weight)
         self.length_normalized_loss = bool(length_normalized_loss)
@@ -155,7 +177,7 @@ class ASRModel(nn.Module):
     def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
                generator: Optional[torch.Generator] = None):
         """Returns (encoder_out (B, T, D), encoder_out_lens (B,), aux with
-        the encoder's ``branch_weights``)."""
+        the encoder's ``branch_weights`` and ``intermediate_outs``)."""
         feats, lens = speech, speech_lengths
         if self.frontend is not None:  # the lip frontend's BatchNorm follows the train flag
             feats, lens = self.frontend(speech, speech_lengths)
@@ -163,7 +185,8 @@ class ASRModel(nn.Module):
             feats, lens = self.specaug(feats, lens, generator)
         if self.normalize is not None:
             feats, lens = self.normalize(feats, lens)
-        return self.encoder(feats, lens, generator)
+        return self.encoder(feats, lens, generator,
+                            ctc=self.ctc if self.encoder.conditioning_layer is not None else None)
 
     def forward(
         self,
@@ -175,7 +198,8 @@ class ASRModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         enc_out, enc_lens, enc_aux = self.encode(speech, speech_lengths, generator)
-        loss, stats = hybrid_loss(self, enc_out, enc_lens, text, text_lengths, return_ctc_argmax, generator)
+        loss, stats = hybrid_loss(self, enc_out, enc_lens, text, text_lengths, return_ctc_argmax, generator,
+                                  enc_aux["intermediate_outs"])
         if enc_aux.get("branch_weights"):
             stats["branch_weights"] = enc_aux["branch_weights"]
         return loss, stats

@@ -6,10 +6,14 @@ only), utterance MVN on the audio, embed layers, alignment of the two
 streams by padding the shorter one (pad value = ignore_id), per-modality
 pos-enc, the tailored or the conventional encoder, adaptive fusion.
 
+With interCTC taps in the encoder, the model's fusion module goes into it
+(each tap is the fused pair of stream taps) and, with
+``interctc_use_conditioning``, its CTC head.
+
 ``forward`` is the hybrid CTC/attention loss of
 ``tailored_avsr_tpu/models/avsr_model.py:155-237`` (``models/asr_model.py``
-``hybrid_loss``, shared with the ASR model): ``(loss, stats)`` with ``loss``,
-``loss_ctc``, ``loss_att``, ``acc`` and, with ``return_ctc_argmax``,
+``hybrid_loss``, shared with the ASR model, interCTC included): ``(loss,
+stats)`` with ``loss``, ``loss_ctc``, ``loss_att``, ``acc`` and, with ``return_ctc_argmax``,
 ``ctc_argmax`` / ``ctc_argmax_lens``; a transducer branch or a Mask-CTC
 model (``models/maskctc.py``) as in ``hybrid_loss``. ``model.train()`` is the JAX
 ``deterministic=False`` (dropout, SpecAug, stochastic depth, branch drop,
@@ -53,6 +57,7 @@ class AVSRModel(nn.Module):
         prediction_network: Optional[nn.Module] = None,
         transducer_multi_blank_durations: Tuple[int, ...] = (),
         transducer_multi_blank_sigma: float = 0.05,
+        interctc_weight: float = 0.0,
     ):
         super().__init__()
         self.vocab_size = vocab_size
@@ -73,6 +78,7 @@ class AVSRModel(nn.Module):
         self.transducer_multi_blank_sigma = float(transducer_multi_blank_sigma)
         self.ignore_id = ignore_id
         self.ctc_weight = float(ctc_weight)
+        self.interctc_weight = float(interctc_weight)
         self.lsm_weight = float(lsm_weight)
         self.length_normalized_loss = bool(length_normalized_loss)
 
@@ -130,7 +136,9 @@ class AVSRModel(nn.Module):
         v_feats, v_pos = self.visual_embed.apply_pos_enc(v_feats)
 
         a_out, a_mask, v_out, v_mask, enc_aux = self.encoder(
-            a_feats, a_pos, a_mask, v_feats, v_pos, v_mask, generator)
+            a_feats, a_pos, a_mask, v_feats, v_pos, v_mask, generator,
+            ctc=self.ctc if self.encoder.conditioning_layer is not None else None,
+            audiovisual_fusion=self.audiovisual_fusion if self.encoder.interctc_layers else None)
         enc_out, av_mask, fusion_weights = self.audiovisual_fusion(
             a_out, a_mask, v_out, v_mask, generator)
         return enc_out, mask_lengths(av_mask), dict(enc_aux, fusion_weights=fusion_weights)
@@ -150,7 +158,8 @@ class AVSRModel(nn.Module):
         its stats (``models/asr_model.hybrid_loss``). ``text`` is (B, L)
         padded with ``ignore_id``."""
         enc_out, enc_lens, enc_aux = self.encode(audio, audio_lengths, video, video_lengths, generator)
-        loss, stats = hybrid_loss(self, enc_out, enc_lens, text, text_lengths, return_ctc_argmax, generator)
+        loss, stats = hybrid_loss(self, enc_out, enc_lens, text, text_lengths, return_ctc_argmax, generator,
+                                  enc_aux["intermediate_outs"])
         if enc_aux["fusion_weights"]:
             stats["fusion_weights"] = enc_aux["fusion_weights"]
         return loss, stats

@@ -1,18 +1,20 @@
 """Conventional audio-visual encoder: two independent per-modality stacks of
-Branchformer layers (counterpart of ``tailored_avsr_tpu/models/conventional.py``).
+Branchformer or Conformer layers (counterpart of
+``tailored_avsr_tpu/models/conventional.py``).
 
 The AVSR embeddings own the input projections and the positional encoding;
-each stream runs through its own ``num_blocks`` Branchformer layers
+each stream runs through its own ``num_blocks`` layers
 (``acoustic_encoder.encoders`` / ``visual_encoder.encoders``, the layers
 zipped: acoustic layer i, then visual layer i) and its own ``after_norm``.
-The learned merge weights come back as ``branch_weights``
-``[(layer, {"acoustic": aux, "visual": aux})]``. ``use_fused_csgu`` routes
-the cgMLP gates through K3 (the JAX encoder has no such field and runs its
-plain gate, the same function).
-
-Refused, naming ``ROADMAP.md`` item 8: Conformer stacks
-(``encoder_class_type: conformer``), interCTC taps and conditioning, and
-attention types other than ``rel_selfattn``.
+``encoder_class_type: conformer`` builds Conformer layers
+(``cnn_module_kernel``; ``models/conformer.py``), else Branchformer ones of
+``attention_layer_type``. The learned merge weights come back as
+``branch_weights`` ``[(layer, {"acoustic": aux, "visual": aux})]``.
+``use_fused_csgu`` routes the cgMLP gates through K3 (the JAX encoder has
+no such field and runs its plain gate, the same function). interCTC taps
+and their (audio-visual) conditioning are the tailored encoder's
+(``models/tailored.AudioVisualInterCTC``), each stream tapped after its
+own ``after_norm``.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
-from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoderLayer, per_layer, run_layer
+from tailored_avsr_tpu_torch.models.conformer import ConformerEncoderLayer
+from tailored_avsr_tpu_torch.models.tailored import AudioVisualInterCTC
 
 _LN_EPS = 1e-6  # flax LayerNorm default
 
@@ -40,7 +43,7 @@ class _ModalityStack(nn.Module):
         return self.after_norm(x) if self.after_norm is not None else x
 
 
-class ConventionalEncoder(nn.Module):
+class ConventionalEncoder(AudioVisualInterCTC, nn.Module):
     def __init__(
         self,
         output_size: int = 256,
@@ -63,30 +66,39 @@ class ConventionalEncoder(nn.Module):
         normalize_before: bool = True,
         use_flash: bool = False,
         use_fused_csgu: bool = False,
+        encoder_class_type: str = "branchformer",
+        cnn_module_kernel: int = 31,
+        interctc_layer_idx: Sequence[int] = (),
+        interctc_use_conditioning: bool = False,
+        audiovisual_interctc_conditioning: bool = False,
+        vocab_size: Optional[int] = None,  # the conditioning layer's input width
         *,
         device=None,
         dtype=None,
     ):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        if attention_layer_type != "rel_selfattn":
-            raise not_ported(f"ConventionalEncoder attention_layer_type {attention_layer_type!r}", 8)
         cgw = per_layer(cgmlp_weight, num_blocks, "cgmlp_weight")
         abd = per_layer(attn_branch_drop_rate, num_blocks, "attn_branch_drop_rate")
         sdr = per_layer(stochastic_depth_rate, num_blocks, "stochastic_depth_rate")
 
-        def stack():
-            return _ModalityStack(
-                [BranchformerEncoderLayer(
-                    output_size, attention_heads, attention_dropout_rate, True, True, cgmlp_linear_units,
-                    cgmlp_conv_kernel, use_linear_after_conv, gate_activation, linear_units,
-                    ffn_activation_type, macaron, dropout_rate, merge_method, cgw[i], abd[i], sdr[i],
-                    use_flash, use_fused_csgu, **kw)
-                 for i in range(num_blocks)],
-                output_size, normalize_before, **kw)
+        def layer(i):
+            if encoder_class_type == "conformer":
+                return ConformerEncoderLayer(
+                    output_size, attention_heads, attention_layer_type, attention_dropout_rate, cnn_module_kernel,
+                    linear_units, ffn_activation_type, macaron, dropout_rate, sdr[i], use_flash, **kw)
+            return BranchformerEncoderLayer(
+                output_size, attention_heads, attention_dropout_rate, True, True, cgmlp_linear_units,
+                cgmlp_conv_kernel, use_linear_after_conv, gate_activation, linear_units, ffn_activation_type,
+                macaron, dropout_rate, merge_method, cgw[i], abd[i], sdr[i], use_flash, use_fused_csgu,
+                attention_layer_type, **kw)
 
-        self.acoustic_encoder = stack()
-        self.visual_encoder = stack()
+        self.acoustic_encoder = _ModalityStack([layer(i) for i in range(num_blocks)], output_size,
+                                               normalize_before, **kw)
+        self.visual_encoder = _ModalityStack([layer(i) for i in range(num_blocks)], output_size,
+                                             normalize_before, **kw)
+        self.init_interctc(output_size, interctc_layer_idx, interctc_use_conditioning,
+                           audiovisual_interctc_conditioning, vocab_size, **kw)
 
     def forward(
         self,
@@ -97,14 +109,21 @@ class ConventionalEncoder(nn.Module):
         video_pos_emb: torch.Tensor,
         video_mask: Optional[torch.Tensor],
         generator: Optional[torch.Generator] = None,
+        ctc: Optional[nn.Module] = None,
+        audiovisual_fusion: Optional[nn.Module] = None,
     ):
         """Returns (audio, audio_mask, video, video_mask, aux), both streams
-        after their ``after_norm``; ``generator`` (CPU) draws the coins."""
-        branch_weights = []
+        after their ``after_norm``, aux's ``intermediate_outs`` the fused
+        taps; ``generator`` (CPU) draws the coins."""
+        branch_weights, intermediate_outs = [], []
         for i, (a_layer, v_layer) in enumerate(zip(self.acoustic_encoder.encoders, self.visual_encoder.encoders)):
             audio, a_aux = run_layer(a_layer, generator, audio, audio_pos_emb, audio_mask)
             video, v_aux = run_layer(v_layer, generator, video, video_pos_emb, video_mask)
             if a_aux or v_aux:
                 branch_weights.append((i + 1, {"acoustic": a_aux, "visual": v_aux}))
+            if i + 1 in self.interctc_layers:
+                audio, video = self.interctc_tap(
+                    i + 1, self.acoustic_encoder.norm(audio), self.visual_encoder.norm(video), audio, audio_mask,
+                    video, video_mask, intermediate_outs, ctc, audiovisual_fusion, generator)
         return (self.acoustic_encoder.norm(audio), audio_mask, self.visual_encoder.norm(video), video_mask,
-                {"intermediate_outs": [], "branch_weights": branch_weights})
+                {"intermediate_outs": intermediate_outs, "branch_weights": branch_weights})

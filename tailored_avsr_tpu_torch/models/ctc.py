@@ -1,6 +1,7 @@
 """CTC head: encoder features -> vocabulary logits, and its loss
 (counterpart of ``tailored_avsr_tpu/models/ctc.py``): input dropout, then
-``ops/losses.ctc_loss``."""
+``ops/losses.ctc_loss``; posteriors for interCTC conditioning, f32
+log-probs and best-path ids for decoding."""
 
 from __future__ import annotations
 
@@ -24,6 +25,11 @@ class CTCHead(nn.Module):
     def loss(self, x: torch.Tensor, lengths: torch.Tensor, labels: torch.Tensor,
              label_lengths: torch.Tensor, reduce: bool = True) -> torch.Tensor:
         return ctc_loss(self(x), lengths, labels, label_lengths, reduce=reduce)
+
+    def softmax(self, x: torch.Tensor) -> torch.Tensor:
+        """Posteriors in the logits' dtype (interCTC conditioning), as the
+        JAX head's ``jax.nn.softmax``."""
+        return torch.softmax(self(x), dim=-1)
 
     def log_softmax(self, x: torch.Tensor) -> torch.Tensor:
         # f32 log-probs even in a bf16 graph, as in the JAX head

@@ -4,7 +4,10 @@
 Audio uses Conv2dSubsampling (x4 in time) without pos-enc; video uses
 Linear(512 -> d) + LayerNorm + Dropout. ``apply_embed_layer`` runs before
 the temporal alignment of the two streams and ``apply_pos_enc`` after it, so
-both streams share one positional index space.
+both streams share one positional index space. The positional encoding is
+``rel_pos`` (``legacy_rel_pos`` under ``rel_pos_type: legacy``),
+``legacy_rel_pos``, ``abs_pos`` or ``scaled_abs_pos``; the absolute ones
+give no table (``pos_emb`` None).
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tailored_avsr_tpu_torch.ops.posenc import RelPositionalEncoding
+from tailored_avsr_tpu_torch.ops.posenc import RELATIVE, positional_encoding
 from tailored_avsr_tpu_torch.ops.subsampling import Conv2dSubsampling, subsampled_length
 
 _LN_EPS = 1e-6  # flax LayerNorm default
@@ -34,11 +37,6 @@ class DefaultEmbeddingLayerForAVSR(nn.Module):
     ):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        if (pos_enc_layer_type, rel_pos_type) != ("rel_pos", "latest"):
-            raise NotImplementedError(
-                f"embedding pos_enc_layer_type={pos_enc_layer_type!r} rel_pos_type="
-                f"{rel_pos_type!r} is not ported (ROADMAP 'Modules to port' item 8)"
-            )
         self.input_layer = input_layer
         if input_layer == "conv2d":
             self.embed = Conv2dSubsampling(input_size, output_size, 4, **kw)
@@ -50,7 +48,10 @@ class DefaultEmbeddingLayerForAVSR(nn.Module):
             )
         else:
             raise ValueError(f"unknown input_layer: {input_layer}")
-        self.pos_enc = RelPositionalEncoding(positional_dropout_rate)
+        if rel_pos_type == "legacy" and pos_enc_layer_type == "rel_pos":
+            pos_enc_layer_type = "legacy_rel_pos"
+        self.relative = pos_enc_layer_type in RELATIVE
+        self.pos_enc = positional_encoding(pos_enc_layer_type, positional_dropout_rate, **kw)
 
     def apply_embed_layer(self, x: torch.Tensor, lengths: torch.Tensor):
         """Project a stream to d_model before temporal alignment."""
@@ -60,5 +61,5 @@ class DefaultEmbeddingLayerForAVSR(nn.Module):
         return x, lengths
 
     def apply_pos_enc(self, x: torch.Tensor):
-        """Positional encoding after alignment: (x * sqrt(d), pos_emb)."""
-        return self.pos_enc(x)
+        """Positional encoding after alignment: (x, pos_emb or None)."""
+        return self.pos_enc(x) if self.relative else (self.pos_enc(x), None)

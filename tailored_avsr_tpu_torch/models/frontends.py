@@ -52,6 +52,11 @@ class _BiasedRunningVar:
         return y
 
 
+class FlaxBatchNorm1d(_BiasedRunningVar, nn.BatchNorm1d):
+    """On (B, C, T): the Conformer conv module's BatchNorm, over every
+    (B, T) position, padded frames included, as flax's runs over (B, T, C)."""
+
+
 class FlaxBatchNorm2d(_BiasedRunningVar, nn.BatchNorm2d):
     pass
 

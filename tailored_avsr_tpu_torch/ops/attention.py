@@ -1,15 +1,19 @@
-"""Multi-head attention: the decoder's and the LM's absolute MHA with its
-beam-step forms, and the encoder's relative-position self-attention
+"""Multi-head attention: the absolute MHA (the decoder's and the LM's, with
+their beam-step forms, and the ``selfattn`` encoder self-attention under a
+(B, T) key mask or Longformer's (B, T, T) band), the encoder's
+relative-position self-attention, and Fastformer's additive attention
 (counterpart of ``tailored_avsr_tpu/ops/attention.py:58-412`` and
-``:480-603``).
+``:480-660``).
 
 Rel-pos routing follows the JAX module: with ``use_flash`` outside training
 and a key-side mask, the in-kernel rel-pos flash kernel (K1) runs once the
 materialised (B, H, T, T) bias would reach 32 MiB, and below that the bias
-is built here and streamed through the flash kernel (K2). Otherwise the
-eager formulation runs. The 32 MiB switch was measured on the TPU and is
-kept so both kernels sit on the serving path. On the H100 bf16 K1 is the
-faster route at both of the flagship's request shapes (T = 100 and 500:
+is built here and streamed through the flash kernel (K2). The legacy shift
+and ``zero_triu`` always build their bias and take K2: K1 computes the
+"latest" shift of a (2T-1)-row table and nothing else. Otherwise the eager
+formulation runs. The 32 MiB switch was measured on the TPU and is kept so
+both kernels sit on the serving path. On the H100 bf16 K1 is the faster
+route at both of the flagship's request shapes (T = 100 and 500:
 ``chip_smoke.py`` times it beside the built bias streamed through K2).
 
 The beam step's self-attention over the ancestry cache
@@ -266,10 +270,23 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h, t, 2 * t - 1)[..., :t]
 
 
+def legacy_rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """Transformer-XL's original shift of (B, H, T, T) scores against the
+    legacy (T-row) table: out[..., i, j] = x[..., i, T-1-(i-j)] for j <= i;
+    the entries with j > i are the fold's artifacts, as in the legacy
+    espnet code."""
+    b, h, t, _ = x.shape
+    x = torch.nn.functional.pad(x, (1, 0))  # (b, h, t, t+1)
+    return x.reshape(b, h, t + 1, t)[:, :, 1:, :].reshape(b, h, t, t)
+
+
 class RelPositionMultiHeadedAttention(nn.Module):
     """Transformer-XL style relative-position MHA with learned u/v biases.
 
-    ``pos_emb`` is the (1, 2T-1, D) table from ``RelPositionalEncoding``.
+    ``pos_emb`` is the (1, 2T-1, D) table from ``RelPositionalEncoding``, or
+    with ``legacy`` the (1, T, D) table from ``LegacyRelPositionalEncoding``
+    (espnet's pre-2020 ``legacy_rel_selfattn``). ``zero_triu`` zeroes the
+    positional term above the diagonal.
     """
 
     def __init__(
@@ -278,6 +295,8 @@ class RelPositionMultiHeadedAttention(nn.Module):
         num_heads: int,
         dropout_rate: float = 0.0,
         use_flash: bool = False,
+        zero_triu: bool = False,
+        legacy: bool = False,
         *,
         device=None,
         dtype=None,
@@ -288,6 +307,7 @@ class RelPositionMultiHeadedAttention(nn.Module):
         kw = {"device": device, "dtype": dtype}
         self.h, self.d_k = num_heads, size // num_heads
         self.use_flash = use_flash
+        self.zero_triu, self.legacy = zero_triu, legacy
         self.linear_q = nn.Linear(size, size, **kw)
         self.linear_k = nn.Linear(size, size, **kw)
         self.linear_v = nn.Linear(size, size, **kw)
@@ -299,6 +319,16 @@ class RelPositionMultiHeadedAttention(nn.Module):
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(x.shape[0], -1, self.h, self.d_k).transpose(1, 2)
+
+    def positional_bias(self, q_v: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """The (B, H, T, T) positional term: the shifted q_v . p^T, zeroed
+        above the diagonal under ``zero_triu``."""
+        bd = q_v @ p.transpose(-2, -1)
+        bd = legacy_rel_shift(bd) if self.legacy else rel_shift(bd)
+        if self.zero_triu:
+            t = bd.shape[-2]
+            bd = bd * torch.ones((t, t), dtype=bd.dtype, device=bd.device).tril()
+        return bd
 
     def forward(
         self,
@@ -312,13 +342,14 @@ class RelPositionMultiHeadedAttention(nn.Module):
         q = self._heads(self.linear_q(query))  # (B, H, T, dk)
         k = self._heads(self.linear_k(key))
         v = self._heads(self.linear_v(value))
-        p = self._heads(self.linear_pos(pos_emb))  # (1, H, 2T-1, dk)
+        p = self._heads(self.linear_pos(pos_emb))  # (1, H, 2T-1 | T, dk)
         q_u = q + self.pos_bias_u[None, :, None, :].to(q.dtype)
         q_v = q + self.pos_bias_v[None, :, None, :].to(q.dtype)
 
         flash_ok = self.use_flash and not self.training and (mask is None or mask.dim() == 2)
+        in_kernel = not (self.legacy or self.zero_triu)  # K1 computes the "latest" shift only
         bias_bytes = b * self.h * t * t * q.element_size()
-        if flash_ok and bias_bytes >= FLASH_RELPOS_MIN_BIAS_BYTES:
+        if flash_ok and in_kernel and bias_bytes >= FLASH_RELPOS_MIN_BIAS_BYTES:
             from tailored_avsr_tpu_torch.ops.flash_attention import flash_attention_relpos
 
             out = flash_attention_relpos(
@@ -326,7 +357,7 @@ class RelPositionMultiHeadedAttention(nn.Module):
                 p[0].contiguous(), mask,
             )
         else:
-            matrix_bd = rel_shift(q_v @ p.transpose(-2, -1))  # (B, H, T, T)
+            matrix_bd = self.positional_bias(q_v, p)  # (B, H, T, T)
             if flash_ok:
                 from tailored_avsr_tpu_torch.ops.flash_attention import flash_attention
 
@@ -339,3 +370,45 @@ class RelPositionMultiHeadedAttention(nn.Module):
                 attn = self.dropout(_masked_softmax(scores, mask).to(v.dtype))
                 out = attn @ v
         return self.linear_out(out.transpose(1, 2).reshape(b, t, d))
+
+
+class FastSelfAttention(nn.Module):
+    """Fastformer additive attention (``fast_selfattn``): a per-head
+    attention-pooled global query modulates the keys, whose pooled summary
+    modulates the values; linear in T. The pooling softmax is f32 with
+    ``MASK_MIN`` at padded frames, whose weights are then zeroed; the output
+    adds the projected query (``query``, ``query_att``, ``key``,
+    ``key_att``, ``value``, ``transform``)."""
+
+    def __init__(self, size: int, num_heads: int, dropout_rate: float = 0.0, *, device=None, dtype=None):
+        super().__init__()
+        if size % num_heads:
+            raise ValueError(f"size {size} is not a multiple of num_heads {num_heads}")
+        kw = {"device": device, "dtype": dtype}
+        self.h, self.d_k = num_heads, size // num_heads
+        self.query = nn.Linear(size, size, **kw)
+        self.query_att = nn.Linear(size, num_heads, **kw)
+        self.key = nn.Linear(size, size, **kw)
+        self.key_att = nn.Linear(size, num_heads, **kw)
+        self.value = nn.Linear(size, size, **kw)
+        self.transform = nn.Linear(size, size, **kw)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def _pool(self, scores: torch.Tensor, heads: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, T, H) scores, (B, H, T, dk) heads -> (B, H, dk), pooled over T."""
+        s = scores.transpose(1, 2).float() / math.sqrt(self.d_k)
+        if mask is not None:
+            w = torch.softmax(s.masked_fill(~mask[:, None, :], MASK_MIN), dim=-1).masked_fill(~mask[:, None, :], 0.0)
+        else:
+            w = torch.softmax(s, dim=-1)
+        return self.dropout(torch.einsum("bht,bhtd->bhd", w.to(heads.dtype), heads))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, t, d = x.shape
+        split = lambda y: y.reshape(b, t, self.h, self.d_k).transpose(1, 2)  # noqa: E731
+        query = self.query(x)
+        pooled_q = self._pool(self.query_att(query), split(query), mask)  # (B, H, dk)
+        mixed = self.key(x) * pooled_q.reshape(b, 1, d)
+        pooled_k = self._pool(self.key_att(mixed), split(mixed), mask)
+        weighted = split(self.value(x)) * pooled_k[:, :, None, :]
+        return self.dropout(self.transform(weighted.transpose(1, 2).reshape(b, t, d))) + query

@@ -1,10 +1,13 @@
-"""Absolute and relative (Transformer-XL, espnet "latest") positional
-encodings (counterpart of ``AbsolutePositionalEncoding`` and
-``RelPositionalEncoding`` in ``tailored_avsr_tpu/ops/posenc.py``).
+"""Positional encodings (counterpart of ``tailored_avsr_tpu/ops/posenc.py``):
+absolute (x * sqrt(d) + PE), scaled absolute (x + alpha * PE, alpha
+learned), relative (Transformer-XL, espnet "latest") and the pre-2020
+legacy relative one.
 
 Relative table layout (``2T-1`` rows): row ``j`` encodes relative position
 ``T-1-j``, so that after the rel-shift in attention score(i, j) reads
-distance ``i - j``.
+distance ``i - j``. The legacy table has ``T`` rows (positions 0..T-1); the
+legacy shift (``ops/attention.legacy_rel_shift``) reads row ``T-1-(i-j)``
+for key j <= query i.
 """
 
 from __future__ import annotations
@@ -90,3 +93,47 @@ class RelPositionalEncoding(nn.Module):
         t, d = x.shape[-2], x.shape[-1]
         pos = torch.from_numpy(rel_pos_table(t, d)).to(device=x.device, dtype=x.dtype)[None]
         return self.dropout(x * _root(d, x.dtype)), self.dropout(pos)
+
+
+class ScaledPositionalEncoding(nn.Module):
+    """x + alpha * PE with a learned scalar ``alpha`` (1,), ones at init; no
+    sqrt(d) scaling (espnet's ``ScaledPositionalEncoding``)."""
+
+    def __init__(self, dropout_rate: float = 0.1, *, device=None, dtype=None):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.ones(1, device=device, dtype=dtype))
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t, d = x.shape[-2], x.shape[-1]
+        pe = torch.from_numpy(abs_pos_table(t, d)).to(device=x.device, dtype=x.dtype)
+        return self.dropout(x + self.alpha.to(x.dtype) * pe)
+
+
+class LegacyRelPositionalEncoding(nn.Module):
+    """Returns (x * sqrt(d) with dropout, pos_emb (1, T, d) with dropout): the
+    absolute table's rows 0..T-1, no negative side."""
+
+    def __init__(self, dropout_rate: float = 0.1):
+        super().__init__()
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor):
+        t, d = x.shape[-2], x.shape[-1]
+        pos = torch.from_numpy(abs_pos_table(t, d)).to(device=x.device, dtype=x.dtype)[None]
+        return self.dropout(x * _root(d, x.dtype)), self.dropout(pos)
+
+
+RELATIVE = ("rel_pos", "legacy_rel_pos")  # the encodings that return (x, pos_emb)
+
+
+def positional_encoding(pos_type: str, dropout_rate: float, **kw) -> nn.Module:
+    """The encoding of ``pos_type`` (after ``rel_pos_type`` resolution);
+    ``kw`` (device, dtype) for the one with a weight."""
+    if pos_type == "scaled_abs_pos":
+        return ScaledPositionalEncoding(dropout_rate, **kw)
+    cls = {"abs_pos": AbsolutePositionalEncoding, "rel_pos": RelPositionalEncoding,
+           "legacy_rel_pos": LegacyRelPositionalEncoding}.get(pos_type)
+    if cls is None:
+        raise ValueError(pos_type)
+    return cls(dropout_rate)

@@ -1,5 +1,6 @@
-"""Conv2d subsampling of the audio feature stream
-(counterpart of ``Conv2dSubsampling`` in ``tailored_avsr_tpu/ops/subsampling.py``).
+"""Convolutional subsampling of a feature stream: 2-D convs over (time,
+freq) and 1-D convs over time (counterpart of ``Conv2dSubsampling`` and
+``Conv1dSubsampling`` in ``tailored_avsr_tpu/ops/subsampling.py``).
 
 All convs are VALID (no padding); positional encoding is applied by the
 caller after the two streams are aligned.
@@ -19,10 +20,12 @@ _CONV2D_STAGES = {
     8: [(3, 2), (3, 2), (3, 2)],
 }
 
+_CONV1D_STAGES = {2: [(3, 2)], 3: [(5, 3)]}
 
-def subsampled_length(length, factor: int):
+
+def subsampled_length(length, factor: int, conv1d: bool = False):
     """Output length after the VALID conv stack (ints or tensors)."""
-    for k, s in _CONV2D_STAGES[factor]:
+    for k, s in (_CONV1D_STAGES if conv1d else _CONV2D_STAGES)[factor]:
         length = (length - k) // s + 1
     return length
 
@@ -51,3 +54,16 @@ class Conv2dSubsampling(nn.Module):
         h = self.conv(x[:, None])  # (B, D, T', F')
         b, c, t, f = h.shape
         return self.out(h.transpose(1, 2).reshape(b, t, c * f))
+
+
+class Conv1dSubsampling(nn.Module):
+    """(B, T, F) -> (B, T', D): one VALID 1-D conv over time (factor 2: k 3,
+    stride 2; factor 3: k 5, stride 3) and a ReLU (``conv.0``)."""
+
+    def __init__(self, input_size: int, output_size: int, factor: int = 2, *, device=None, dtype=None):
+        super().__init__()
+        (k, s), = _CONV1D_STAGES[factor]
+        self.conv = nn.Sequential(nn.Conv1d(input_size, output_size, k, s, device=device, dtype=dtype), nn.ReLU())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x.transpose(1, 2)).transpose(1, 2)

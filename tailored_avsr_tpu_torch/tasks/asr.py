@@ -1,14 +1,17 @@
 """ASR / VSR config -> model (counterpart of ``tailored_avsr_tpu/tasks/asr.py``).
 
 Ported: the ``default`` (log-mel) and ``conv3dresnet18`` frontends,
-SpecAug, ``utterance_mvn`` or no normalisation, the ``branchformer``
-encoder, the ``transformer`` attention decoder (built unless
+SpecAug, ``utterance_mvn`` or no normalisation, the ``branchformer``,
+``e_branchformer``, ``conformer``, ``transformer`` and ``longformer``
+encoders (interCTC taps and conditioning among their options), the
+``transformer`` attention decoder (built unless
 ``model_conf.ctc_weight`` is 1.0), the transducer's prediction and joint
 networks (``decoder: transducer``, with the multi-blank vocabulary
 extension), the CTC head, and the ``espnet`` and ``maskctc`` models (the
 MLM decoder over V + 1 tokens) with their loss settings. Refused, naming
 ``ROADMAP.md`` item 8: ``pit_espnet``, Sim-T (``sim_t_mlm`` for Mask-CTC),
-pre- / post-encoders and the other encoders and frontends. The registries
+pre- / post-encoders and the other encoders (``transformer_multispkr``,
+``contextual_block_*``, ``rnn``, ``vgg_rnn``) and frontends. The registries
 and the config-key rule are ``tasks/common.py``'s.
 """
 
@@ -50,7 +53,8 @@ def build_meta(config, token_list: List[str]) -> ASRModel:
     normalize = build_normalize(cfg_value(config, "normalize", "none"), cfg_value(config, "normalize_conf", {}))
     encoder_conf = dict(cfg_value(config, "encoder_conf", {}))
     encoder = build_encoder(cfg_value(config, "encoder", "branchformer"), encoder_conf,
-                            input_size=frontend.output_size() if frontend is not None else 80)
+                            input_size=frontend.output_size() if frontend is not None else 80,
+                            vocab_size=len(token_list))
     decoder, joint, ctc = build_decoder_and_ctc(config, len(token_list), encoder.output_size,
                                                 maskctc=model_name == "maskctc")
     cls = MaskCTCModel if model_name == "maskctc" else ASRModel

@@ -1,8 +1,9 @@
 """AVSR config -> model (counterpart of ``tailored_avsr_tpu/tasks/avsr.py``).
 
 Ported: the default log-mel frontend, utterance MVN, the conv3dresnet18
-visual frontend, default embeddings with rel-pos, the tailored and the
-conventional encoders, adaptive fusion, the CTC head, the ``transformer``
+visual frontend, default embeddings (every positional encoding), the
+tailored and the conventional (Branchformer or Conformer stacks) encoders
+with their attention types and interCTC taps, adaptive fusion, the CTC head, the ``transformer``
 attention decoder (built unless ``model_conf.ctc_weight`` is 1.0, as in the
 JAX task), the transducer's prediction and joint networks (with the
 multi-blank vocabulary extension), SpecAug, and the ``espnet`` and
@@ -79,7 +80,7 @@ def build_meta(config, token_list: List[str]) -> AVSRModel:
     visual_embed = DefaultEmbeddingLayerForAVSR(
         **conf_args(DefaultEmbeddingLayerForAVSR, v_embed_conf, input_size=visual_frontend.output_size(),
                     output_size=size, input_layer=v_embed_conf.get("input_layer", "linear")), **META)
-    encoder = build_encoder(encoder_name, encoder_conf)
+    encoder = build_encoder(encoder_name, encoder_conf, vocab_size=len(token_list))
     fusion = AdaptiveAudioVisualFusion(
         **conf_args(AdaptiveAudioVisualFusion, cfg_value(config, "audiovisual_fusion_conf", {}),
                     output_size=size), **META)

@@ -27,11 +27,13 @@ from torch import nn
 
 from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoder
+from tailored_avsr_tpu_torch.models.conformer import ConformerEncoder
 from tailored_avsr_tpu_torch.models.conventional import ConventionalEncoder
 from tailored_avsr_tpu_torch.models.ctc import CTCHead
 from tailored_avsr_tpu_torch.models.decoder import MLMDecoder, TransformerDecoder
 from tailored_avsr_tpu_torch.models.frontends import Conv3dResNet18
 from tailored_avsr_tpu_torch.models.tailored import TailoredEncoder
+from tailored_avsr_tpu_torch.models.transformer_encoder import LongformerEncoder, TransformerEncoder
 from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
 from tailored_avsr_tpu_torch.ops.cgmlp import ConvolutionalSpatialGatingUnit
 from tailored_avsr_tpu_torch.ops.frontend_audio import LogMelFrontend
@@ -41,29 +43,8 @@ from tailored_avsr_tpu_torch.ops.specaug import SpecAug
 from tailored_avsr_tpu_torch.utils.initialize import init_params_
 
 # Keys a JAX constructor takes and the port's does not: (values the port
-# builds, ROADMAP item that ports the others); None: any value.
-ENCODER_FIXED = {  # TailoredEncoder
-    "attention_layer_type": (("rel_selfattn",), 8),
-    "zero_triu": ((False,), 8),
-    "normalize_before": ((True,), 8),
-    "interctc_use_conditioning": ((False,), 8),
-    "audiovisual_interctc_conditioning": ((False,), 8),
-    "interctc_layer_idx": (((),), 8),
-}
-BRANCHFORMER_FIXED = {
-    "zero_triu": ((False,), 8),
-    "merge_conv_kernel": ((0,), 8),  # the E-Branchformer merge
-    "interctc_use_conditioning": ((False,), 8),
-    "interctc_layer_idx": (((),), 8),
-    "vocab_size": (None, 8),  # read only by interCTC conditioning
-}
-CONVENTIONAL_FIXED = {
-    "encoder_class_type": (("branchformer",), 8),
-    "cnn_module_kernel": (None, 8),  # read only by Conformer stacks
-    "interctc_use_conditioning": ((False,), 8),
-    "audiovisual_interctc_conditioning": ((False,), 8),
-    "interctc_layer_idx": (((),), 8),
-}
+# builds, ROADMAP item that ports the others); None: any value. The
+# encoders take every key of theirs.
 DECODER_FIXED = {
     "use_output_layer": ((True,), 8),
     "layer_variant": (("transformer",), 8),
@@ -75,6 +56,13 @@ DECODER_FIXED = {
 VISUAL_FRONTEND_FIXED = {
     "bn_axis_name": ((None,), 9),  # cross-replica BatchNorm: data parallel
     "stem_s2d": (None, 8),  # the TPU's evaluation of the same stem weights
+}
+ASR_ENCODERS = {
+    "branchformer": BranchformerEncoder,
+    "e_branchformer": BranchformerEncoder,
+    "conformer": ConformerEncoder,
+    "transformer": TransformerEncoder,
+    "longformer": LongformerEncoder,
 }
 # keys that both packages drop, and the values they may hold
 # (``tailored_avsr_tpu/tasks/common.py:_DROPPED_KEY_ALLOWED``)
@@ -101,12 +89,27 @@ def check_dropped_key(owner: str, key: str, value) -> None:
             f"{owner} config key {key}={value!r} is not supported (supported values: {allowed})")
 
 
+def constructor_names(cls) -> set:
+    """The keyword names ``cls`` takes: its constructor's and, where it
+    passes ``*args`` / ``**kwargs`` on (the encoders built on the
+    Branchformer scaffold), its bases' too."""
+    names = set()
+    for c in cls.__mro__:
+        if c is nn.Module or not issubclass(c, nn.Module) or "__init__" not in vars(c):
+            continue
+        params = inspect.signature(c.__init__).parameters.values()
+        names |= {p.name for p in params if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
+        if not any(p.kind == p.VAR_KEYWORD for p in params):
+            break
+    return names - {"self", "device", "dtype"}
+
+
 def conf_args(cls, conf: Optional[Dict], fixed: Optional[Dict] = None, **extra) -> Dict:
     """Constructor arguments of ``cls`` from a config section. A key of
     ``fixed`` (one the JAX constructor takes and the port's does not) must
     hold one of its values (None: any); other keys unknown to ``cls`` are
     dropped, as the JAX task drops them."""
-    names = set(inspect.signature(cls.__init__).parameters) - {"self", "device", "dtype"}
+    names = constructor_names(cls)
     kept = {}
     for k, v in {**(conf or {}), **extra}.items():
         v = tuple(v) if isinstance(v, list) else v
@@ -186,19 +189,35 @@ def build_normalize(name, conf: Optional[Dict]):
     return UtteranceMVN(**conf_args(UtteranceMVN, conf))
 
 
-def build_encoder(name: str, conf: Optional[Dict], input_size: Optional[int] = None) -> nn.Module:
-    """The encoder registry for the names the port builds: ``branchformer``
-    (ASR / VSR; ``input_size`` is the frontend's feature width), and the
-    AVSR encoders ``tailored`` and ``conventional``. The other names of the
-    JAX registries raise naming item 8."""
-    if name == "branchformer":
-        return BranchformerEncoder(**conf_args(BranchformerEncoder, conf, BRANCHFORMER_FIXED,
-                                               input_size=input_size), **META)
-    if name == "tailored":
-        return TailoredEncoder(**conf_args(TailoredEncoder, conf, ENCODER_FIXED), **META)
-    if name == "conventional":
-        return ConventionalEncoder(**conf_args(ConventionalEncoder, conf, CONVENTIONAL_FIXED), **META)
-    raise refuse("encoder", name, 8)
+def build_encoder(name: str, conf: Optional[Dict], input_size: Optional[int] = None,
+                  vocab_size: Optional[int] = None) -> nn.Module:
+    """The encoder registry for the names the port builds
+    (``tailored_avsr_tpu/tasks/common.py:117-170``): the ASR / VSR encoders
+    ``branchformer``, ``e_branchformer`` (``concat`` and
+    ``merge_conv_kernel: 3`` unless set), ``conformer``, ``transformer``
+    and ``longformer`` (``abs_pos``, ``selfattn`` and ``relu`` unless set),
+    whose ``input_size`` is the frontend's feature width (the ``embed``
+    input layer's token count comes from the config), and the AVSR
+    encoders ``tailored`` and ``conventional``. ``vocab_size`` is the
+    interCTC conditioning layer's input width. The other names of the JAX
+    registry raise naming their item."""
+    conf = dict(conf or {})
+    if name in ("tailored", "conventional"):
+        cls = TailoredEncoder if name == "tailored" else ConventionalEncoder
+        return cls(**conf_args(cls, conf, vocab_size=vocab_size), **META)
+    if name == "e_branchformer":
+        conf.setdefault("merge_method", "concat")
+        conf.setdefault("merge_conv_kernel", 3)
+    elif name in ("transformer", "longformer"):
+        conf.setdefault("pos_enc_layer_type", "abs_pos")
+        conf.setdefault("attention_layer_type", "selfattn")
+        conf.setdefault("ffn_activation_type", "relu")
+    if name not in ASR_ENCODERS:  # transformer_multispkr (with PIT), contextual_block_*, rnn, vgg_rnn
+        raise refuse("encoder", name, 8)
+    cls = ASR_ENCODERS[name]
+    if conf.get("input_layer", "conv2d") != "embed":
+        conf["input_size"] = input_size
+    return cls(**conf_args(cls, conf, vocab_size=vocab_size), **META)
 
 
 def is_transducer(decoder_name) -> bool:
@@ -274,11 +293,11 @@ def build_decoder_and_ctc(config, vocab_size: int, encoder_size: int, maskctc: b
 
 
 def loss_settings(config) -> Dict:
-    """The model's loss settings from ``model_conf`` (``interctc_weight``
-    weighs interCTC taps, which are refused)."""
+    """The model's loss settings from ``model_conf``."""
     model_conf = dict(cfg_value(config, "model_conf", {}))
     return {
         "ctc_weight": float(model_conf.get("ctc_weight", 0.5)),
+        "interctc_weight": float(model_conf.get("interctc_weight", 0.0)),
         "ignore_id": int(model_conf.get("ignore_id", -1)),
         "lsm_weight": float(model_conf.get("lsm_weight", 0.0)),
         "length_normalized_loss": bool(model_conf.get("length_normalized_loss", False)),

@@ -5,7 +5,8 @@ from one generator, so a seed gives the same weights on any device. The
 scheme follows flax's defaults, which the JAX package initialises with:
 kernels LeCun-normal (std 1/sqrt(fan_in)), biases 0, norm scales 1 and
 shifts 0, BatchNorm running statistics 0 / 1, the modality embedding
-normal with std 1/sqrt(d), the rel-pos u/v biases Xavier-uniform, and an
+normal with std 1/sqrt(d), the rel-pos u/v biases Xavier-uniform, the
+scaled positional encoding's alpha 1, and an
 LSTM layer as flax's ``OptimizedLSTMCell``: each gate's input kernel
 LeCun-normal, its recurrent kernel orthogonal, biases 0.
 
@@ -13,8 +14,9 @@ LeCun-normal, its recurrent kernel orthogonal, biases 0.
 (``tailored_avsr_tpu/utils/initialize.py``), applied after that init:
 every flax ``kernel`` of ndim >= 2 redrawn by ``xavier_uniform``,
 ``xavier_normal``, ``kaiming_uniform`` or ``kaiming_normal`` with flax's
-variance-scaling fans, every ``bias`` 0, every ``scale`` 1; embeddings,
-the rel-pos biases and the BatchNorm statistics kept.
+variance-scaling fans (a depthwise conv's receptive field its taps),
+every ``bias`` 0, every ``scale`` 1; embeddings, the rel-pos biases, the
+positional ``alpha`` and the BatchNorm statistics kept.
 """
 
 from __future__ import annotations
@@ -25,9 +27,11 @@ import torch
 from torch import nn
 
 from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
+from tailored_avsr_tpu_torch.ops.posenc import ScaledPositionalEncoding
 from tailored_avsr_tpu_torch.ops.rnnt import LSTMLayer
 
-_NORMS = (nn.LayerNorm, nn.BatchNorm2d, nn.BatchNorm3d)
+_BATCH_NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d)
+_NORMS = (nn.LayerNorm, *_BATCH_NORMS)
 _KERNELS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)
 
 
@@ -62,7 +66,7 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(module, _NORMS):
             put(module.weight, torch.ones(module.weight.shape))
             put(module.bias, torch.zeros(module.bias.shape))
-            if isinstance(module, (nn.BatchNorm2d, nn.BatchNorm3d)):
+            if isinstance(module, _BATCH_NORMS):
                 put(module.running_mean, torch.zeros(module.running_mean.shape))
                 put(module.running_var, torch.ones(module.running_var.shape))
                 put(module.num_batches_tracked, torch.zeros((), dtype=torch.long))
@@ -79,6 +83,8 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             for p in (module.pos_bias_u, module.pos_bias_v):
                 bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
                 put(p, (torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+        elif isinstance(module, ScaledPositionalEncoding):
+            put(module.alpha, torch.ones(module.alpha.shape))
     left = [n for n, t in [*model.named_parameters(), *model.named_buffers()] if id(t) not in done]
     if left:
         raise RuntimeError(f"init_params_: no initialiser for {left[:5]}")

@@ -3,8 +3,10 @@
 The port's own copy of the export half of
 ``tailored_avsr_tpu/utils/torch_compat.py`` (``export_torch_state_dict`` and
 the key grammar it needs), cut to the models the port builds: the tailored and the
-conventional AVSR models, the Branchformer ASR / VSR models, their
-Mask-CTC and transducer variants and the Transformer LM. numpy only.
+conventional AVSR models (the latter with Branchformer or Conformer
+stacks), the ASR / VSR models on the Branchformer, E-Branchformer,
+Conformer, Transformer and Longformer encoders, their Mask-CTC and
+transducer variants and the Transformer LM. numpy only.
 ``tests/test_torch_port_int8.py`` holds it equal to the JAX package's
 export, key for key and array for array.
 
@@ -33,8 +35,9 @@ Key mapping (flax path -> torch dotted key), by component:
   -> ``downsample.0/1``;
 - LayerNorm ``scale`` -> ``weight``; BatchNorm stats -> ``running_mean/var``.
 
-Weight layouts: flax Linear (in, out) -> (out, in); depthwise Conv1d
-(k, 1, C) -> (C, 1, k); Conv2d (kh, kw, in, out) -> (out, in, kh, kw);
+Weight layouts: flax Linear (in, out) -> (out, in); Conv1d (k, in /
+groups, out) -> (out, in / groups, k) (the depthwise convs, the conv1d
+subsampling); Conv2d (kh, kw, in, out) -> (out, in, kh, kw);
 Conv3d (kd, kh, kw, in, out) -> (out, in, kd, kh, kw).
 """
 

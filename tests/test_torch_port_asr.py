@@ -18,7 +18,6 @@ and ``study_branches`` against the JAX package, on the CPU.
 import csv
 import dataclasses
 import glob
-import inspect
 import os
 
 import jax
@@ -40,6 +39,9 @@ MASKCTC = "configs/AVSR/tailored_maskctc_spanish.yaml"
 TRANSDUCER = "configs/ASR/branchformer_transducer_spanish.yaml"
 FAMILIES = [ASR, VSR, CONVENTIONAL, MASKCTC, TRANSDUCER]
 FAMILY_IDS = ["asr", "vsr", "conventional", "maskctc", "transducer"]
+# the encoder trees of item 8.2 (``PORTED_CHOICES`` keys), exported beside the families'
+ENCODER_TREES = ["conformer", "e_branchformer", "interctc", "conventional_conformer", "conventional_interctc",
+                 "tailored_zero_triu"]
 
 
 def _tiny(path):
@@ -103,35 +105,79 @@ def test_config_builds_with_the_jax_parameter_names(path):
     assert (port.joint_network is not None) == (cfg.decoder == "transducer")
 
 
-@pytest.mark.parametrize("path,section,value,item", [
-    (ASR, None, {"model": "maskctc", "decoder": "sim_t"}, 8),  # sim_t_mlm
-    (ASR, "model", "pit_espnet", 8),
-    (ASR, "encoder", "e_branchformer", 8),
-    (ASR, "encoder", "conformer", 8),
-    (ASR, "frontend", "sliding_window", 8),
-    (ASR, "normalize", "global_mvn", 8),
-    (ASR, "preencoder", "linear", 8),
-    (ASR, "encoder_conf", {"merge_conv_kernel": 3}, 8),
-    (ASR, "encoder_conf", {"zero_triu": True}, 8),
-    (ASR, "encoder_conf", {"interctc_layer_idx": [1]}, 8),
-    (ASR, "encoder_conf", {"input_layer": "conv1d2"}, 8),
-    (ASR, "encoder_conf", {"rel_pos_type": "legacy"}, 8),
-    (ASR, "encoder_conf", {"attention_layer_type": "selfattn", "pos_enc_layer_type": "abs_pos"}, 8),
-    (VSR, "decoder", "rnn", 8),
-    (CONVENTIONAL, "encoder_conf", {"encoder_class_type": "conformer"}, 8),
-    (CONVENTIONAL, "encoder_conf", {"interctc_layer_idx": [2]}, 8),
-])
-def test_unported_choices_name_their_item(path, section, value, item):
-    cfg = tiny_cfg(path)
-    if section is None:  # several top-level keys
+def _set(cfg, section, value):
+    """``value`` into ``cfg``: several top-level keys (``section`` None), a
+    section's keys (a dict) or one top-level key."""
+    if section is None:
         for key, v in value.items():
             setattr(cfg, key, v)
     else:
         if isinstance(value, dict):
             value = dict(getattr(cfg, section), **value)
         setattr(cfg, section, value)
+    return cfg
+
+
+@pytest.mark.parametrize("path,section,value,item", [
+    (ASR, None, {"model": "maskctc", "decoder": "sim_t"}, 8),  # sim_t_mlm
+    (ASR, "model", "pit_espnet", 8),
+    (ASR, "encoder", "transformer_multispkr", 8),  # with PIT, item 8.6
+    (ASR, "encoder", "contextual_block_transformer", 8),
+    (ASR, "frontend", "sliding_window", 8),
+    (ASR, "normalize", "global_mvn", 8),
+    (ASR, "preencoder", "linear", 8),
+    (ASR, "encoder", "contextual_block_conformer", 8),
+    (ASR, "encoder", "rnn", 8),
+    (ASR, "encoder", "vgg_rnn", 8),
+    (ASR, "decoder", "lightweight_conv", 8),
+    (ASR, "decoder", "dynamic_conv", 8),
+    (ASR, "decoder", "s4", 8),
+    (VSR, "decoder", "rnn", 8),
+    (ASR, "frontend", "fused", 8),
+    (CONVENTIONAL, "postencoder", "linear", 8),
+])
+def test_unported_choices_name_their_item(path, section, value, item):
+    """The choices still refused. Ten of these cases named choices that are
+    built now (the E-Branchformer, Conformer, ``zero_triu``, interCTC,
+    ``conv1d2``, legacy rel-pos, ``selfattn``, the conventional Conformer
+    stacks and taps): ``test_ported_choices_build_with_the_jax_parameter_names``
+    builds each of them."""
+    cfg = _set(tiny_cfg(path), section, value)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md 'Modules to port' item {item}"):
         common.build_model(cfg, TOKEN_LIST, device="cpu")
+
+
+PORTED_CHOICES = {
+    "e_branchformer": (ASR, "encoder", "e_branchformer"),
+    "conformer": (ASR, None, {"encoder": "conformer", "encoder_conf": dict(
+        tiny_cfg(ASR).encoder_conf, cnn_module_kernel=5)}),
+    "merge_conv_kernel": (ASR, "encoder_conf", {"merge_method": "concat", "merge_conv_kernel": 3}),
+    "zero_triu": (ASR, "encoder_conf", {"zero_triu": True}),
+    "interctc": (ASR, "encoder_conf", {"interctc_layer_idx": [1], "interctc_use_conditioning": True}),
+    "conv1d2": (ASR, "encoder_conf", {"input_layer": "conv1d2"}),
+    "legacy": (ASR, "encoder_conf", {"rel_pos_type": "legacy"}),
+    "selfattn_abs_pos": (ASR, "encoder_conf", {"attention_layer_type": "selfattn", "pos_enc_layer_type": "abs_pos"}),
+    "conventional_conformer": (CONVENTIONAL, "encoder_conf", {"encoder_class_type": "conformer",
+                                                              "cnn_module_kernel": 5}),
+    "conventional_interctc": (CONVENTIONAL, "encoder_conf", {
+        "interctc_layer_idx": [2], "interctc_use_conditioning": True, "audiovisual_interctc_conditioning": True}),
+    "tailored_zero_triu": (MASKCTC, "encoder_conf", {"zero_triu": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED_CHOICES))
+def test_ported_choices_build_with_the_jax_parameter_names(case):
+    """Each choice this file's refusal list once held, built on the meta
+    device: the state dict's keys and shapes are the JAX export's."""
+    path, section, value = PORTED_CHOICES[case]
+    cfg = _set(_tiny(path), section, value)
+    task = "avsr" if cfg.task == "avsr" else "asr"
+    port = __import__(f"tailored_avsr_tpu_torch.tasks.{task}", fromlist=["build_meta"]).build_meta(cfg, TOKEN_LIST)
+    shapes = _jax_shapes(_jax_model(cfg, TOKEN_LIST), cfg.task)
+    zeros = jax.tree_util.tree_map(lambda s: np.broadcast_to(np.zeros((), s.dtype), s.shape), shapes)
+    want = {k: v.shape for k, v in export_torch_state_dict(zeros).items()}
+    got = {k: tuple(v.shape) for k, v in port.state_dict().items() if not k.endswith("num_batches_tracked")}
+    assert got == want
 
 
 def test_mismatched_attention_and_positional_encoding_raise_as_in_jax():
@@ -145,19 +191,30 @@ def test_mismatched_attention_and_positional_encoding_raise_as_in_jax():
 
 
 def test_constructor_tables_cover_the_jax_fields():
-    """Each key the JAX Branchformer and conventional encoders take is a port
-    constructor argument or in the builder's ``*_FIXED`` table."""
+    """Each key the JAX encoders take (Branchformer, Conformer, Transformer,
+    Longformer, tailored, conventional, and their layers' attention and
+    position modules' settings among them) is a port constructor argument:
+    no encoder key is refused or dropped any more."""
+    from tailored_avsr_tpu.models import conformer as jconf
+    from tailored_avsr_tpu.models import transformer_encoder as jte
     from tailored_avsr_tpu.models.branchformer import BranchformerEncoder as JB
     from tailored_avsr_tpu.models.conventional import ConventionalEncoder as JC
+    from tailored_avsr_tpu.models.tailored import TailoredEncoder as JT
+    from tailored_avsr_tpu_torch.models import conformer as pconf
+    from tailored_avsr_tpu_torch.models import transformer_encoder as pte
     from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoder
     from tailored_avsr_tpu_torch.models.conventional import ConventionalEncoder
+    from tailored_avsr_tpu_torch.models.tailored import TailoredEncoder
 
-    for jcls, pcls, fixed in ((JB, BranchformerEncoder, common.BRANCHFORMER_FIXED),
-                              (JC, ConventionalEncoder, common.CONVENTIONAL_FIXED)):
+    pairs = ((JB, BranchformerEncoder), (JC, ConventionalEncoder), (JT, TailoredEncoder),
+             (jconf.ConformerEncoder, pconf.ConformerEncoder), (jte.TransformerEncoder, pte.TransformerEncoder),
+             (jte.LongformerEncoder, pte.LongformerEncoder))
+    for jcls, pcls in pairs:
         jfields = {f.name for f in dataclasses.fields(jcls)} - {"parent", "name"}
-        pnames = set(inspect.signature(pcls.__init__).parameters)
-        assert jfields <= pnames | set(fixed), (jcls.__name__, sorted(jfields - pnames - set(fixed)))
-        assert set(fixed) <= jfields - pnames, (jcls.__name__, sorted(set(fixed) - jfields))
+        pnames = common.constructor_names(pcls)
+        assert jfields <= pnames, (jcls.__name__, sorted(jfields - pnames))
+    assert common.constructor_names(pconf.ConformerEncoder) == common.constructor_names(BranchformerEncoder) | {
+        "cnn_module_kernel"}
 
 
 def test_build_model_picks_the_task_and_needs_the_card(monkeypatch):
@@ -198,14 +255,20 @@ def test_port_checkpoint_loads_into_the_jax_package(path, tmp_path):
         np.testing.assert_array_equal(v, state[k].numpy(), err_msg=k)
 
 
-@pytest.mark.parametrize("path", FAMILIES, ids=FAMILY_IDS)
+@pytest.mark.parametrize("path", FAMILIES + ENCODER_TREES, ids=FAMILY_IDS + ENCODER_TREES)
 def test_port_export_equals_the_jax_export(path):
     """The port's numpy-only copy of ``export_torch_state_dict`` against the
     JAX package's on each family's tree (the conventional stacks' keys
-    among them): the same keys, and each array equal with its dtype."""
+    among them) and the new encoders' (the Conformer conv module and its
+    BatchNorm statistics, the E-Branchformer fusion conv, the conditioning
+    layers): the same keys, and each array equal with its dtype."""
     from tailored_avsr_tpu_torch.utils.torch_compat import export_torch_state_dict as pexport
 
-    cfg = _tiny(path)
+    if path in PORTED_CHOICES:
+        path, section, value = PORTED_CHOICES[path]
+        cfg = _set(_tiny(path), section, value)
+    else:
+        cfg = _tiny(path)
     shapes = _jax_shapes(_jax_model(cfg, TOKEN_LIST), cfg.task)
     variables = _random_variables(shapes, seed=6)
     want, got = export_torch_state_dict(variables), pexport(variables)

@@ -309,18 +309,20 @@ def test_ctc_greedy_collapse():
     assert P(ids, lens) == J(ids, lens)
 
 
-@pytest.mark.parametrize("name,encoder_conf", [
-    # the conventional encoder builds since its Branchformer stacks were
-    # ported; its Conformer stacks are still refused
-    ("conventional_transformer+ctc_spanish.yaml", {"encoder_class_type": "conformer"}),
-    ("tailored_transformer+ctc_spanish.yaml", {"zero_triu": True}),
+@pytest.mark.parametrize("name,section,value", [
+    # every encoder option of the two AVSR encoders builds (the Conformer
+    # stacks and zero_triu these cases refused are built by
+    # tests/test_torch_port_asr.py::test_ported_choices_build_with_the_jax_parameter_names);
+    # the multi-speaker encoder and the Sim-T decoder are still refused
+    ("conventional_transformer+ctc_spanish.yaml", "encoder", "transformer_multispkr"),
+    ("tailored_transformer+ctc_spanish.yaml", "decoder", "sim_t"),
 ])
-def test_build_model_names_roadmap_item_for_unported_choices(name, encoder_conf):
+def test_build_model_names_roadmap_item_for_unported_choices(name, section, value):
     from tailored_avsr_tpu.utils.config import load_config
     from tailored_avsr_tpu_torch.tasks.avsr import build_model
 
     cfg = load_config(os.path.join(ROOT, "configs/AVSR", name))
-    cfg.encoder_conf = dict(cfg.encoder_conf, **encoder_conf)
+    setattr(cfg, section, value)
     with pytest.raises(NotImplementedError, match="ROADMAP.md 'Modules to port' item 8"):
         build_model(cfg, ["<blank>", "a", "<sos/eos>"])
 

@@ -662,7 +662,6 @@ def test_constructor_tables_cover_the_jax_fields():
     """Each key a JAX constructor takes is a port constructor argument or in
     the task factory's ``*_FIXED`` table (built, or refused naming its item)."""
     import dataclasses
-    import inspect
 
     from tailored_avsr_tpu.models.decoder import TransformerDecoder as JD
     from tailored_avsr_tpu.models.frontends import Conv3dResNet18 as JC
@@ -679,19 +678,21 @@ def test_constructor_tables_cover_the_jax_fields():
     from tailored_avsr_tpu_torch.tasks import common as task
     from tailored_avsr_tpu.ops.normalize import UtteranceMVN as JU
 
-    pairs = [(JT, TailoredEncoder, task.ENCODER_FIXED), (JD, TransformerDecoder, task.DECODER_FIXED),
+    pairs = [(JT, TailoredEncoder, {}), (JD, TransformerDecoder, task.DECODER_FIXED),
              (JC, Conv3dResNet18, task.VISUAL_FRONTEND_FIXED), (JF, AdaptiveAudioVisualFusion, {}),
              (JS, SpecAug, {}), (JU, UtteranceMVN, {})]
     for jcls, pcls, fixed in pairs:
         jfields = {f.name for f in dataclasses.fields(jcls)} - {"parent", "name"}
-        pnames = set(inspect.signature(pcls.__init__).parameters)
+        pnames = task.constructor_names(pcls)
         assert jfields <= pnames | set(fixed), (jcls.__name__, sorted(jfields - pnames - set(fixed)))
         assert set(fixed) <= jfields - pnames, (jcls.__name__, sorted(set(fixed) - jfields))
     assert task.DROPPED_KEY_ALLOWED == _DROPPED_KEY_ALLOWED
 
 
 @pytest.mark.parametrize("section,key,value,item", [
-    ("encoder_conf", "interctc_layer_idx", [1], 8),
+    # interCTC taps (this list's first case until they were ported) build:
+    # tests/test_torch_port_encoders.py holds them against JAX
+    ("decoder_conf", "use_output_layer", False, 8),
     ("visual_frontend_conf", "bn_axis_name", "data", 9),
     ("decoder_conf", "layer_variant", "lightconv", 8),
 ])
