@@ -188,9 +188,31 @@ Run from the repository root on a machine with one CUDA card:
    flagship (``interctc_weight`` 0.3): no kernel, stats (the taps' CTC
    losses among them) and accumulated gradients finite, every BatchNorm's
    running statistics moved; walls and peak memory printed.
-14. Prints one JSON line of train numbers, one of the Branchformer
+14. The other attention decoders and the RNN encoders
+   (``decoder_variants_phase``, run after 13 and before 12), seeded
+   weights, counts set to 0 first, every call's launches asserted
+   exactly: the flagship with each of ``sim_t``, ``lightweight_conv``,
+   ``dynamic_conv``, ``lightweight_conv2d``, ``dynamic_conv2d`` (from its
+   decoder_conf: 6 blocks, 4 heads, 2048 units), ``rnn`` and ``s4`` (the
+   registry's defaults) and the 16-layer LM through the full-prefix beam
+   10 at 8 x 4 s (K2 19, K3 5 a call; no K4, no step write: no cache
+   step, as in JAX): the first call (its beam steps counted) and a
+   profiled one, no warm call, in bf16 (in f32 for the four conv
+   decoders, whose first call is also the gate's kernel side); f32
+   through the kernels and on the eager path, n-best ids equal and scores
+   within 1e-3. Mask-CTC over the Sim-T MLM decoder at
+   (a) (K2 19, K3 5) and (b) (K1 19, K3 5), f32 ids equal to the eager
+   path's; the RNN and VGG-RNN ASR encoders (the registry's 4
+   bidirectional 320-unit layers) greedy at (a) and the VGG-RNN with the
+   LSTM decoder through the beam + LM at 8 x 4 s (no kernel, as in JAX),
+   f32 held to the eager path; two bf16 micro-steps (4 x 20 s) of the
+   flagship with Sim-T and of the VGG-RNN + LSTM ASR: no kernel, finite;
+   walls and peak memory printed. Each path's record in the JSON line
+   is keyed ``{choice}_decoder`` / ``{choice}_encoder``.
+15. Prints one JSON line of train numbers, one of the Branchformer
    family's numbers, one of the Mask-CTC and transducer paths' numbers,
-   one of the encoder variants' numbers, the seconds of each phase,
+   one of the encoder variants' numbers, one of the decoder variants'
+   numbers, the seconds of each phase,
    one JSON line of per-kernel results (launches: K1-K3
    from the greedy path, K4, K5 (the step write) and K5' from the beam
    path, K6 from the int8 beam path; P1 counted over both beam paths,
@@ -198,7 +220,7 @@ Run from the repository root on a machine with one CUDA card:
    launches and K4's mixed pairs' numbers, the train path's
    launches in its train steps and in its eval step, each
    Branchformer path's, each Mask-CTC and transducer path's, the encoder
-   variants' and the recipe phase's; K4's library yardstick at the
+   and decoder variants' and the recipe phase's; K4's library yardstick at the
    decoder's shape and K5's at one layer beside them), one of the recipe's
    numbers before it, then the result line ``{"ok": true, "device":
    {...}}`` last.
@@ -1042,11 +1064,14 @@ def call_profile(call, name: str, repeats: int = 5, host_events: bool = True) ->
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     flash = sum(e.self_device_time_total for e in events if "flash_attention" in e.key) / 1e3
-    out = {"median_wall_ms": float(np.median(walls)), "profiled_wall_ms": wall, "device_busy_ms": busy,
-           "idle_share": 1.0 - busy / wall, "flash_ms": flash}
-    print(f"  {name}: warm wall ms {', '.join(f'{w:.1f}' for w in walls)} (median {out['median_wall_ms']:.1f}); "
-          f"profiled call: device busy {busy:.2f} ms of {wall:.2f} ms wall (idle share {out['idle_share']:.3f}), "
-          f"flash-attention kernels {flash:.2f} ms")
+    out = {"median_wall_ms": float(np.median(walls))} if walls else {}  # no warm call: no median
+    out.update({"profiled_wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+                "flash_ms": flash})
+    warm = ""
+    if walls:
+        warm = f"warm wall ms {', '.join(f'{w:.1f}' for w in walls)} (median {out['median_wall_ms']:.1f}); "
+    print(f"  {name}: {warm}profiled call: device busy {busy:.2f} ms of {wall:.2f} ms wall (idle share "
+          f"{out['idle_share']:.3f}), flash-attention kernels {flash:.2f} ms")
     return out
 
 
@@ -2201,6 +2226,11 @@ MT_ATOL = 1e-3
 def _exact_call(name: str, call, expect: dict):
     """One serving call whose launches of every kernel must be ``expect``
     (0 for a kernel not named); prints its wall time."""
+    return _exact_call_ms(name, call, expect)[0]
+
+
+def _exact_call_ms(name: str, call, expect: dict) -> tuple:
+    """``_exact_call`` -> (its result, its wall ms)."""
     before = _counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2211,7 +2241,7 @@ def _exact_call(name: str, call, expect: dict):
     print(f"  {name}: {wall:.1f} ms wall, launches {({k: v for k, v in launched.items() if v})}")
     if launched != want:
         raise AssertionError(f"{name}: launches {launched}, expected {want}")
-    return out
+    return out, wall
 
 
 def _ids(hyps) -> list:
@@ -2221,13 +2251,16 @@ def _ids(hyps) -> list:
 def _kernel_vs_eager(engine, name: str, call, expect: dict):
     """``call`` of an f32 engine through the kernels (launches ``expect``),
     then on the eager path (kernels off, no launch); returns both results."""
-    got = _exact_call(f"f32 {name}", call, expect)
+    return _exact_call(f"f32 {name}", call, expect), _eager_call(engine, name, call)
+
+
+def _eager_call(engine, name: str, call):
+    """``call`` of an f32 engine on the eager path (kernels off, no launch)."""
     _set_kernels(engine.model, False)
     try:
-        want = _exact_call(f"f32 eager {name}", call, {})
+        return _exact_call(f"f32 eager {name}", call, {})
     finally:
         _set_kernels(engine.model, True)
-    return got, want
 
 
 def _masked_tokens(engine, batch: dict) -> tuple:
@@ -2597,6 +2630,188 @@ def encoder_variants_phase(device, smi: str) -> tuple:
     print(f"  launches over the encoder variants' serving paths: {launches}")
     if min(launches[k] for k in ("K1", "K2", "K3", "K4", "K5")) <= 0:
         raise AssertionError(f"a kernel of the encoder variants' paths never launched: {launches}")
+    return out, launches
+
+
+# -------------------------------------------------------- decoder variants
+#
+# The other attention decoders on the flagship (the Sim-T and conv decoders
+# from its decoder_conf: 6 blocks, 4 heads, 2048 units, 256-d; ``rnn`` and
+# ``s4`` at the registry's defaults: 320 hidden, 1 layer, att_dim 320, 10 x
+# 201-tap location conv; 6 blocks, d_state 64), each through the full-prefix
+# beam with the 16-layer LM's full-prefix step (beam 10, ctc 0.1, lm 0.4) at
+# 8 x 4 s: no decoder has a cache step, so K4 and the step write stay off
+# these paths, as in JAX, and each call's encode launches K2 19 and K3 5;
+# Mask-CTC over the Sim-T MLM decoder at (a) and (b); the RNN and VGG-RNN
+# ASR encoders (no kernel, as in JAX) greedy at (a), the VGG-RNN with the
+# LSTM decoder through the beam + LM at 8 x 4 s; two bf16 micro-steps each
+# of the flagship with Sim-T and of the VGG-RNN ASR with the LSTM decoder.
+# Each path is timed by its first call and a profiled one (no warm call);
+# the conv decoders run in f32 alone. Readings: PERF.md.
+AR_DECODERS = ("sim_t", "lightweight_conv", "dynamic_conv", "lightweight_conv2d", "dynamic_conv2d", "rnn", "s4")
+# the conv decoders run in f32 alone (the f32 call timed and profiled): one
+# engine each, to keep the script well inside its time limit
+F32_ONLY = ("lightweight_conv", "dynamic_conv", "lightweight_conv2d", "dynamic_conv2d")
+VARIANT_SCORE_ATOL = 1e-3  # f32 n-best scores through the kernels against the eager path's
+
+
+def _decoder_cfg(path: str, dtype: str, decoder: str = None, encoder: str = None, **inference_conf):
+    """The config at ``path`` (seeded weights follow from ``rng_seed``) with
+    ``decoder`` / ``encoder`` swapped in: ``rnn`` and ``s4`` decoders and
+    the RNN encoders at the registry's defaults, every other decoder from
+    the YAML's decoder_conf; the encoder kernels on; beam 10."""
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    cfg = load_config(path)
+    cfg.token_list = os.path.join(ROOT, cfg.token_list)
+    cfg.dtype = dtype
+    if decoder is not None:
+        cfg.decoder = decoder
+        if decoder in ("rnn", "s4"):
+            cfg.decoder_conf = {}
+    if encoder is not None:
+        cfg.encoder = encoder
+        cfg.encoder_conf = {"output_size": 320}  # the registry's default, named for the optimizer's d_model
+    else:
+        cfg.encoder_conf = dict(cfg.encoder_conf, use_flash=True, use_fused_csgu=True)
+    cfg.inference_conf = dict(cfg.inference_conf, beam_size=10, nbest=2 if dtype == "float32" else 1,
+                              **inference_conf)
+    return cfg
+
+
+def _decoder_engine(path: str, device, dtype: str, lm: bool = True, **kw):
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    lm_cfg = None
+    if lm:
+        lm_cfg = load_config(LM_CONFIG)
+        lm_cfg.token_list = os.path.join(ROOT, lm_cfg.token_list)
+    return Speech2Text(_decoder_cfg(path, dtype, **kw), lm_config=lm_cfg, rng_seed=0, device=device)
+
+
+def _step_counter(engine) -> list:
+    """Counts the decoder's full-prefix steps (one a beam step) in ``[0]``."""
+    dec, calls = engine.model.decoder, [0]
+    real = dec.score_step
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+    dec.score_step = counted
+    return calls
+
+
+def _full_prefix_beam(name: str, bf16, f32, req: dict, expect: dict) -> dict:
+    """A full-prefix beam path: the first call of the timed engine (``bf16``,
+    or ``f32`` when ``bf16`` is None; launches ``expect``, steps counted)
+    and a profiled one, then f32 through the kernels (the f32 first call,
+    when it is the timed one) and on the eager path: n-best ids equal,
+    scores within VARIANT_SCORE_ATOL."""
+    timed, dt = (bf16, "bf16") if bf16 is not None else (f32, "f32")
+    steps = _step_counter(timed)
+    hyps, first = _exact_call_ms(f"{dt} {name} (first call)", lambda: timed.nbest(req), expect)
+    out = {"dtype": dt, "steps": steps[0], "first_call_ms": first}
+    print(f"    {steps[0]} beam steps; sample transcript {hyps[0][0][0][:40]!r}")
+    if steps[0] <= 0 or not all(np.isfinite(h[3]) for hs in hyps for h in hs):
+        raise AssertionError(f"{name}: {steps[0]} beam steps, scores {[h[0][3] for h in hyps]}")
+    out.update(call_profile(lambda: timed.nbest(req), f"{dt} {name}", repeats=0, host_events=False))
+    if bf16 is None:
+        got, want = hyps, _eager_call(f32, name, lambda: f32.nbest(req))
+    else:
+        got, want = _kernel_vs_eager(f32, name, lambda: f32.nbest(req), expect)
+    same = [[h[2] for h in g] for g in got] == [[h[2] for h in w] for w in want]
+    diff = max(abs(g[3] - w[3]) for gs, ws in zip(got, want) for g, w in zip(gs, ws))
+    print(f"  f32 {name}: n-best ids equal to the eager path's: {same}; max |score diff| {diff:.3e} "
+          f"(tol {VARIANT_SCORE_ATOL:g})")
+    if not same:
+        _beam_margins(got, want)
+    if not same or diff > VARIANT_SCORE_ATOL:
+        raise AssertionError(f"f32 {name}: the kernel path disagrees with the eager path")
+    out["f32_max_score_diff"] = diff
+    return out
+
+
+def decoder_variants_phase(device, smi: str) -> tuple:
+    """The decoder variants' and RNN encoders' paths in turn, counts set to 0
+    first, the engines freed between them; returns (numbers, the phase's
+    launch counts)."""
+    out = {}
+    req8, req_a, req_b = _request(3, 8, 4), _request(1, 32, 4), _request(2, 24, 20)
+    encode = {"K2": 19, "K3": 5}  # the flagship encode at T = 100: 19 attention and 5 cgMLP layers
+    _reset_counts()
+    for decoder in AR_DECODERS:
+        t0 = time.perf_counter()
+        bf16 = None if decoder in F32_ONLY else _decoder_engine(FLAGSHIP, device, "bfloat16", decoder=decoder)
+        f32 = _decoder_engine(FLAGSHIP, device, "float32", decoder=decoder)
+        print(f"flagship + {decoder} decoder ({type(f32.model.decoder).__name__}) + 16-layer LM, full-prefix "
+              f"beam 10 at 8 x 4 s; expected launches a call {encode} (no K4, no step write)")
+        key = f"{decoder}_decoder"
+        out[key] = _full_prefix_beam(f"{decoder} beam + LM 8 x 4 s", bf16, f32, req8, encode)
+        out[key]["phase_s"] = time.perf_counter() - t0
+        del bf16, f32
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    bf16 = _decoder_engine(MASKCTC_CONFIG, device, "bfloat16", lm=False, decoder="sim_t")
+    f32 = _decoder_engine(MASKCTC_CONFIG, device, "float32", lm=False, decoder="sim_t")
+    print(f"Mask-CTC over the Sim-T MLM decoder ({type(f32.model.decoder).__name__}, V + 1 tokens), "
+          f"{f32.maskctc_n_iterations} rounds: request (a) 32 x 4 s (K2 19, K3 5) and (b) 24 x 20 s (K1 19, K3 5)")
+    first_a = _exact_call_ms("bf16 Sim-T Mask-CTC nbest (a) (first call)", lambda: bf16.nbest(req_a), encode)[1]
+    first_b = _exact_call_ms("bf16 Sim-T Mask-CTC nbest (b) (first call)", lambda: bf16.nbest(req_b),
+                             {"K1": 19, "K3": 5})[1]
+    out["maskctc_sim_t"] = {"first_call_ms_a": first_a, "first_call_ms_b": first_b}
+    out["maskctc_sim_t"].update(call_profile(lambda: bf16.nbest(req_a), "bf16 Sim-T Mask-CTC nbest (a)", repeats=0,
+                                             host_events=False))
+    got, want = _kernel_vs_eager(f32, "Sim-T Mask-CTC nbest (a)", lambda: f32.nbest(req_a), encode)
+    print(f"  f32 Sim-T Mask-CTC (a): ids identical to the eager path's: {_ids(got) == _ids(want)}")
+    if _ids(got) != _ids(want) or not any(_ids(got)):
+        raise AssertionError("f32 Sim-T Mask-CTC through the kernels disagrees with the eager path")
+    out["maskctc_sim_t"]["phase_s"] = time.perf_counter() - t0
+    del bf16, f32
+    torch.cuda.empty_cache()
+
+    req_sa, req_s8 = _speech_request(1, 32, 4, "asr"), _speech_request(3, 8, 4, "asr")
+    for encoder in ("rnn", "vgg_rnn"):
+        t0 = time.perf_counter()
+        bf16 = _decoder_engine(ASR_CONFIG, device, "bfloat16", lm=False, encoder=encoder)
+        f32 = _decoder_engine(ASR_CONFIG, device, "float32", lm=False, encoder=encoder)
+        enc = f32.model.encoder
+        print(f"{encoder} ASR encoder ({enc.num_layers} bidirectional LSTM layers, {enc.output_size}-d"
+              f"{', VGG2L' if enc.use_vgg else ''}) greedy at (a) 32 x 4 s: no kernel (none in JAX either)")
+        t1 = time.perf_counter()
+        hyps = _family_serve(bf16, f"bf16 {encoder} greedy (a) (first call)", req_sa, {})
+        key = f"{encoder}_encoder"
+        out[key] = {"first_call_ms": (time.perf_counter() - t1) * 1e3}
+        print(f"    sample transcript {hyps[0][:40]!r}")
+        _family_gate(f32, f"{encoder} greedy (a)", req_sa, {}, weights=False)
+        out[key].update(greedy_profile(bf16, req_sa, f"bf16 {encoder} greedy (a)", repeats=0))
+        out[key]["phase_s"] = time.perf_counter() - t0
+        del bf16, f32
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bf16 = _decoder_engine(ASR_CONFIG, device, "bfloat16", encoder="vgg_rnn", decoder="rnn")
+    f32 = _decoder_engine(ASR_CONFIG, device, "float32", encoder="vgg_rnn", decoder="rnn")
+    print("VGG-RNN ASR + LSTM decoder + 16-layer LM, full-prefix beam 10 at 8 x 4 s: no kernel (none in JAX "
+          "either)")
+    out["vgg_rnn_lstm_beam"] = _full_prefix_beam("VGG-RNN + LSTM decoder beam + LM 8 x 4 s", bf16, f32, req_s8, {})
+    out["vgg_rnn_lstm_beam"]["phase_s"] = time.perf_counter() - t0
+    del bf16, f32
+    torch.cuda.empty_cache()
+    launches = _counts()
+
+    t0 = time.perf_counter()
+    cfg = _flagship_train_cfg()
+    cfg.decoder = "sim_t"
+    out["sim_t_train"] = _variant_train("flagship + Sim-T decoder", cfg, device, 90, smi)
+    cfg = _decoder_cfg(ASR_CONFIG, "float32", decoder="rnn", encoder="vgg_rnn")
+    out["vgg_rnn_lstm_train"] = _variant_train("VGG-RNN ASR + LSTM decoder", cfg, device, 100, smi)
+    out["train_phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"  launches over the decoder variants' serving paths: {launches}")
+    if min(launches[k] for k in ("K1", "K2", "K3")) <= 0 or any(launches[k] for k in ("K4", "K5", "K6")):
+        raise AssertionError(f"the decoder variants' paths launched {launches}: K1-K3 each, and no K4, step "
+                             "write or K6")
     return out, launches
 
 
@@ -3454,6 +3669,12 @@ def main() -> int:
     print(json.dumps({"encoder_variants": {**variants, "card": smi}}))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    decoders, decoders_launches = decoder_variants_phase(device, smi)
+    seconds["decoder variants"] = time.perf_counter() - t0
+    print(f"  (decoder variants phase: {seconds['decoder variants']:.1f} s)")
+    print(json.dumps({"decoder_variants": {**decoders, "card": smi}}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     recipe, recipe_launches = recipe_phase(device, smi)
     seconds["recipe"] = time.perf_counter() - t0
     print(f"  (recipe phase: {seconds['recipe']:.1f} s)")
@@ -3473,6 +3694,7 @@ def main() -> int:
                         "launches_serving_modes": modes_launches[key],
                         "launches_recipe": recipe_launches[key],
                         "launches_encoder_variants": variants_launches[key],
+                        "launches_decoder_variants": decoders_launches[key],
                         **({"mixed_pairs": modes["k4_mixed"], "decoder_shape_h4": phases["K4 decoder", "bf16"]}
                            if key == "K4" else {}),
                         **({"one_layer": phases["K5 layer", "bf16"]} if key == "K5" else {})})

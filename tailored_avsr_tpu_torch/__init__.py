@@ -25,7 +25,11 @@ recomputation (``training_settings remat``) and a config ``init`` scheme;
 the other encoders on the Branchformer base (E-Branchformer, Conformer,
 Transformer, Longformer, the conventional encoder's Conformer stacks)
 with every attention and positional-encoding type, interCTC taps and
-conditioning, and the ``word`` / none token types;
+conditioning, and the ``word`` / none token types; the other attention
+decoders (Sim-T and its Mask-CTC MLM form, the lightweight / dynamic
+convolution decoders in 1D and 2D, the LSTM attention decoder, S4),
+served by the full-prefix beam with the LM's full-prefix step, and the
+RNN / VGG-RNN encoders;
 and the rest of the paper's recipe: the Transformer-LM trainer and the
 analysis scripts, each run with ``python -m``:
 
@@ -40,8 +44,9 @@ analysis scripts, each run with ``python -m``:
 - ``models/``  : Conv3D + ResNet-18 visual frontend, AVSR embeddings, the
                  tailored, Branchformer, Conformer, Transformer /
                  Longformer and conventional encoders, adaptive
-                 fusion, CTC head, the Transformer and MLM decoders, the
-                 Transformer LM, the AVSR and ASR / VSR models and their
+                 fusion, CTC head, the Transformer, Sim-T, convolution and
+                 MLM decoders (``decoder.py``), the LSTM and S4 decoders,
+                 the (VGG-)RNN encoder, the Transformer LM, the AVSR and ASR / VSR models and their
                  Mask-CTC variants, activation recomputation (``remat.py``);
 - ``tasks/``   : config -> model for the avsr, asr and vsr tasks and the LM,
                  over one registry (``tasks/common.py``);

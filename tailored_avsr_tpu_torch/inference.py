@@ -39,7 +39,14 @@ dequantisation of uint8 video and int16 audio on the device
   (``score_step_cached_seg``), the LM's a plain cache it writes itself.
 
 The LM rides in the decoder's scorer unless ``ctc_weight`` is 1.0; then it
-scores each step's whole prefix (``TransformerLM.score_step``). An n-gram
+scores each step's whole prefix (``TransformerLM.score_step``). A decoder
+other than the Transformer (Sim-T, the conv decoders, ``rnn``, ``s4``) has
+no cache step, as in the JAX engine (``inference.py:584``, ``:898-918``):
+the beam scores it by its full-prefix ``score_step`` over the
+beam-repeated memory, the LM by its full-prefix step, and the cache
+options (``cache_protocol``, ``cache_segments``, ``cache_dtype``,
+``mem_dtype``, ``phase_widths``) change nothing there, as in the JAX
+engine, after the same checks at construction. An n-gram
 (``ngram_file`` or the ``ngram_path`` argument, which wins, with
 ``ngram_weight`` > 0; ``decode/ngram.py``) joins the LM's scores rescaled
 onto ``lm_weight`` or stands in the LM's place (``ngram_scorer: full``),
@@ -455,8 +462,13 @@ class Speech2Text:
                                 scores=torch.gather(score, 1, order), lengths=torch.gather(tlens, 1, order))
 
     def _beam(self, enc: torch.Tensor, enc_lens: torch.Tensor, ctc_logp: torch.Tensor) -> BeamSearchResult:
-        """The label-synchronous beam over the configured cache protocol
-        (``tailored_avsr_tpu/inference.py:580-929``)."""
+        """The label-synchronous beam (``tailored_avsr_tpu/inference.py:580-929``):
+        a Transformer decoder over the configured cache protocol with the LM
+        folded into its scorer; any other decoder (Sim-T, the conv
+        decoders, ``rnn``, ``s4``: the JAX engine's ``use_cache`` false) by
+        its full-prefix ``score_step`` over the beam-repeated memory, the
+        LM then by its own full-prefix step, and the cache options
+        ignored, as the JAX engine ignores them there."""
         cfg, dec, lm = self.beam_config, self.model.decoder, self.lm
         ngram, ngram_w = self.ngram, self.ngram_weight
         if ngram is not None and self.ngram_mode == "part":
@@ -468,7 +480,8 @@ class Speech2Text:
         k, dt = cfg.beam_size, enc.dtype
         n = b * k
         att_w = 1.0 - cfg.ctc_weight
-        fold_lm = lm is not None and cfg.lm_weight > 0.0 and att_w > 0.0
+        use_cache = getattr(dec, "layer_variant", None) == "transformer"
+        fold_lm = use_cache and lm is not None and cfg.lm_weight > 0.0 and att_w > 0.0
         lm_scale = cfg.lm_weight / att_w if fold_lm else 0.0
 
         def with_ngram(lm_lp, ys, pos):  # the full n-gram rescaled onto the LM weight
@@ -477,15 +490,21 @@ class Speech2Text:
             return lm_lp + (ngram_w / cfg.lm_weight) * ngram_full.score_step(ys, pos)
 
         mem_mask = make_valid_mask(enc_lens, t)
-        mem_kv = dec.precompute_memory(enc)  # B rows, shared by each beam group
+        att_fn_for_width = state = att_gather_fn = None
         n_seg = max(1, min(self.cache_segments, t))
-        att_fn_for_width = None
-        if self.cache_protocol == "anc" and n_seg == 1:
+        if not use_cache:
+            mem, mm = enc.repeat_interleave(k, 0), mem_mask.repeat_interleave(k, 0)
+
+            def att_fn(ys, pos):
+                return self.model.decoder_score_step(mem, mm, ys, pos)
+        elif self.cache_protocol == "anc" and n_seg == 1:
+            mem_kv = dec.precompute_memory(enc)  # B rows, shared by each beam group
             att_fn_for_width, state, att_gather_fn = self._anc_protocol(
                 enc, mem_kv, mem_mask, fold_lm, lm_scale, with_ngram, cfg)
             att_fn = att_fn_for_width(None)
         else:
-            mem_kv = [(mk.repeat_interleave(k, 0), mv.repeat_interleave(k, 0)) for mk, mv in mem_kv]
+            mem_kv = [(mk.repeat_interleave(k, 0), mv.repeat_interleave(k, 0))
+                      for mk, mv in dec.precompute_memory(enc)]
             mem_mask = mem_mask.repeat_interleave(k, 0)
             seg = n_seg > 1
             state = {"dec": dec.init_cache_seg(n, t, dtype=dt, num_segments=n_seg) if seg

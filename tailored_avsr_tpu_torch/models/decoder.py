@@ -1,17 +1,32 @@
-"""Autoregressive Transformer decoder and its ancestry-cache beam step
-(counterpart of ``TransformerDecoder`` in ``tailored_avsr_tpu/models/decoder.py``).
+"""Attention decoders and the Transformer's cache beam steps (counterpart
+of ``tailored_avsr_tpu/models/decoder.py``).
 
-Token embedding + absolute pos-enc -> N x (causal self-attention,
-cross-attention over the encoder memory, FFN), pre-norm, final LayerNorm and
-the vocabulary projection. The full forward, ``precompute_memory`` and the
-beam steps of every cache protocol of the JAX engine: ``score_step_anc``
-over the never-reordered group cache (``init_cache_group``), the append
+Token embedding + absolute pos-enc -> N x layer -> final LayerNorm and the
+vocabulary projection (none with ``use_output_layer: false``). The layer is
+chosen by ``layer_variant``, as in the JAX ``_DecoderBase``:
+
+- ``transformer``: causal self-attention, cross-attention over the encoder
+  memory, FFN (pre-norm);
+- ``sim_t`` (``SimTDecoderLayer``): one MHA and one FFN, each used twice;
+  the first layer's self-attention probabilities are re-applied to fresh
+  values in every layer (``apply_scores``, no output projection);
+- ``lightconv`` / ``dynamicconv`` and their ``2d`` forms
+  (``ConvDecoderLayer``): a causal convolution after a GLU in place of the
+  self-attention, its softmax-normalised kernels shared across
+  ``conv_wshare`` channel groups (channel c in group c // (D / wshare)),
+  learned or predicted per position, over time or over the (time,
+  feature) plane; ``conv_kernel_length`` an int or one value a layer.
+
+The full forward and the full-prefix recompute ``score_step`` serve every
+variant; ``score_step`` runs only the prefix ``ys[:, :pos]`` of a variant
+other than ``transformer`` (every layer is causal, so the step's log-probs
+are the whole buffer's). The cache beam steps are the Transformer's, as
+the JAX package asserts: ``precompute_memory`` and ``score_step_anc`` over
+the never-reordered group cache (``init_cache_group``), the append
 protocol's ``score_step_append`` over a physically reordered (N, H, Lc,
 dk) cache (``init_cache``), whose in-scorer-write twin is
-``score_step_cached``, the length-segmented cache
-(``init_cache_seg``, ``score_step_cached_seg``, ``gather_cache_seg``) and
-the full-prefix recompute ``score_step``. The other layer variants are
-refused by ``tasks/common.build_decoder_and_ctc``.
+``score_step_cached``, and the length-segmented cache (``init_cache_seg``,
+``score_step_cached_seg``, ``gather_cache_seg``).
 
 A group cache wider than the model (``cache_dtype: float32`` under a bf16
 model) makes the first self-attention's output f32, and, as flax promotes
@@ -21,7 +36,10 @@ weights: here through an f32 copy of the model made once
 
 ``MLMDecoder`` (Mask-CTC, ``decoder.py:682``) is the same stack with full
 self-attention among each sequence's valid tokens: a (B, L) key-side
-validity mask in place of the causal one.
+validity mask in place of the causal one. The classes ``SimTDecoder``,
+``SimTMLMDecoder``, ``LightConvDecoder``, ``DynamicConvDecoder``,
+``LightConv2DDecoder`` and ``DynamicConv2DDecoder`` only change the
+default ``layer_variant`` (``decoder.py:701-739``).
 """
 
 from __future__ import annotations
@@ -30,6 +48,7 @@ import copy
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tailored_avsr_tpu_torch.models import remat
@@ -147,9 +166,118 @@ class TransformerDecoderLayer(nn.Module):
         return tgt + self.dropout(self.feed_forward(h))
 
 
+class SimTDecoderLayer(nn.Module):
+    """Sim-T (``decoder.py:88``): ``mha_attn`` serves the self-attention,
+    the cross-attention and the post-attention, ``feed_forward`` both FFN
+    sub-blocks; ``norm_mha`` / ``norm_ffn`` before each use."""
+
+    def __init__(self, size: int, attention_heads: int = 4, linear_units: int = 2048,
+                 attention_dropout_rate: float = 0.0, dropout_rate: float = 0.1, *, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.mha_attn = MultiHeadedAttention(attention_heads, attention_dropout_rate, size, **kw)
+        self.feed_forward = PositionwiseFeedForward(size, linear_units, dropout_rate, "relu", **kw)
+        self.norm_mha = nn.LayerNorm(size, eps=_LN_EPS, **kw)
+        self.norm_ffn = nn.LayerNorm(size, eps=_LN_EPS, **kw)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, tgt, tgt_mask, memory, memory_mask, s1=None):
+        """-> (output, ``s1``): the first layer (``s1`` None) donates its
+        self-attention probabilities (B, H, T, T) to the layers after it."""
+        h = self.norm_mha(tgt)
+        out, scores = self.mha_attn.attend(h, h, h, tgt_mask)
+        x = tgt + self.dropout(out)
+        if s1 is None:
+            s1 = scores
+        h = self.norm_mha(x)
+        x = x + self.dropout(self.mha_attn(h, memory, memory, memory_mask))
+        x = x + self.dropout(self.feed_forward(self.norm_ffn(x)))
+        x = x + self.mha_attn.apply_scores(self.norm_mha(x), s1)
+        return x + self.dropout(self.feed_forward(self.norm_ffn(x))), s1
+
+
+class ConvDecoderLayer(nn.Module):
+    """Lightweight / dynamic convolution decoder layer (``decoder.py:140``):
+    ``glu_proj`` (GLU), the causal convolution (``conv_weight`` (wshare,
+    taps), or ``weight_proj`` predicting it per position; ``conv_bias``
+    with ``use_bias``), ``out_proj``, then cross-attention and the FFN. The
+    2D form convolves over (time, feature): causal in time, ``same`` with
+    zero padding in feature, the flattened tap index time tap x k +
+    feature tap."""
+
+    def __init__(self, size: int, attention_heads: int = 4, linear_units: int = 2048, kernel_size: int = 11,
+                 dynamic: bool = False, two_dim: bool = False, wshare: int = 4, use_bias: bool = False,
+                 src_attention_dropout_rate: float = 0.0, dropout_rate: float = 0.1, *, device=None, dtype=None):
+        super().__init__()
+        if size % wshare:
+            raise ValueError(f"conv_wshare {wshare} does not divide the decoder width {size}")
+        kw = {"device": device, "dtype": dtype}
+        self.kernel_size, self.dynamic, self.two_dim, self.wshare = kernel_size, dynamic, two_dim, wshare
+        taps = kernel_size * kernel_size if two_dim else kernel_size
+        self.glu_proj = nn.Linear(size, 2 * size, **kw)
+        if dynamic:
+            self.weight_proj = nn.Linear(size, wshare * taps, **kw)
+        else:
+            self.conv_weight = nn.Parameter(torch.empty(wshare, taps, **kw))
+        self.conv_bias = nn.Parameter(torch.empty(size, **kw)) if use_bias else None
+        self.out_proj = nn.Linear(size, size, **kw)
+        self.src_attn = MultiHeadedAttention(attention_heads, src_attention_dropout_rate, size, **kw)
+        self.feed_forward = PositionwiseFeedForward(size, linear_units, dropout_rate, "relu", **kw)
+        self.norm1 = nn.LayerNorm(size, eps=_LN_EPS, **kw)
+        self.norm2 = nn.LayerNorm(size, eps=_LN_EPS, **kw)
+        self.norm3 = nn.LayerNorm(size, eps=_LN_EPS, **kw)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def _conv(self, h: torch.Tensor) -> torch.Tensor:
+        """The convolution sub-block: the sums of the JAX einsums per channel
+        group, the group's kernel never repeated over its channels."""
+        b, t, d = h.shape
+        g, k = self.wshare, self.kernel_size
+        x = self.glu_proj(h)
+        x = x[..., :d] * torch.sigmoid(x[..., d:])
+        if self.dynamic:
+            w = torch.softmax(self.weight_proj(x).reshape(b, t, g, -1), dim=-1)  # (B, T, G, taps)
+        else:
+            w = torch.softmax(self.conv_weight, dim=-1)  # (G, taps)
+        xp = F.pad(x, (0, 0, k - 1, 0))  # causal: k - 1 steps of zeros before the first
+        if not self.two_dim:
+            if not self.dynamic:  # depthwise: channel c takes its group's kernel
+                wd = w.repeat_interleave(d // g, dim=0)[:, None, :]
+                y = F.conv1d(xp.transpose(1, 2), wd, groups=d).transpose(1, 2)
+            else:  # (B, T, G, D/G, k) taps against (B, T, G, k)
+                taps = xp.unfold(1, k, 1).reshape(b, t, g, d // g, k)
+                y = (taps @ w[..., None]).squeeze(-1).reshape(b, t, d)
+        else:
+            pf = k // 2
+            tt = F.pad(xp, (pf, pf)).unfold(1, k, 1)  # (B, T, D + 2 pf, k time taps)
+            w = w.reshape(w.shape[:-1] + (k, k))  # (..., time tap, feature tap)
+            y = torch.zeros((b, t, d), dtype=x.dtype, device=x.device)
+            for j in range(k):  # feature tap j of channel c reads channel c - pf + j
+                tj = tt[:, :, j:j + d].reshape(b, t, g, d // g, k)
+                wj = w[..., j]  # (B, T, G, k) or (G, k)
+                y = y + (tj @ (wj[..., None] if self.dynamic else wj[:, :, None])).squeeze(-1).reshape(b, t, d)
+        if self.conv_bias is not None:
+            y = y + self.conv_bias
+        return self.out_proj(y)
+
+    def forward(self, tgt, tgt_mask, memory, memory_mask):
+        # the taps look only left, so ``tgt_mask`` (a causal or padding mask)
+        # changes nothing: padded positions are always to the right
+        tgt = tgt + self.dropout(self._conv(self.norm1(tgt)))
+        h = self.norm2(tgt)
+        tgt = tgt + self.dropout(self.src_attn(h, memory, memory, memory_mask))
+        return tgt + self.dropout(self.feed_forward(self.norm3(tgt)))
+
+
+CONV_VARIANTS = ("lightconv", "dynamicconv", "lightconv2d", "dynamicconv2d")
+
+
 class TransformerDecoder(nn.Module):
     """``embed`` (token embedding, pos-enc), ``decoders``, ``after_norm``,
-    ``output_layer``: the reference key grammar."""
+    ``output_layer``: the reference key grammar. ``layer_variant`` (None:
+    the class's) picks the layers, as the JAX ``_DecoderBase`` does."""
+
+    layer_variant = "transformer"
 
     def __init__(
         self,
@@ -162,6 +290,11 @@ class TransformerDecoder(nn.Module):
         positional_dropout_rate: float = 0.1,
         self_attention_dropout_rate: float = 0.0,
         src_attention_dropout_rate: float = 0.0,
+        use_output_layer: bool = True,
+        layer_variant: Optional[str] = None,
+        conv_kernel_length=11,
+        conv_wshare: int = 4,
+        conv_usebias: bool = False,
         *,
         device=None,
         dtype=None,
@@ -169,19 +302,35 @@ class TransformerDecoder(nn.Module):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         d = encoder_output_size
+        self.layer_variant = variant = layer_variant or type(self).layer_variant
         self.heads, self.d_k = attention_heads, d // attention_heads
         self.embed = nn.Sequential(nn.Embedding(vocab_size, d, **kw),
                                    AbsolutePositionalEncoding(positional_dropout_rate))
-        self.decoders = nn.ModuleList(
-            TransformerDecoderLayer(d, attention_heads, linear_units, self_attention_dropout_rate,
-                                    src_attention_dropout_rate, dropout_rate, **kw)
-            for _ in range(num_blocks)
-        )
+
+        def layer(i: int) -> nn.Module:
+            if variant in CONV_VARIANTS:
+                k = conv_kernel_length if isinstance(conv_kernel_length, int) else conv_kernel_length[i]
+                return ConvDecoderLayer(d, attention_heads, linear_units, int(k), variant.startswith("dynamic"),
+                                        variant.endswith("2d"), conv_wshare, conv_usebias,
+                                        src_attention_dropout_rate, dropout_rate, **kw)
+            if variant == "sim_t":
+                return SimTDecoderLayer(d, attention_heads, linear_units, self_attention_dropout_rate,
+                                        dropout_rate, **kw)
+            return TransformerDecoderLayer(d, attention_heads, linear_units, self_attention_dropout_rate,
+                                           src_attention_dropout_rate, dropout_rate, **kw)
+
+        self.decoders = nn.ModuleList(layer(i) for i in range(num_blocks))
         self.after_norm = nn.LayerNorm(d, eps=_LN_EPS, **kw)
-        self.output_layer = nn.Linear(d, vocab_size, **kw)
+        self.output_layer = nn.Linear(d, vocab_size, **kw) if use_output_layer else None
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_layer(self.after_norm(x))
+        x = self.after_norm(x)
+        return x if self.output_layer is None else self.output_layer(x)
+
+    def _cached(self) -> None:
+        """The cache beam steps are the Transformer layer's (the JAX asserts)."""
+        if self.layer_variant != "transformer":
+            raise ValueError(f"layer_variant {self.layer_variant!r} has no cache beam step: use score_step")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -199,8 +348,12 @@ class TransformerDecoder(nn.Module):
 
     def _run(self, ys, tgt_mask, memory, memory_mask) -> torch.Tensor:
         x = self.embed[1](self.embed[0](ys), dtype=self.dtype)
+        s1 = None
         for layer in self.decoders:
-            x = remat.run(layer, x, tgt_mask, memory, memory_mask)
+            if self.layer_variant == "sim_t":
+                x, s1 = remat.run(layer, x, tgt_mask, memory, memory_mask, s1)
+            else:
+                x = remat.run(layer, x, tgt_mask, memory, memory_mask)
         return self._head(x)
 
     def forward(self, memory, memory_mask, ys_in, ys_in_lengths) -> torch.Tensor:
@@ -210,7 +363,10 @@ class TransformerDecoder(nn.Module):
 
     def score_step(self, memory, memory_mask, ys: torch.Tensor, pos: int) -> torch.Tensor:
         """Log-probs (N, V) of the token at ``pos`` given ``ys[:, :pos]``: the
-        whole (N, L) buffer recomputed, the first ``pos`` tokens visible."""
+        whole (N, L) buffer recomputed, the first ``pos`` tokens visible;
+        for the other variants the prefix alone (the same log-probs)."""
+        if self.layer_variant != "transformer":
+            ys = ys[:, :pos]
         b, t = ys.shape
         mask = causal_mask(b, t, device=ys.device) & (torch.arange(t, device=ys.device) < pos)[None, None, :]
         logits = self._run(ys, mask, memory, memory_mask)
@@ -226,6 +382,7 @@ class TransformerDecoder(nn.Module):
         """Beam step over (N, H, Lc, dk) caches that it writes itself at
         column ``pos - 1`` (in place) -> ((N, V) f32 log-probs, the caches).
         ``mem_kv``: per-layer (K, V) of the memory, N rows."""
+        self._cached()
         lc = cache[0][0].shape[2]
         x = self._embed_step(ys, pos, lc)
         self_mask = (torch.arange(lc, device=ys.device) < pos)[None].expand(ys.shape[0], lc)
@@ -244,6 +401,7 @@ class TransformerDecoder(nn.Module):
         """Cache-read-only beam step (the append protocol) -> ((N, V) f32
         log-probs, per-layer (k_new, v_new) (N, H, 1, dk) columns, which the
         beam's reorder writes: ``decode/beam_search.insert_permute_rows``)."""
+        self._cached()
         lc = cache[0][0].shape[2]
         x = self._embed_step(ys, pos, lc)
         cache_mask = (torch.arange(lc, device=ys.device) < pos - 1)[None].expand(ys.shape[0], lc)
@@ -282,6 +440,7 @@ class TransformerDecoder(nn.Module):
         goes into the segment that holds ``pos - 1`` (in place), and the
         attend skips the segments at or past ``pos``. -> ((N, V) f32
         log-probs, the caches)."""
+        self._cached()
         seg = cache[0][0][0].shape[2]
         x = self._embed_step(ys, pos, seg * len(cache[0][0]))
         si, off = divmod(pos - 1, seg)
@@ -299,6 +458,7 @@ class TransformerDecoder(nn.Module):
 
     def precompute_memory(self, memory: torch.Tensor):
         """Per-layer cross-attention (K, V), each (B, H, T, dk)."""
+        self._cached()
         return [layer.src_attn.project_kv(memory) for layer in self.decoders]
 
     def init_cache_group(self, b: int, beam: int, max_len: int, dtype=torch.float32, *, device=None,
@@ -324,6 +484,7 @@ class TransformerDecoder(nn.Module):
     ):
         """Ancestry-cache beam step -> ((N, V) f32 log-probs of the token at
         ``pos``, per-layer (k_new, v_new) (N, H, 1, dk) columns to write)."""
+        self._cached()
         lc = cache_width(cache)
         x = self._embed_step(ys, pos, lc)
         anc = anc_columns(anc, lc)
@@ -353,6 +514,33 @@ class MLMDecoder(TransformerDecoder):
         valid token."""
         tgt_mask = torch.arange(ys_in.shape[1], device=ys_in.device)[None, :] < ys_in_lengths[:, None]
         return self._run(ys_in, tgt_mask, memory, memory_mask)
+
+
+class SimTDecoder(TransformerDecoder):
+    layer_variant = "sim_t"
+
+
+class SimTMLMDecoder(MLMDecoder):
+    """The Mask-CTC MLM decoder of Sim-T layers (the reference's
+    ``decoder/sim_t/mlm_decoder.py``)."""
+
+    layer_variant = "sim_t"
+
+
+class LightConvDecoder(TransformerDecoder):
+    layer_variant = "lightconv"
+
+
+class DynamicConvDecoder(TransformerDecoder):
+    layer_variant = "dynamicconv"
+
+
+class LightConv2DDecoder(TransformerDecoder):
+    layer_variant = "lightconv2d"
+
+
+class DynamicConv2DDecoder(TransformerDecoder):
+    layer_variant = "dynamicconv2d"
 
 
 def anc_columns(anc: torch.Tensor, lc: int) -> torch.Tensor:

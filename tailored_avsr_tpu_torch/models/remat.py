@@ -1,8 +1,10 @@
 """Activation recomputation for ``training_settings remat`` (counterpart of
 the ``jax.checkpoint`` over the loss in ``tailored_avsr_tpu/train/loop.py``).
 
-Under ``enabled()`` (the train step's forward) each encoder layer, decoder
-layer and ResNet stage runs through ``torch.utils.checkpoint``
+Under ``enabled()`` (the train step's forward) each encoder layer (an RNN
+encoder's too), decoder layer (a Sim-T layer with the first layer's
+attention probabilities passed in and returned; an S4 decoder's block)
+and ResNet stage runs through ``torch.utils.checkpoint``
 (non-reentrant): the forward keeps the region's inputs, and the backward
 runs the region again to rebuild the activations it needs. Memory drops,
 the numbers stay those of the plain step:

@@ -167,24 +167,57 @@ class LSTMLayer(nn.Module):
         self.register_buffer("bias_ih_l0", torch.zeros(4 * hidden_size, **kw))
         self.bias_hh_l0 = nn.Parameter(torch.empty(4 * hidden_size, **kw))
 
-    def cell(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, in), (c, h) -> (c', h'), each side in the type flax's cell
-        promotes it to: the input side ``x @ W_ih`` in x's and W_ih's type,
-        the recurrent side ``h @ W_hh + b`` in theirs. They differ only under
-        bf16 weight storage (``utils/quantize.py``), where a bf16 embedding
-        meets a bf16 input kernel and that product is rounded to bf16."""
+    def input_gates(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., in) -> (..., 4H): the input side ``x @ W_ih + b_ih`` in the
+        type flax promotes x and W_ih to, for any leading shape."""
+        dt = torch.promote_types(x.dtype, self.weight_ih_l0.dtype)
+        return F.linear(x.to(dt), self.weight_ih_l0.to(dt), self.bias_ih_l0.to(dt))
+
+    def recurrent_weights(self, h_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """W_hh and b_hh in the type flax promotes the recurrent side
+        ``h @ W_hh + b`` to, for an h of ``h_dtype``."""
+        w_hh, b_hh = self.weight_hh_l0, self.bias_hh_l0
+        dt = torch.promote_types(torch.promote_types(h_dtype, w_hh.dtype), b_hh.dtype)
+        return w_hh.to(dt), b_hh.to(dt)
+
+    @staticmethod
+    def _step(gx: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor], w_hh: torch.Tensor,
+              b_hh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(c, h) -> (c', h') from the input side ``gx`` and the recurrent
+        weights in their promoted type."""
         c, h = state
-        w_ih, w_hh, b_hh = self.weight_ih_l0, self.weight_hh_l0, self.bias_hh_l0
-        dt_i = torch.promote_types(x.dtype, w_ih.dtype)
-        dt_h = torch.promote_types(torch.promote_types(h.dtype, w_hh.dtype), b_hh.dtype)
-        if dt_i == dt_h:
-            h, c = torch.lstm_cell(x.to(dt_i), (h.to(dt_i), c.to(dt_i)), w_ih.to(dt_i), w_hh.to(dt_i),
-                                   self.bias_ih_l0.to(dt_i), b_hh.to(dt_i))
-            return c, h
-        gates = F.linear(x.to(dt_i), w_ih.to(dt_i)) + F.linear(h.to(dt_h), w_hh.to(dt_h), b_hh.to(dt_h))
-        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, g, o = (gx + F.linear(h.to(w_hh.dtype), w_hh, b_hh)).chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return c, torch.sigmoid(o) * torch.tanh(c)
+
+    def cell(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, in), (c, h) -> (c', h'), each side in the type flax's cell
+        promotes it to (``input_gates``, ``recurrent_weights``). They differ
+        only under bf16 weight storage (``utils/quantize.py``), where a bf16
+        embedding meets a bf16 input kernel and that product is rounded to
+        bf16; else one fused ``torch.lstm_cell``."""
+        c, h = state
+        w_hh, b_hh = self.recurrent_weights(h.dtype)
+        dt = w_hh.dtype
+        if torch.promote_types(x.dtype, self.weight_ih_l0.dtype) == dt:
+            h, c = torch.lstm_cell(x.to(dt), (h.to(dt), c.to(dt)), self.weight_ih_l0.to(dt), w_hh,
+                                   self.bias_ih_l0.to(dt), b_hh)
+            return c, h
+        return self._step(self.input_gates(x), state, w_hh, b_hh)
+
+    def sequence(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, in) -> (B, T, H), every step's h, from zero carries in f32
+        (flax's ``initialize_carry`` takes the cell's f32 ``param_dtype``,
+        whatever type the weights are stored in): the input side of all T
+        steps in one product, then the recurrence step by step."""
+        gx = self.input_gates(x)
+        w_hh, b_hh = self.recurrent_weights(torch.float32)
+        state = (torch.zeros((x.shape[0], self.hidden_size), dtype=torch.float32, device=x.device),) * 2
+        outs = []
+        for t in range(x.shape[1]):
+            state = self._step(gx[:, t], state, w_hh, b_hh)
+            outs.append(state[1])
+        return torch.stack(outs, dim=1)
 
 
 class PredictionNetwork(nn.Module):

@@ -2,17 +2,18 @@
 
 Ported: the ``default`` (log-mel) and ``conv3dresnet18`` frontends,
 SpecAug, ``utterance_mvn`` or no normalisation, the ``branchformer``,
-``e_branchformer``, ``conformer``, ``transformer`` and ``longformer``
-encoders (interCTC taps and conditioning among their options), the
-``transformer`` attention decoder (built unless
+``e_branchformer``, ``conformer``, ``transformer``, ``longformer``, ``rnn``
+and ``vgg_rnn`` encoders (interCTC taps and conditioning among the
+options of the first five), every attention decoder of the JAX registry
+but the two that need pretrained weights (built unless
 ``model_conf.ctc_weight`` is 1.0), the transducer's prediction and joint
 networks (``decoder: transducer``, with the multi-blank vocabulary
 extension), the CTC head, and the ``espnet`` and ``maskctc`` models (the
-MLM decoder over V + 1 tokens) with their loss settings. Refused, naming
-``ROADMAP.md`` item 8: ``pit_espnet``, Sim-T (``sim_t_mlm`` for Mask-CTC),
-pre- / post-encoders and the other encoders (``transformer_multispkr``,
-``contextual_block_*``, ``rnn``, ``vgg_rnn``) and frontends. The registries
-and the config-key rule are ``tasks/common.py``'s.
+MLM decoder, or the Sim-T MLM decoder for ``sim_t``, over V + 1 tokens)
+with their loss settings. Refused, naming ``ROADMAP.md`` item 8:
+``pit_espnet``, pre- / post-encoders and the other encoders
+(``transformer_multispkr``, ``contextual_block_*``) and frontends. The
+registries and the config-key rule are ``tasks/common.py``'s.
 """
 
 from __future__ import annotations

@@ -3,11 +3,12 @@
 Ported: the default log-mel frontend, utterance MVN, the conv3dresnet18
 visual frontend, default embeddings (every positional encoding), the
 tailored and the conventional (Branchformer or Conformer stacks) encoders
-with their attention types and interCTC taps, adaptive fusion, the CTC head, the ``transformer``
-attention decoder (built unless ``model_conf.ctc_weight`` is 1.0, as in the
-JAX task), the transducer's prediction and joint networks (with the
-multi-blank vocabulary extension), SpecAug, and the ``espnet`` and
-``maskctc`` models (the MLM decoder over V + 1 tokens) with their loss
+with their attention types and interCTC taps, adaptive fusion, the CTC head, every
+attention decoder of ``tasks/common.DECODERS`` (built unless
+``model_conf.ctc_weight`` is 1.0, as in the JAX task), the transducer's
+prediction and joint networks (with the multi-blank vocabulary
+extension), SpecAug, and the ``espnet`` and ``maskctc`` models (the MLM
+decoder, or the Sim-T MLM decoder, over V + 1 tokens) with their loss
 settings (``model_conf``). Any other choice raises ``NotImplementedError``
 naming the ``ROADMAP.md`` item ("Modules to port") that will port it. The
 registries and the config-key rule are ``tasks/common.py``'s.

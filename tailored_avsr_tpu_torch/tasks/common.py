@@ -1,18 +1,21 @@
 """Shared pieces of the config -> model builders
 (counterpart of ``tailored_avsr_tpu/tasks/common.py``): the registries of
-frontends, SpecAug, normalisation, encoders and decoders (attention, MLM,
-the transducer's prediction and joint networks) for the names the port
-builds, the multi-blank vocabulary extension, the config-key rule, seeded
+frontends, SpecAug, normalisation, encoders and decoders (the attention
+decoders of every layer variant, MLM, LSTM and S4, the transducer's
+prediction and joint networks) for the names the port builds, the
+multi-blank vocabulary extension, the config-key rule, seeded
 materialisation and the device rule.
 
 A config key reaches a constructor as in the JAX ``filter_conf``: a key the
 port's constructor takes is passed; a key the JAX constructor takes and
 the port's does not is listed in the section's ``*_FIXED`` table and must
 hold a value the port builds (else it raises naming its item); any other
-key is one the JAX constructor drops too, and is dropped here after the
-same check of ``positionwise_layer_type`` and ``ctc_type``.
-``tests/test_torch_port_train.py`` and ``tests/test_torch_port_asr.py`` hold
-the tables to the JAX constructors' fields. A name the port does not build
+key is one the JAX constructor drops too (the flagship's ``num_blocks``
+reaching an ``rnn`` decoder), and is dropped here after the same check of
+``positionwise_layer_type`` and ``ctc_type``.
+``tests/test_torch_port_train.py``, ``tests/test_torch_port_asr.py`` and
+``tests/test_torch_port_decoders.py`` hold the tables to the JAX
+constructors' fields. A name the port does not build
 raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that will
 port it.
 """
@@ -30,8 +33,20 @@ from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoder
 from tailored_avsr_tpu_torch.models.conformer import ConformerEncoder
 from tailored_avsr_tpu_torch.models.conventional import ConventionalEncoder
 from tailored_avsr_tpu_torch.models.ctc import CTCHead
-from tailored_avsr_tpu_torch.models.decoder import MLMDecoder, TransformerDecoder
+from tailored_avsr_tpu_torch.models.decoder import (
+    DynamicConv2DDecoder,
+    DynamicConvDecoder,
+    LightConv2DDecoder,
+    LightConvDecoder,
+    MLMDecoder,
+    SimTDecoder,
+    SimTMLMDecoder,
+    TransformerDecoder,
+)
 from tailored_avsr_tpu_torch.models.frontends import Conv3dResNet18
+from tailored_avsr_tpu_torch.models.rnn_decoder import RNNDecoder
+from tailored_avsr_tpu_torch.models.rnn_encoder import RNNEncoder
+from tailored_avsr_tpu_torch.models.s4_decoder import S4Decoder
 from tailored_avsr_tpu_torch.models.tailored import TailoredEncoder
 from tailored_avsr_tpu_torch.models.transformer_encoder import LongformerEncoder, TransformerEncoder
 from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
@@ -44,15 +59,7 @@ from tailored_avsr_tpu_torch.utils.initialize import init_params_
 
 # Keys a JAX constructor takes and the port's does not: (values the port
 # builds, ROADMAP item that ports the others); None: any value. The
-# encoders take every key of theirs.
-DECODER_FIXED = {
-    "use_output_layer": ((True,), 8),
-    "layer_variant": (("transformer",), 8),
-    # read only by the conv layer variants
-    "conv_kernel_length": (None, 8),
-    "conv_wshare": (None, 8),
-    "conv_usebias": (None, 8),
-}
+# encoders and the decoders take every key of theirs.
 VISUAL_FRONTEND_FIXED = {
     "bn_axis_name": ((None,), 9),  # cross-replica BatchNorm: data parallel
     "stem_s2d": (None, 8),  # the TPU's evaluation of the same stem weights
@@ -63,7 +70,26 @@ ASR_ENCODERS = {
     "conformer": ConformerEncoder,
     "transformer": TransformerEncoder,
     "longformer": LongformerEncoder,
+    "rnn": RNNEncoder,
+    "vgg_rnn": RNNEncoder,
 }
+# ``tailored_avsr_tpu/tasks/common.py:build_decoder``'s table; ``whisper``
+# and ``hugging_face_transformers`` need pretrained weights from outside
+# the repository, and both packages refuse them
+DECODERS = {
+    "transformer": TransformerDecoder,
+    "sim_t": SimTDecoder,
+    "simt": SimTDecoder,
+    "mlm": MLMDecoder,
+    "sim_t_mlm": SimTMLMDecoder,
+    "lightweight_conv": LightConvDecoder,
+    "dynamic_conv": DynamicConvDecoder,
+    "lightweight_conv2d": LightConv2DDecoder,
+    "dynamic_conv2d": DynamicConv2DDecoder,
+    "rnn": RNNDecoder,
+    "s4": S4Decoder,
+}
+PRETRAINED_DECODERS = ("whisper", "hugging_face_transformers")
 # keys that both packages drop, and the values they may hold
 # (``tailored_avsr_tpu/tasks/common.py:_DROPPED_KEY_ALLOWED``)
 DROPPED_KEY_ALLOWED = {
@@ -196,11 +222,12 @@ def build_encoder(name: str, conf: Optional[Dict], input_size: Optional[int] = N
     ``branchformer``, ``e_branchformer`` (``concat`` and
     ``merge_conv_kernel: 3`` unless set), ``conformer``, ``transformer``
     and ``longformer`` (``abs_pos``, ``selfattn`` and ``relu`` unless set),
-    whose ``input_size`` is the frontend's feature width (the ``embed``
-    input layer's token count comes from the config), and the AVSR
-    encoders ``tailored`` and ``conventional``. ``vocab_size`` is the
-    interCTC conditioning layer's input width. The other names of the JAX
-    registry raise naming their item."""
+    ``rnn`` and ``vgg_rnn`` (``use_vgg`` by the name unless set), whose
+    ``input_size`` is the frontend's feature width (the ``embed`` input
+    layer's token count comes from the config), and the AVSR encoders
+    ``tailored`` and ``conventional``. ``vocab_size`` is the interCTC
+    conditioning layer's input width. The other names of the JAX registry
+    raise naming their item."""
     conf = dict(conf or {})
     if name in ("tailored", "conventional"):
         cls = TailoredEncoder if name == "tailored" else ConventionalEncoder
@@ -212,7 +239,9 @@ def build_encoder(name: str, conf: Optional[Dict], input_size: Optional[int] = N
         conf.setdefault("pos_enc_layer_type", "abs_pos")
         conf.setdefault("attention_layer_type", "selfattn")
         conf.setdefault("ffn_activation_type", "relu")
-    if name not in ASR_ENCODERS:  # transformer_multispkr (with PIT), contextual_block_*, rnn, vgg_rnn
+    elif name in ("rnn", "vgg_rnn"):
+        conf.setdefault("use_vgg", name == "vgg_rnn")
+    if name not in ASR_ENCODERS:  # transformer_multispkr (with PIT), contextual_block_*
         raise refuse("encoder", name, 8)
     cls = ASR_ENCODERS[name]
     if conf.get("input_layer", "conv2d") != "embed":
@@ -269,10 +298,9 @@ def extend_multi_blank(config, token_list: List[str]) -> Tuple[int, ...]:
 def build_decoder_and_ctc(config, vocab_size: int, encoder_size: int, maskctc: bool = False):
     """(decoder, joint network, CTC head). A transducer ``decoder`` gives the
     LSTM prediction network and the joint network; otherwise the attention
-    decoder is built unless ``model_conf.ctc_weight`` is 1.0 (as the JAX
-    tasks build none): ``transformer``, or for a Mask-CTC model its MLM
-    variant over V + 1 tokens. Sim-T and the other decoders raise naming
-    item 8."""
+    decoder of ``DECODERS`` is built unless ``model_conf.ctc_weight`` is 1.0
+    (as the JAX tasks build none), for a Mask-CTC model over V + 1 tokens
+    and, for ``transformer`` and ``sim_t``, as its MLM variant."""
     decoder_name = cfg_value(config, "decoder", "transformer") or "transformer"
     model_conf = dict(cfg_value(config, "model_conf", {}))
     decoder = joint = None
@@ -281,9 +309,13 @@ def build_decoder_and_ctc(config, vocab_size: int, encoder_size: int, maskctc: b
     elif float(model_conf.get("ctc_weight", 0.5)) < 1.0:
         if maskctc:
             decoder_name = MLM_VARIANT.get(decoder_name, decoder_name)
-        require("decoder", decoder_name, ("mlm",) if maskctc else ("transformer",), 8)
-        cls = MLMDecoder if maskctc else TransformerDecoder
-        decoder = cls(**conf_args(cls, cfg_value(config, "decoder_conf", {}), DECODER_FIXED,
+        if decoder_name in PRETRAINED_DECODERS:
+            raise NotImplementedError(f"decoder {decoder_name!r} needs external pretrained weights, which are "
+                                      "not part of this repository")
+        if decoder_name not in DECODERS:
+            raise ValueError(f"unknown decoder: {decoder_name}")
+        cls = DECODERS[decoder_name]
+        decoder = cls(**conf_args(cls, cfg_value(config, "decoder_conf", {}),
                                   vocab_size=vocab_size + 1 if maskctc else vocab_size,
                                   encoder_output_size=encoder_size), **META)
     ctc_conf = dict(cfg_value(config, "ctc_conf", {}))

@@ -6,9 +6,12 @@ scheme follows flax's defaults, which the JAX package initialises with:
 kernels LeCun-normal (std 1/sqrt(fan_in)), biases 0, norm scales 1 and
 shifts 0, BatchNorm running statistics 0 / 1, the modality embedding
 normal with std 1/sqrt(d), the rel-pos u/v biases Xavier-uniform, the
-scaled positional encoding's alpha 1, and an
+scaled positional encoding's alpha 1, an
 LSTM layer as flax's ``OptimizedLSTMCell``: each gate's input kernel
-LeCun-normal, its recurrent kernel orthogonal, biases 0.
+LeCun-normal, its recurrent kernel orthogonal, biases 0; a conv decoder
+layer's ``conv_weight`` (wshare, taps) LeCun-normal over its wshare fan-in
+and ``conv_bias`` 0; an S4D layer's six leaves as the JAX layer draws
+them (``models/s4_decoder.s4_initial_values``).
 
 ``initialize`` is a config's ``init`` scheme
 (``tailored_avsr_tpu/utils/initialize.py``), applied after that init:
@@ -16,7 +19,9 @@ every flax ``kernel`` of ndim >= 2 redrawn by ``xavier_uniform``,
 ``xavier_normal``, ``kaiming_uniform`` or ``kaiming_normal`` with flax's
 variance-scaling fans (a depthwise conv's receptive field its taps),
 every ``bias`` 0, every ``scale`` 1; embeddings, the rel-pos biases, the
-positional ``alpha`` and the BatchNorm statistics kept.
+positional ``alpha``, the BatchNorm statistics, the conv decoders'
+``conv_weight`` / ``conv_bias`` and the S4D leaves kept (their flax names
+are not ``kernel``, ``bias`` or ``scale``).
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import math
 import torch
 from torch import nn
 
+from tailored_avsr_tpu_torch.models.decoder import ConvDecoderLayer
+from tailored_avsr_tpu_torch.models.s4_decoder import S4DLayer, s4_initial_values
 from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
 from tailored_avsr_tpu_torch.ops.posenc import ScaledPositionalEncoding
 from tailored_avsr_tpu_torch.ops.rnnt import LSTMLayer
@@ -85,6 +92,15 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 put(p, (torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
         elif isinstance(module, ScaledPositionalEncoding):
             put(module.alpha, torch.ones(module.alpha.shape))
+        elif isinstance(module, ConvDecoderLayer):
+            if not module.dynamic:  # a dynamic layer's weight_proj is a Linear
+                w = module.conv_weight
+                put(w, _normal(w.shape, 1.0 / math.sqrt(w.shape[0]), generator))
+            if module.conv_bias is not None:
+                put(module.conv_bias, torch.zeros(module.conv_bias.shape))
+        elif isinstance(module, S4DLayer):
+            for name, value in s4_initial_values(module, generator).items():
+                put(getattr(module, name), value)
     left = [n for n, t in [*model.named_parameters(), *model.named_buffers()] if id(t) not in done]
     if left:
         raise RuntimeError(f"init_params_: no initialiser for {left[:5]}")

@@ -5,8 +5,9 @@ The port's own copy of the export half of
 the key grammar it needs), cut to the models the port builds: the tailored and the
 conventional AVSR models (the latter with Branchformer or Conformer
 stacks), the ASR / VSR models on the Branchformer, E-Branchformer,
-Conformer, Transformer and Longformer encoders, their Mask-CTC and
-transducer variants and the Transformer LM. numpy only.
+Conformer, Transformer, Longformer and (VGG-)RNN encoders, every
+attention decoder (Sim-T, the conv decoders, LSTM, S4), their Mask-CTC
+and transducer variants and the Transformer LM. numpy only.
 ``tests/test_torch_port_int8.py`` holds it equal to the JAX package's
 export, key for key and array for array.
 
@@ -21,12 +22,19 @@ Key mapping (flax path -> torch dotted key), by component:
 - tailored: ``acoustic_norm`` -> ``acoustic_norm_mha`` | ``acoustic_norm_cgmlp``
   after the branch the layer carries;
 - decoder: ``layer_{i}`` -> ``decoders.{i}``, ``embed_tok`` -> ``embed.0``;
+  every other name kept: a conv layer's ``conv_weight`` / ``conv_bias``,
+  S4's ``s4_{i}`` (its six leaves as they are), ``src_attn_{i}``,
+  ``ffn_{i}``, ``norms{1,2,3}_{i}``; the LSTM decoder's ``mlp_enc`` and
+  ``step.{loc_conv, mlp_att, mlp_dec, gvec, lstm_{i}}``;
+- RNN encoder: ``OptimizedLSTMCell_{n}`` (flax's names in creation order),
+  ``proj_{i}``, ``vgg_conv{j}{a,b}``;
 - transducer: ``prediction_network`` -> ``decoder`` (espnet's
   ``TransducerDecoder``), its ``embed_tok`` -> ``embed`` and ``lstm_{i}``
   -> ``decoder.{i}``, whose per-gate flax leaves (``ii``/``hi``, ... for
   gates i, f, g, o) are packed into torch's ``weight_ih_l0``,
   ``weight_hh_l0``, ``bias_hh_l0`` and a zero ``bias_ih_l0``;
-  ``joint_network`` keeps its names;
+  ``joint_network`` keeps its names; every other LSTM cell (the RNN
+  encoder's and the LSTM decoder's) is packed the same way;
 - LM (a tree with ``embed_tok`` and ``output_layer`` at its root): under
   ``lm.``, ``layer_{i}`` -> ``encoder.encoders.{i}``, ``in_linear`` /
   ``in_norm`` -> ``encoder.embed.0/1``, ``output_layer`` -> ``decoder``;

@@ -36,18 +36,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(p for d in ("ASR", "VSR", "AVSR") for p in glob.glob(os.path.join(ROOT, "configs", d, "*.yaml")))
 REFUSED = {}  # every config of the repository builds in the port
 MASKCTC = "configs/AVSR/tailored_maskctc_spanish.yaml"
+FLAGSHIP = "configs/AVSR/tailored_transformer+ctc_spanish.yaml"
 TRANSDUCER = "configs/ASR/branchformer_transducer_spanish.yaml"
 FAMILIES = [ASR, VSR, CONVENTIONAL, MASKCTC, TRANSDUCER]
 FAMILY_IDS = ["asr", "vsr", "conventional", "maskctc", "transducer"]
-# the encoder trees of item 8.2 (``PORTED_CHOICES`` keys), exported beside the families'
+# the encoder trees of item 8.2 and the decoder and RNN-encoder trees of
+# items 8.3 and 8.5 (``PORTED_CHOICES`` keys), exported beside the families'
 ENCODER_TREES = ["conformer", "e_branchformer", "interctc", "conventional_conformer", "conventional_interctc",
-                 "tailored_zero_triu"]
+                 "tailored_zero_triu", "sim_t", "sim_t_mlm", "lightweight_conv", "dynamic_conv",
+                 "lightweight_conv2d", "dynamic_conv2d", "rnn_decoder", "s4", "rnn_encoder", "vgg_rnn"]
 
 
 def _tiny(path):
     """``tiny_cfg`` of a family; the tailored encoder's per-layer branch
     masks cut to its two blocks."""
-    if path == MASKCTC:
+    if path in (MASKCTC, FLAGSHIP):
         return tiny_cfg(path, acoustic_use_attn=[False, True], visual_use_attn=[True, False])
     return tiny_cfg(path)
 
@@ -119,7 +122,6 @@ def _set(cfg, section, value):
 
 
 @pytest.mark.parametrize("path,section,value,item", [
-    (ASR, None, {"model": "maskctc", "decoder": "sim_t"}, 8),  # sim_t_mlm
     (ASR, "model", "pit_espnet", 8),
     (ASR, "encoder", "transformer_multispkr", 8),  # with PIT, item 8.6
     (ASR, "encoder", "contextual_block_transformer", 8),
@@ -127,20 +129,16 @@ def _set(cfg, section, value):
     (ASR, "normalize", "global_mvn", 8),
     (ASR, "preencoder", "linear", 8),
     (ASR, "encoder", "contextual_block_conformer", 8),
-    (ASR, "encoder", "rnn", 8),
-    (ASR, "encoder", "vgg_rnn", 8),
-    (ASR, "decoder", "lightweight_conv", 8),
-    (ASR, "decoder", "dynamic_conv", 8),
-    (ASR, "decoder", "s4", 8),
-    (VSR, "decoder", "rnn", 8),
     (ASR, "frontend", "fused", 8),
     (CONVENTIONAL, "postencoder", "linear", 8),
 ])
 def test_unported_choices_name_their_item(path, section, value, item):
-    """The choices still refused. Ten of these cases named choices that are
-    built now (the E-Branchformer, Conformer, ``zero_triu``, interCTC,
-    ``conv1d2``, legacy rel-pos, ``selfattn``, the conventional Conformer
-    stacks and taps): ``test_ported_choices_build_with_the_jax_parameter_names``
+    """The choices still refused. Seventeen of these cases named choices
+    that are built now (the E-Branchformer, Conformer, ``zero_triu``,
+    interCTC, ``conv1d2``, legacy rel-pos, ``selfattn``, the conventional
+    Conformer stacks and taps; the Sim-T MLM, the ``rnn`` and ``vgg_rnn``
+    encoders, the lightweight and dynamic conv, S4 and VSR ``rnn``
+    decoders): ``test_ported_choices_build_with_the_jax_parameter_names``
     builds each of them."""
     cfg = _set(tiny_cfg(path), section, value)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md 'Modules to port' item {item}"):
@@ -162,15 +160,55 @@ PORTED_CHOICES = {
     "conventional_interctc": (CONVENTIONAL, "encoder_conf", {
         "interctc_layer_idx": [2], "interctc_use_conditioning": True, "audiovisual_interctc_conditioning": True}),
     "tailored_zero_triu": (MASKCTC, "encoder_conf", {"zero_triu": True}),
+    # items 8.3 and 8.5 at the configs' full widths (``FULL``): the decoders
+    # from the ASR / VSR / flagship YAMLs' decoder_conf (the keys a decoder
+    # does not take dropped, as in JAX), the RNN encoders at the registry's
+    # defaults but the YAML's output_size
+    "sim_t": (FLAGSHIP, "decoder", "sim_t"),
+    "sim_t_mlm": (ASR, None, {"model": "maskctc", "decoder": "sim_t"}),
+    "lightweight_conv": (ASR, "decoder", "lightweight_conv"),
+    "dynamic_conv": (ASR, "decoder", "dynamic_conv"),
+    "lightweight_conv2d": (ASR, None, {"decoder": "lightweight_conv2d", "decoder_conf": {
+        "num_blocks": 3, "conv_kernel_length": [3, 5, 7], "conv_usebias": True, "conv_wshare": 8}}),
+    "dynamic_conv2d": (ASR, None, {"decoder": "dynamic_conv2d", "decoder_conf": {
+        "num_blocks": 2, "conv_kernel_length": 5, "conv_usebias": True}}),
+    "no_output_layer": (FLAGSHIP, "decoder_conf", {"use_output_layer": False}),
+    "lightconv_variant": (FLAGSHIP, "decoder_conf", {"layer_variant": "lightconv"}),
+    "rnn_decoder": (ASR, "decoder", "rnn"),
+    "vsr_rnn_decoder": (VSR, "decoder", "rnn"),
+    "s4": (ASR, "decoder", "s4"),
+    "rnn_encoder": (ASR, "encoder", "rnn"),
+    "vgg_rnn": (ASR, "encoder", "vgg_rnn"),
+    "rnn_encoder_unprojected": (ASR, None, {"encoder": "rnn", "encoder_conf": {
+        "num_layers": 3, "bidirectional": False, "use_projection": False, "output_size": 96}}),
 }
+FULL = {"sim_t", "sim_t_mlm", "lightweight_conv", "dynamic_conv", "lightweight_conv2d", "dynamic_conv2d",
+        "no_output_layer", "lightconv_variant", "rnn_decoder", "vsr_rnn_decoder", "s4", "rnn_encoder", "vgg_rnn",
+        "rnn_encoder_unprojected"}
+
+
+def _choice_cfg(case, full: bool):
+    """The config of a ``PORTED_CHOICES`` case: the repo's YAML (``full``) or
+    its tiny cut, the case's keys set."""
+    path, section, value = PORTED_CHOICES[case]
+    if full:
+        cfg = load_config(os.path.join(ROOT, path))
+    else:
+        cfg = _tiny(path)
+    if section == "encoder" and value in ("rnn", "vgg_rnn"):
+        # the registry's defaults but the width: the YAML's Branchformer keys are dropped
+        cfg.encoder_conf = {"output_size": cfg.encoder_conf["output_size"]} if full else {
+            "output_size": 48, "hidden_size": 24, "num_layers": 2}
+    return _set(cfg, section, value)
 
 
 @pytest.mark.parametrize("case", sorted(PORTED_CHOICES))
 def test_ported_choices_build_with_the_jax_parameter_names(case):
     """Each choice this file's refusal list once held, built on the meta
-    device: the state dict's keys and shapes are the JAX export's."""
-    path, section, value = PORTED_CHOICES[case]
-    cfg = _set(_tiny(path), section, value)
+    device (items 8.3 and 8.5 at full width): the state dict's keys and
+    shapes are the JAX export's."""
+    cfg = _choice_cfg(case, case in FULL)
+    path = PORTED_CHOICES[case][0]
     task = "avsr" if cfg.task == "avsr" else "asr"
     port = __import__(f"tailored_avsr_tpu_torch.tasks.{task}", fromlist=["build_meta"]).build_meta(cfg, TOKEN_LIST)
     shapes = _jax_shapes(_jax_model(cfg, TOKEN_LIST), cfg.task)
@@ -265,15 +303,14 @@ def test_port_export_equals_the_jax_export(path):
     from tailored_avsr_tpu_torch.utils.torch_compat import export_torch_state_dict as pexport
 
     if path in PORTED_CHOICES:
-        path, section, value = PORTED_CHOICES[path]
-        cfg = _set(_tiny(path), section, value)
+        cfg = _choice_cfg(path, False)
     else:
         cfg = _tiny(path)
     shapes = _jax_shapes(_jax_model(cfg, TOKEN_LIST), cfg.task)
     variables = _random_variables(shapes, seed=6)
     want, got = export_torch_state_dict(variables), pexport(variables)
     assert list(got) == list(want) and len(got) > 50
-    assert any(".encoders.1." in k for k in got)
+    assert any(".encoders.1." in k or ".decoders.1." in k or "_1." in k for k in got)
     for key, w in want.items():
         assert got[key].dtype == w.dtype and got[key].shape == w.shape, key
         np.testing.assert_array_equal(got[key], w, err_msg=key)

@@ -1,0 +1,692 @@
+"""The other attention decoders (Sim-T and its MLM form, the lightweight /
+dynamic convolution decoders in 1D and 2D, the LSTM attention decoder, S4)
+and the RNN / VGG-RNN encoders, the port against the JAX package in f32 on
+the CPU.
+
+- Modules: each decoder's teacher-forced forward (a per-layer
+  ``conv_kernel_length`` tuple, ``conv_usebias`` and ``use_output_layer:
+  false`` among the cases) within 1e-5, and its ``score_step`` at several
+  positions against the JAX step over the whole buffer within 1e-5 (the
+  port runs the prefix alone); the encoders over a padded batch with a
+  1-frame utterance, bidirectional or not, with and without projections
+  and VGG2L, within 1e-5.
+- Served paths: ``Speech2Text.nbest`` of a tiny ASR model with each AR
+  decoder and a tiny LM against the JAX engine (jitted, ``unroll: 1``):
+  ids equal, scores within 1e-4; the time-synchronous beam's rescoring
+  through ``nll``; an n-gram and the cache options, which
+  the JAX engine ignores on these decoders and so does the port; Mask-CTC
+  over the Sim-T MLM decoder, ids equal; the LSTM decoder under bf16 weight
+  storage, ids equal.
+- Training: the hybrid loss and its gradients (Sim-T and LSTM decoders,
+  the RNN encoder; dropout 0) within the tolerances of
+  ``tests/test_torch_port_encoders.py``; ``remat`` equal to the plain step
+  over a Sim-T decoder; ``init_params_`` and ``initialize`` over every new
+  module (``initialize`` redraws kernels only, as the JAX one); each new
+  tree through a port checkpoint into the JAX ``load_model``, logits equal;
+  the training CLI over a VGG-RNN encoder and over a new decoder.
+"""
+
+import copy
+import math
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tailored_avsr_tpu.utils.torch_compat import export_torch_state_dict
+from test_torch_port_branchformer import ASR, LM_TINY, TOKEN_LIST, speech_batch, tiny_cfg
+from test_torch_port_ops import load_port
+from test_torch_port_slice import _random_variables
+
+V, D, H, T = 13, 32, 4, 7
+RNN_TINY = dict(hidden_size=24, att_dim=20, aconv_chans=3, aconv_filts=4)
+# decoder name -> decoder_conf beside the tiny ASR config's
+DECODER_CASES = {
+    "sim_t": {},
+    "lightweight_conv": {"conv_kernel_length": [3, 5], "conv_wshare": 8},
+    "dynamic_conv": {"conv_kernel_length": 5, "conv_usebias": True},
+    "lightweight_conv2d": {"conv_kernel_length": [3, 5], "conv_usebias": True},
+    "dynamic_conv2d": {"conv_kernel_length": 3, "conv_wshare": 2},
+    "rnn": dict(RNN_TINY, num_layers=2),
+    "s4": {"d_state": 8},
+}
+
+
+@pytest.fixture(autouse=True)
+def _two_torch_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def _s4_leaves(variables, seed=0):
+    """The S4D leaves at the JAX initial values plus noise (a uniform draw
+    would put dt near 1 and A on the real axis); other leaves kept."""
+    rs = np.random.RandomState(seed)
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+                continue
+            shape = np.shape(v)
+            if k == "log_dt":
+                v = rs.uniform(math.log(1e-3), math.log(1e-1), shape)
+            elif k == "log_A_real":
+                v = math.log(0.5) + 0.05 * rs.randn(*shape)
+            elif k == "A_imag":
+                v = math.pi * np.arange(shape[-1]) + 0.05 * rs.randn(*shape)
+            elif k in ("C_re", "C_im"):
+                v = rs.randn(*shape) * 0.5 ** 0.5
+            elif k == "D":
+                v = 1.0 + 0.05 * rs.randn(*shape)
+            elif k == "conv_weight":
+                v = rs.randn(*shape)
+            out[k] = np.asarray(v, np.asarray(tree[k]).dtype)
+        return out
+
+    return {c: walk(tree) for c, tree in variables.items()}
+
+
+def _variables(jm, *args, seed=0):
+    """Random variables of the JAX module's shapes (traced, not run), the
+    S4D leaves at their initial values plus noise."""
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), *args))
+    return _s4_leaves(_random_variables(shapes, seed=seed), seed)
+
+
+# ---------------------------------------------------------------- decoder modules
+
+
+def _jax_decoder(name, **conf):
+    from tailored_avsr_tpu.models import decoder as J
+    from tailored_avsr_tpu.models.rnn_decoder import RNNDecoder
+    from tailored_avsr_tpu.models.s4_decoder import S4Decoder
+
+    common = dict(vocab_size=V, encoder_output_size=D)
+    attention = dict(common, attention_heads=H, linear_units=48, num_blocks=2, dropout_rate=0.0,
+                     positional_dropout_rate=0.0)
+    if name == "rnn":
+        return RNNDecoder(**common, **conf)
+    if name == "s4":
+        return S4Decoder(**attention, **conf)
+    cls = {"sim_t": J.SimTDecoder, "sim_t_mlm": J.SimTMLMDecoder, "lightconv": J.LightConvDecoder,
+           "dynamicconv": J.DynamicConvDecoder, "lightconv2d": J.LightConv2DDecoder,
+           "dynamicconv2d": J.DynamicConv2DDecoder, "transformer": J.TransformerDecoder}[name]
+    return cls(**attention, **conf)
+
+
+def _port_decoder(name, **conf):
+    from tailored_avsr_tpu_torch.tasks import common
+
+    names = {"lightconv": "lightweight_conv", "dynamicconv": "dynamic_conv", "lightconv2d": "lightweight_conv2d",
+             "dynamicconv2d": "dynamic_conv2d"}
+    cls = common.DECODERS[names.get(name, name)]
+    kw = dict(vocab_size=V, encoder_output_size=D)
+    if name != "rnn":
+        kw.update(attention_heads=H, linear_units=48, num_blocks=2, dropout_rate=0.0, positional_dropout_rate=0.0)
+    return cls(**kw, **{k: tuple(v) if isinstance(v, list) else v for k, v in conf.items()})
+
+
+MODULE_CASES = {
+    "sim_t": ("sim_t", {}),
+    "sim_t_mlm": ("sim_t_mlm", {}),
+    "lightconv_per_layer_kernels": ("lightconv", {"conv_kernel_length": (3, 5), "conv_wshare": 8}),
+    "dynamicconv_bias": ("dynamicconv", {"conv_kernel_length": 5, "conv_usebias": True}),
+    "lightconv2d_bias": ("lightconv2d", {"conv_kernel_length": (3, 5), "conv_usebias": True}),
+    "dynamicconv2d": ("dynamicconv2d", {"conv_kernel_length": 3, "conv_wshare": 2}),
+    "no_output_layer": ("transformer", {"use_output_layer": False}),
+    "rnn": ("rnn", dict(RNN_TINY, num_layers=2)),
+    "s4": ("s4", {"d_state": 8}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MODULE_CASES))
+def test_decoder_forward_and_score_step_match_jax(case):
+    """Teacher-forced logits over a padded batch within 1e-5; ``score_step``
+    at positions 1, 3 and 6 of the (B, 6) buffer against the JAX step over
+    the whole buffer within 1e-5 (the MLM decoder has no step)."""
+    name, conf = MODULE_CASES[case]
+    rs = np.random.RandomState(3)
+    memory = rs.randn(3, T, D).astype(np.float32)
+    mask = np.arange(T)[None] < np.array([T, 4, 1])[:, None]
+    ys = rs.randint(1, V, (3, 6)).astype(np.int32)
+    lens = np.array([6, 3, 1], np.int32)
+    jm = _jax_decoder(name, **conf)
+    variables = _variables(jm, memory, mask, ys, lens, seed=1)
+    pm = load_port(_port_decoder(name, **conf), variables, "decoder")
+    steps = () if name == "sim_t_mlm" else (1, 3, 6)
+
+    @jax.jit
+    def run(v):
+        out = [jm.apply(v, memory, mask, ys, lens)]
+        out += [jm.apply(v, memory, mask, ys, jnp.int32(p), method="score_step") for p in steps]
+        return out
+
+    want = jax.device_get(run(variables))
+    with torch.no_grad():
+        got = [pm(t(memory), t(mask), t(ys).long(), t(lens))]
+        got += [pm.score_step(t(memory), t(mask), t(ys).long(), p) for p in steps]
+    valid = np.arange(6)[None] < lens[:, None]
+    assert got[0].shape == want[0].shape and got[0].shape[-1] == (D if case == "no_output_layer" else V)
+    np.testing.assert_allclose(got[0].numpy()[valid], want[0][valid], atol=1e-5, rtol=0)
+    for p, g, w in zip(steps, got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=0, err_msg=f"pos {p}")
+
+
+def test_cache_steps_stay_transformer_only():
+    """The cache beam steps of a Sim-T decoder raise, as the JAX asserts do;
+    its full-prefix step serves."""
+    pm = _port_decoder("sim_t").eval()
+    with pytest.raises(ValueError, match="no cache beam step"):
+        pm.precompute_memory(torch.zeros(1, T, D))
+    with pytest.raises(ValueError, match="no cache beam step"):
+        pm.score_step_append(None, None, torch.zeros(1, 3, dtype=torch.long), 1, None)
+    with torch.no_grad():
+        assert pm.score_step(torch.zeros(1, T, D), None, torch.zeros(1, 3, dtype=torch.long), 2).shape == (1, V)
+
+
+# ---------------------------------------------------------------- RNN encoders
+
+
+@pytest.mark.parametrize("bidirectional,use_projection,use_vgg", [
+    (True, True, False), (False, True, False), (True, False, False), (False, False, False), (True, True, True)],
+    ids=["bi_proj", "uni_proj", "bi_last_proj", "uni_last_proj", "vgg_bi_proj"])
+def test_rnn_encoder_matches_jax(bidirectional, use_projection, use_vgg):
+    """Three layers over a padded batch (one utterance of 1 frame): outputs
+    within 1e-5, padded frames 0, the same lengths (``ilens // 4``, at least
+    1, after VGG2L)."""
+    from tailored_avsr_tpu.models.rnn_encoder import RNNEncoder as J
+    from tailored_avsr_tpu_torch.models.rnn_encoder import RNNEncoder as P
+
+    rs = np.random.RandomState(5)
+    b, tt, f = 3, (13 if use_vgg else 9), (12 if use_vgg else 8)
+    xs = rs.randn(b, tt, f).astype(np.float32)
+    ilens = np.array([tt, 6, 1], np.int32)
+    conf = dict(output_size=12, hidden_size=10, num_layers=3, bidirectional=bidirectional,
+                use_projection=use_projection, use_vgg=use_vgg)
+    jm = J(**conf)
+    variables = _variables(jm, xs, ilens, seed=3)
+    want, want_lens, _ = jax.jit(lambda v: jm.apply(v, xs, ilens))(variables)
+    pm = load_port(P(input_size=f, **conf), variables, "encoder")
+    with torch.no_grad():
+        got, got_lens, aux = pm(t(xs), t(ilens))
+    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_lens))
+    assert got.shape == want.shape and aux == {"intermediate_outs": [], "branch_weights": []}
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    assert not got.numpy()[1, int(want_lens[1]):].any()
+
+
+@pytest.mark.parametrize("use_vgg", [False, True], ids=["rnn", "vgg_rnn"])
+def test_rnn_encoder_under_bf16_weights_matches_jax_up_to_its_output_cast(use_vgg):
+    """bf16 weights and features: the LSTMs start from f32 carries and every
+    later product runs in f32, as flax promotes, so the port's output is the
+    JAX encoder's f32 output rounded to bf16 (exactly without VGG2L; with
+    it, whose bf16 convolutions round in another order, within one bf16
+    step at the output's largest magnitude).
+    The JAX encoder returns f32 and the port bf16: the open fault of
+    ``ROADMAP.md`` section 3."""
+    from tailored_avsr_tpu.models.rnn_encoder import RNNEncoder as J
+    from tailored_avsr_tpu_torch.models.rnn_encoder import RNNEncoder as P
+
+    rs = np.random.RandomState(5)
+    b, tt, f = 3, (13 if use_vgg else 9), (12 if use_vgg else 8)
+    xs = jnp.asarray(rs.randn(b, tt, f), jnp.bfloat16)
+    ilens = np.array([tt, 6, 1], np.int32)
+    conf = dict(output_size=12, hidden_size=10, num_layers=3, use_vgg=use_vgg)
+    jm = J(**conf)
+    variables = _variables(jm, np.zeros((b, tt, f), np.float32), ilens, seed=3)
+    pm = load_port(P(input_size=f, **conf), variables, "encoder").to(torch.bfloat16)
+    variables = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), variables)
+    want = jax.jit(lambda v: jm.apply(v, xs, ilens)[0])(variables)
+    with torch.no_grad():
+        got = pm(t(xs.astype(jnp.float32)).to(torch.bfloat16), t(ilens))[0]
+    assert want.dtype == jnp.float32 and got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.bfloat16).astype(jnp.float32))
+    atol = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7) if use_vgg else 0  # bf16: 8 significant bits
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
+
+
+def test_backward_direction_reverses_within_each_length():
+    """Layer 0's backward cell (``OptimizedLSTMCell_1``) at a valid frame
+    reads no frame past the utterance's length: the output is the same
+    whatever the padding holds."""
+    from tailored_avsr_tpu_torch.models.rnn_encoder import RNNEncoder, reverse_within
+
+    x = torch.arange(12.0).reshape(2, 6, 1)
+    lens = torch.tensor([6, 3])
+    assert reverse_within(x, lens)[1, :, 0].tolist() == [8.0, 7.0, 6.0, 9.0, 10.0, 11.0]
+    assert torch.equal(reverse_within(reverse_within(x, lens), lens), x)
+    enc = RNNEncoder(input_size=4, output_size=5, hidden_size=6, num_layers=1)
+    torch.nn.init.normal_(enc.OptimizedLSTMCell_1.bias_hh_l0)
+    for p in enc.parameters():
+        torch.nn.init.normal_(p) if p.dim() > 1 else None
+    xs = torch.randn(2, 7, 4, generator=torch.Generator().manual_seed(0))
+    noisy = xs.clone()
+    noisy[1, 3:] = 100.0
+    with torch.no_grad():
+        a, _, _ = enc(xs, torch.tensor([7, 3]))
+        b, _, _ = enc(noisy, torch.tensor([7, 3]))
+    torch.testing.assert_close(a[1, :3], b[1, :3], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------- models: serving
+
+
+def _asr_cfg(decoder=None, encoder=None, **decoder_conf):
+    cfg = tiny_cfg(ASR)
+    if decoder is not None:
+        cfg.decoder = decoder
+        cfg.decoder_conf = dict(cfg.decoder_conf, **decoder_conf)
+    if encoder is not None:
+        cfg.encoder = encoder
+        cfg.encoder_conf = {"output_size": 40, "hidden_size": 24, "num_layers": 2}
+    return cfg
+
+
+def _models(cfg, seed):
+    """(JAX model, its random variables, the port model on them, batch)."""
+    from tailored_avsr_tpu.tasks.asr import ASRTask
+    from tailored_avsr_tpu_torch.tasks.common import build_model
+    from tailored_avsr_tpu_torch.utils.convert import convert_jax_variables
+
+    jm = ASRTask.build_model(cfg, list(TOKEN_LIST))
+    b = speech_batch("asr")
+    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0), "mlm": jax.random.PRNGKey(1)},
+                                            b["speech"], b["speech_lengths"], b["text"], b["text_lengths"]))
+    variables = _s4_leaves(_random_variables(shapes, seed=seed), seed)
+    pm = build_model(cfg, TOKEN_LIST, device="cpu")
+    sd, dropped = convert_jax_variables(variables, pm)
+    assert dropped == []
+    pm.load_state_dict(sd, strict=True)
+    return jm, variables, pm, b
+
+
+def _engines(cfg, seed, lm=True, ngram=None, **inference_conf):
+    """Both packages' ``Speech2Text`` on the same weights (a tiny LM beside),
+    beam 3, nbest 2, ``unroll: 1``."""
+    from tailored_avsr_tpu.inference import Speech2Text as JaxSpeech2Text
+    from tailored_avsr_tpu.tasks.lm import LMTask
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+    from tailored_avsr_tpu_torch.utils.convert import convert_jax_lm_variables
+
+    _, variables, pm, b = _models(cfg, seed)
+    cfg = copy.deepcopy(cfg)
+    cfg.inference_conf = dict(cfg.inference_conf, beam_size=3, nbest=2, unroll=1, **inference_conf)
+    lm_cfg = types.SimpleNamespace(token_list=None, lm_conf=LM_TINY) if lm else None
+    js = JaxSpeech2Text(cfg, lm_config=lm_cfg, ngram_path=ngram)
+    js.variables = jax.tree_util.tree_map(jnp.asarray, variables)
+    ps = Speech2Text(copy.deepcopy(cfg), lm_config=lm_cfg, ngram_path=ngram, device="cpu")
+    ps.model.load_state_dict(pm.state_dict(), strict=True)
+    if lm:
+        lm_model = LMTask.build_model(lm_cfg, TOKEN_LIST)
+        lm_vars = _random_variables(jax.eval_shape(
+            lambda: lm_model.init(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32), jnp.array([4]))), seed=4)
+        js.lm_variables = jax.tree_util.tree_map(jnp.asarray, lm_vars)
+        ps.lm.load_state_dict(convert_jax_lm_variables(lm_vars), strict=True)
+    return js, ps, {k: b[k] for k in ("speech", "speech_lengths")}
+
+
+@pytest.mark.parametrize("decoder", sorted(DECODER_CASES))
+def test_speech2text_nbest_with_each_decoder_matches_jax(decoder):
+    """Beam 3 + the tiny LM over each decoder's full-prefix step: ids equal,
+    scores within 1e-4."""
+    from test_torch_port_beam import _same_nbest
+
+    js, ps, batch = _engines(_asr_cfg(decoder, **DECODER_CASES[decoder]), seed=21)
+    _same_nbest(ps.nbest(batch), js.nbest(batch))
+
+
+def test_timesync_rescoring_through_nll_matches_jax():
+    """``decode_mode: timesync``: the time-synchronous CTC beam's
+    hypotheses rescored by the decoder's ``nll`` (teacher-forced forward)
+    and the LM's (the LSTM decoder's here; every decoder's forward is held
+    to JAX above): ids equal, scores within 1e-4."""
+    from test_torch_port_beam import _same_nbest
+
+    js, ps, batch = _engines(_asr_cfg("rnn", **DECODER_CASES["rnn"]), 30, decode_mode="timesync")
+    _same_nbest(ps.nbest(batch), js.nbest(batch))
+
+
+def test_ngram_and_cache_options_do_what_the_jax_engine_does(tmp_path):
+    """A Sim-T decoder with an n-gram beside the LM: the JAX engine with
+    ``cache_segments: 4``, ``cache_dtype: int8`` and ``mem_dtype: int8``,
+    which it ignores on a decoder without a cache, against the port without
+    them (ids equal, scores within 1e-4), then the port with them (ids and
+    scores unchanged); ``mem_dtype: int8`` under ``cache_protocol: append``
+    raises in both."""
+    from tailored_avsr_tpu.inference import Speech2Text as JaxSpeech2Text
+    from tailored_avsr_tpu_torch.decode.ngram import write_arpa
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+    from test_torch_port_beam import _same_nbest
+
+    arpa = str(tmp_path / "lm.arpa")
+    rs, words = np.random.RandomState(3), TOKEN_LIST[1:-1]
+    write_arpa(arpa, [[words[i] for i in rs.randint(0, len(words), rs.randint(3, 12))] for _ in range(40)], order=2)
+    cfg = _asr_cfg("sim_t")
+    options = {"cache_segments": 4, "cache_dtype": "int8", "mem_dtype": "int8"}
+    js, ps, batch = _engines(cfg, 22, ngram=arpa, ngram_weight=0.3, **options)
+    ps.cache_segments, ps.quantized_cache, ps.quantized_memory = 1, False, False
+    plain = ps.nbest(batch)
+    _same_nbest(plain, js.nbest(batch))
+    ps.cache_segments, ps.quantized_cache, ps.quantized_memory = 4, True, True
+    _same_nbest(ps.nbest(batch), plain, atol=0.0)
+    bad = copy.deepcopy(cfg)
+    bad.inference_conf = dict(bad.inference_conf, cache_protocol="append", mem_dtype="int8")
+    for build in (lambda: JaxSpeech2Text(copy.deepcopy(bad)), lambda: Speech2Text(copy.deepcopy(bad), device="cpu")):
+        with pytest.raises(NotImplementedError, match="mem_dtype: int8 requires cache_protocol: anc"):
+            build()
+
+
+def test_rnn_decoder_under_bf16_weight_storage_matches_jax():
+    """``quantize_asr_model`` with ``bfloat16`` (``quantize_min_size`` 256
+    picks the embedding, the LSTM's gates, ``mlp_dec`` and the output
+    layer): a bf16 embedding beside the f32 context runs the cell in f32, as
+    flax promotes; nbest ids equal to the JAX engine's over the variables
+    its ``ensure_params`` quantises."""
+    from tailored_avsr_tpu.utils.quantize import quantize_variables
+
+    cfg = _asr_cfg("rnn", hidden_size=24, att_dim=24, aconv_chans=3, aconv_filts=4)
+    js, ps, batch = _engines(cfg, 23, lm=False, quantize_asr_model=True, quantize_dtype="bfloat16",
+                             quantize_min_size=256)
+    js.variables = quantize_variables(js.variables, "bfloat16", min_size=256)
+    got, want = ps.nbest(batch), js.nbest(batch)
+    assert ps.model.decoder.embed[0].weight.dtype == torch.bfloat16
+    assert [[h[2] for h in hyps] for hyps in got] == [[h[2] for h in hyps] for hyps in want]
+    assert any(h[2] for hyps in got for h in hyps)
+
+
+def test_maskctc_over_the_sim_t_mlm_decoder_matches_jax():
+    """``model: maskctc`` with ``decoder: sim_t`` builds the Sim-T MLM
+    decoder over V + 1 tokens; ``nbest`` ids identical to the JAX engine's."""
+    from tailored_avsr_tpu.inference import Speech2Text as JaxSpeech2Text
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+    from tailored_avsr_tpu_torch.models.decoder import SimTMLMDecoder
+
+    cfg = _asr_cfg("sim_t")
+    cfg.model = "maskctc"
+    _, variables, pm, b = _models(cfg, 24)
+    assert type(pm.decoder) is SimTMLMDecoder and pm.decoder.embed[0].num_embeddings == len(TOKEN_LIST) + 1
+    js = JaxSpeech2Text(copy.deepcopy(cfg))
+    js.variables = jax.tree_util.tree_map(jnp.asarray, variables)
+    ps = Speech2Text(copy.deepcopy(cfg), device="cpu")
+    ps.model.load_state_dict(pm.state_dict(), strict=True)
+    batch = {k: b[k] for k in ("speech", "speech_lengths")}
+    got, want = ps.nbest(batch), js.nbest(batch)
+    assert [h[0][2] for h in got] == [h[0][2] for h in want] and any(h[0][2] for h in got)
+
+
+@pytest.mark.parametrize("encoder", ["rnn", "vgg_rnn"])
+def test_rnn_encoder_models_serve_as_jax(encoder):
+    """An ASR model on each RNN encoder: greedy transcripts equal, and beam
+    3 (Transformer decoder, its cache beam) ids equal, scores within 1e-4."""
+    from test_torch_port_beam import _same_nbest
+
+    js, ps, batch = _engines(_asr_cfg(encoder=encoder), 25, lm=False)
+    assert ps.greedy(batch) == js.greedy(batch)
+    _same_nbest(ps.nbest(batch), js.nbest(batch))
+
+
+# ---------------------------------------------------------------- models: training
+
+
+@pytest.mark.parametrize("case", ["sim_t", "rnn_decoder", "rnn_encoder"])
+def test_hybrid_loss_and_gradients_match_jax(case):
+    """The ASR model's loss (eval, rates 0) and every gradient against the
+    JAX package's, as ``tests/test_torch_port_encoders.py`` holds them."""
+    cfg = {"sim_t": lambda: _asr_cfg("sim_t"), "rnn_decoder": lambda: _asr_cfg("rnn", **RNN_TINY),
+           "rnn_encoder": lambda: _asr_cfg(encoder="rnn")}[case]()
+    jm, variables, pm, b = _models(cfg, 26)
+    args = tuple(b[k] for k in ("speech", "speech_lengths", "text", "text_lengths"))
+
+    @jax.jit
+    def run(params):
+        return jax.value_and_grad(lambda p: jm.apply({"params": p}, *args), has_aux=True)(params)
+
+    (want_loss, want_stats), want_grads = jax.device_get(run(variables["params"]))
+    pm.eval()
+    loss, stats = pm(*(t(a) for a in args))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-5)
+    for key in ("loss_ctc", "loss_att"):
+        np.testing.assert_allclose(float(stats[key].detach()), float(want_stats[key]), rtol=1e-5, err_msg=key)
+    # the export's zero ``bias_ih_l0`` is a buffer of the port's LSTM layer (torch adds both biases)
+    want = {k: np.asarray(v) for k, v in export_torch_state_dict({"params": want_grads}).items()
+            if not k.endswith("bias_ih_l0")}
+    named = dict(pm.named_parameters())
+    assert set(want) == set(named)
+    floor = 1e-5 * max(float(np.abs(w).max()) for w in want.values())
+    for name, p in named.items():
+        w = want[name]
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=0, atol=floor + 1e-4 * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+def test_remat_equals_the_plain_step_over_sim_t():
+    """Train forward and backward of a Sim-T ASR model with and without
+    ``remat``: the same loss and gradients, and each Sim-T layer ran as a
+    checkpointed region (its ``s1`` passed in and returned)."""
+    from tailored_avsr_tpu_torch.models import remat
+    from tailored_avsr_tpu_torch.models.decoder import SimTDecoderLayer
+
+    _, _, pm, b = _models(_asr_cfg("sim_t"), 27)
+    args = tuple(t(b[k]) for k in ("speech", "speech_lengths", "text", "text_lengths"))
+    regions, real = [], remat.checkpoint
+    runs = []
+    try:
+        remat.checkpoint = lambda fn, *a, **k: regions.append(fn) or real(fn, *a, **k)
+        for on in (False, True):
+            pm.zero_grad()
+            pm.train()
+            with remat.enabled(on):
+                loss, _ = pm(*args)
+            loss.backward()
+            runs.append((float(loss.detach()), {n: p.grad.clone() for n, p in pm.named_parameters()}))
+    finally:
+        remat.checkpoint = real
+    assert sum(isinstance(r, SimTDecoderLayer) for r in regions) == 2
+    (l0, g0), (l1, g1) = runs
+    assert l0 == pytest.approx(l1, rel=1e-6)
+    for n in g0:
+        torch.testing.assert_close(g1[n], g0[n], rtol=1e-5, atol=1e-6)
+
+
+NEW_TREES = {
+    "lightweight_conv": lambda: _asr_cfg("lightweight_conv", conv_usebias=True),
+    "dynamic_conv2d": lambda: _asr_cfg("dynamic_conv2d", conv_kernel_length=3, conv_usebias=True),
+    "sim_t": lambda: _asr_cfg("sim_t"),
+    "rnn": lambda: _asr_cfg("rnn", **RNN_TINY),
+    "s4": lambda: _asr_cfg("s4", d_state=8),
+    "rnn_encoder": lambda: _asr_cfg(encoder="rnn"),
+    "vgg_rnn": lambda: _asr_cfg(encoder="vgg_rnn"),
+}
+
+
+def test_init_params_follow_the_jax_initialisers():
+    """Seeded builds: ``conv_weight`` LeCun-normal over its wshare fan-in,
+    ``conv_bias`` 0, the S4D leaves at the JAX layer's initial values (dt
+    log-uniform in [1e-3, 1e-1], A = -1/2 + i pi n, C with variance 1/2, D
+    1), the LSTMs' recurrent kernels orthogonal per gate, the VGG convs
+    LeCun-normal."""
+    from tailored_avsr_tpu_torch.tasks.common import build_model
+
+    gen = torch.Generator().manual_seed(0)
+    conv = build_model(_asr_cfg("lightweight_conv", conv_usebias=True, conv_wshare=64), TOKEN_LIST,
+                       generator=gen, device="cpu").decoder.decoders[0]
+    assert conv.conv_weight.shape == (64, 11) and not conv.conv_bias.any()
+    assert abs(float(conv.conv_weight.detach().std()) / (1 / 8) - 1) < 0.1
+    s4 = build_model(_asr_cfg("s4", d_state=64), TOKEN_LIST, generator=gen, device="cpu").decoder.s4_0
+    assert (s4.log_dt >= math.log(1e-3)).all() and (s4.log_dt <= math.log(1e-1)).all()
+    assert float(s4.log_dt.detach().std()) > 0.5
+    torch.testing.assert_close(s4.log_A_real, torch.full_like(s4.log_A_real, math.log(0.5)))
+    torch.testing.assert_close(s4.A_imag[3], math.pi * torch.arange(64.0))
+    assert torch.equal(s4.D, torch.ones_like(s4.D))
+    for c in (s4.C_re, s4.C_im):
+        assert abs(float(c.std()) - 0.5 ** 0.5) < 0.05
+    rnn = build_model(_asr_cfg("rnn", **RNN_TINY), TOKEN_LIST, generator=gen, device="cpu").decoder.step.lstm_0
+    w = rnn.weight_hh_l0.reshape(4, 24, 24)
+    torch.testing.assert_close(w[2].T @ w[2], torch.eye(24), atol=1e-5, rtol=0)
+    vgg = build_model(_asr_cfg(encoder="vgg_rnn"), TOKEN_LIST, generator=gen, device="cpu").encoder.vgg_conv1b
+    assert abs(float(vgg.weight.std()) * math.sqrt(128 * 9) - 1) < 0.05 and not vgg.bias.any()
+
+
+def test_initialize_redraws_what_jax_redraws():
+    """The JAX ``initialize`` and the port's over the new leaves' modules
+    (the conv decoders with ``conv_bias``, the LSTM and S4 decoders): every
+    leaf in the same class (kept, zeros, ones, redrawn): the ``kernel``
+    leaves (the loc conv, LSTM gates) redrawn, ``conv_weight``,
+    ``conv_bias`` and the six S4D leaves kept (the scheme decides only the
+    draws: ``xavier_uniform``; the RNN encoder's kernels are LSTM, conv and
+    dense kernels, redrawn as these are)."""
+    scheme = "xavier_uniform"
+    from tailored_avsr_tpu.utils.initialize import initialize as jinit
+    from tailored_avsr_tpu_torch.utils.initialize import initialize
+    from test_torch_port_recipe import _leaf_class
+
+    rs = np.random.RandomState(4)
+    memory, mask = rs.randn(2, T, D).astype(np.float32), np.ones((2, T), bool)
+    ys, lens = rs.randint(1, V, (2, 4)).astype(np.int32), np.array([4, 2], np.int32)
+    cases = [(_jax_decoder(n, **c), _port_decoder(n, **c), (memory, mask, ys, lens), "decoder") for n, c in (
+        ("lightconv", {"conv_usebias": True, "conv_kernel_length": 3}),
+        ("dynamicconv2d", {"conv_usebias": True, "conv_kernel_length": 3}), ("rnn", RNN_TINY),
+        ("s4", {"d_state": 8}))]
+    kinds = {}
+    for jm, pm, args, root in cases:
+        variables = _variables(jm, *args, seed=2)
+        load_port(pm, variables, root)
+        before = export_torch_state_dict({"params": {root: variables["params"]}})
+        after_j = export_torch_state_dict({"params": {root: jax.device_get(jinit(variables, scheme)["params"])}})
+        initialize(pm, scheme, torch.Generator().manual_seed(0))
+        after_p = {f"{root}.{k}": v.numpy() for k, v in pm.state_dict().items()}
+        for k in before:
+            cj = _leaf_class(before[k], after_j[k])
+            assert cj == _leaf_class(before[k], after_p[k]), k
+            kinds[k.split(".")[-1]] = kinds.get(k.split(".")[-1], set()) | {cj}
+    for leaf in ("conv_weight", "conv_bias", "log_dt", "log_A_real", "A_imag", "C_re", "C_im", "D"):
+        assert kinds[leaf] == {"kept"}, leaf
+    assert kinds["weight_hh_l0"] == kinds["weight_ih_l0"] == {"redrawn"}
+
+
+@pytest.mark.parametrize("tree", sorted(NEW_TREES))
+def test_port_checkpoint_of_each_new_tree_loads_into_jax(tree, tmp_path):
+    """A port ``.pth`` (weights from the seeded init) read by the JAX
+    ``load_model``: the decoder's teacher-forced logits (the encoder's
+    output for the RNN encoders) equal within 1e-5."""
+    from tailored_avsr_tpu.tasks.asr import ASRTask
+    from tailored_avsr_tpu.train.checkpoint import load_model as jax_load_model
+    from tailored_avsr_tpu_torch.tasks.common import build_model
+    from tailored_avsr_tpu_torch.train.checkpoint import save_model
+
+    cfg = NEW_TREES[tree]()
+    pm = build_model(cfg, TOKEN_LIST, generator=torch.Generator().manual_seed(29), device="cpu")
+    path = str(tmp_path / "port.pth")
+    save_model(pm, path)
+    jm = ASRTask.build_model(cfg, list(TOKEN_LIST))
+    b = speech_batch("asr")
+    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0), "mlm": jax.random.PRNGKey(1)},
+                                            b["speech"], b["speech_lengths"], b["text"], b["text_lengths"]))
+    variables = jax_load_model(jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes), path)
+    if tree.endswith("encoder") or tree == "vgg_rnn":
+        xs = np.random.RandomState(1).randn(2, 17, 80).astype(np.float32)
+        lens = np.array([17, 5], np.int32)
+        want = jm.apply(variables, xs, lens, method=lambda m, x, n: m.encoder(x, n)[0])
+        with torch.no_grad():
+            got = pm.encoder(t(xs), t(lens))[0]
+    else:
+        d = pm.encoder.output_size
+        memory = np.random.RandomState(1).randn(2, 9, d).astype(np.float32)
+        mask = np.arange(9)[None] < np.array([9, 4])[:, None]
+        ys = b["text"].clip(min=0)
+        want = jm.apply(variables, memory, mask, ys, b["text_lengths"], method=lambda m, *a: m.decoder(*a))
+        with torch.no_grad():
+            got = pm.decoder(t(memory), t(mask), t(ys).long(), t(b["text_lengths"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_constructors_take_every_jax_field():
+    """Each field of the JAX decoders and RNN encoder is a port constructor
+    argument, so no key of theirs is refused or dropped; the registry builds
+    each name of the JAX decoder table but the two that need pretrained
+    weights, which both packages refuse."""
+    import dataclasses
+
+    from tailored_avsr_tpu.models import decoder as jd
+    from tailored_avsr_tpu.models.rnn_decoder import RNNDecoder as JR
+    from tailored_avsr_tpu.models.rnn_encoder import RNNEncoder as JE
+    from tailored_avsr_tpu.models.s4_decoder import S4Decoder as JS
+    from tailored_avsr_tpu.tasks.common import build_decoder
+    from tailored_avsr_tpu_torch.models.rnn_encoder import RNNEncoder
+    from tailored_avsr_tpu_torch.tasks import common
+
+    pairs = [(JR, common.DECODERS["rnn"]), (JS, common.DECODERS["s4"]), (JE, RNNEncoder)]
+    pairs += [(getattr(jd, c.__name__), c) for name, c in common.DECODERS.items() if name not in ("rnn", "s4")]
+    for jcls, pcls in pairs:
+        jfields = {f.name for f in dataclasses.fields(jcls)} - {"parent", "name"}
+        missing = jfields - common.constructor_names(pcls)
+        assert not missing, (jcls.__name__, sorted(missing))
+    for name, cls in common.DECODERS.items():
+        assert type(build_decoder(name, {}, V, D)).__name__ == cls.__name__
+        assert getattr(build_decoder(name, {}, V, D), "layer_variant") == cls.layer_variant
+    for name in common.PRETRAINED_DECODERS:
+        cfg = _asr_cfg(name)
+        with pytest.raises(NotImplementedError, match="pretrained weights"):
+            common.build_model(cfg, TOKEN_LIST, device="cpu")
+        with pytest.raises(NotImplementedError, match="pretrained weights"):
+            build_decoder(name, {}, V, D)
+
+
+def test_cli_trains_and_decodes(tmp_path):
+    """``avsr_main --mode both`` on the synthetic corpus with a VGG-RNN
+    encoder and the 2D dynamic-conv decoder: one epoch, the averaged
+    checkpoint, then the beam over the decoder's full-prefix step; the
+    checkpoint loads into the JAX ``load_model``."""
+    encoder, decoder = "vgg_rnn", "dynamic_conv2d"
+    import os
+
+    import yaml
+
+    from tailored_avsr_tpu.tasks.asr import ASRTask
+    from tailored_avsr_tpu.train.checkpoint import load_model as jax_load_model
+    from tailored_avsr_tpu_torch import avsr_main
+    from test_torch_port_asr import ROOT, _cli_config
+    from tests.synthetic import make_synthetic_corpus
+
+    csv_path, token_path = make_synthetic_corpus(str(tmp_path / "corpus"), n=3, nframes=10)
+    path = _cli_config(tmp_path, os.path.join(ROOT, ASR), token_path)
+    with open(path) as f:
+        c = yaml.safe_load(f)
+    c["decoder"] = decoder
+    c["decoder_conf"].update(conv_kernel_length=3, d_state=8)
+    c["encoder"], c["encoder_conf"] = encoder, {"output_size": 32, "hidden_size": 16, "num_layers": 2}
+    with open(path, "w") as f:
+        yaml.safe_dump(c, f)
+    out = str(tmp_path / "exp")
+    avsr_main.main(["--config-file", path, "--training-dataset", csv_path, "--validation-dataset", csv_path,
+                    "--test-dataset", csv_path, "--mode", "both", "--output-dir", out, "--output-name", "t",
+                    "--device", "cpu"])
+    with open(os.path.join(out, "inference", "t.inf")) as f:
+        assert len(f.readlines()) == 3
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    cfg = load_config(path)
+    tokens = [line.rstrip() for line in open(token_path) if line.rstrip()]
+    jm = ASRTask.build_model(cfg, tokens)
+    b = speech_batch("asr")
+    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0), "mlm": jax.random.PRNGKey(1)},
+                                            b["speech"], b["speech_lengths"], b["text"] % len(tokens),
+                                            b["text_lengths"]))
+    template = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    loaded = export_torch_state_dict(jax_load_model(template, os.path.join(out, "models", "model_average.pth")))
+    saved = torch.load(os.path.join(out, "models", "model_average.pth"), weights_only=True)
+    assert set(loaded) == set(saved) and any(k.startswith("decoder.") for k in loaded)
+    for k, v in loaded.items():
+        np.testing.assert_array_equal(v, saved[k].numpy(), err_msg=k)

@@ -589,6 +589,6 @@ def test_build_model_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
         model = build(cfg, tokens, device="cpu")
         assert {p.device for p in model.parameters()} == {torch.device("cpu")}
     cfg = _tiny_cfg()
-    cfg.decoder = "sim_t"
+    cfg.postencoder = "linear"
     with pytest.raises(NotImplementedError, match="item 8"):
         avsr_task.build_model(cfg, tokens)

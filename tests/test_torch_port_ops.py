@@ -310,12 +310,13 @@ def test_ctc_greedy_collapse():
 
 
 @pytest.mark.parametrize("name,section,value", [
-    # every encoder option of the two AVSR encoders builds (the Conformer
-    # stacks and zero_triu these cases refused are built by
+    # every encoder option of the two AVSR encoders and every decoder builds
+    # (the Conformer stacks, zero_triu and the Sim-T decoder these cases
+    # refused are built by
     # tests/test_torch_port_asr.py::test_ported_choices_build_with_the_jax_parameter_names);
-    # the multi-speaker encoder and the Sim-T decoder are still refused
+    # the multi-speaker encoder and the linear pre-encoder are still refused
     ("conventional_transformer+ctc_spanish.yaml", "encoder", "transformer_multispkr"),
-    ("tailored_transformer+ctc_spanish.yaml", "decoder", "sim_t"),
+    ("tailored_transformer+ctc_spanish.yaml", "acoustic_preencoder", "linear"),
 ])
 def test_build_model_names_roadmap_item_for_unported_choices(name, section, value):
     from tailored_avsr_tpu.utils.config import load_config

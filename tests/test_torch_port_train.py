@@ -678,7 +678,7 @@ def test_constructor_tables_cover_the_jax_fields():
     from tailored_avsr_tpu_torch.tasks import common as task
     from tailored_avsr_tpu.ops.normalize import UtteranceMVN as JU
 
-    pairs = [(JT, TailoredEncoder, {}), (JD, TransformerDecoder, task.DECODER_FIXED),
+    pairs = [(JT, TailoredEncoder, {}), (JD, TransformerDecoder, {}),
              (JC, Conv3dResNet18, task.VISUAL_FRONTEND_FIXED), (JF, AdaptiveAudioVisualFusion, {}),
              (JS, SpecAug, {}), (JU, UtteranceMVN, {})]
     for jcls, pcls, fixed in pairs:
@@ -691,10 +691,11 @@ def test_constructor_tables_cover_the_jax_fields():
 
 @pytest.mark.parametrize("section,key,value,item", [
     # interCTC taps (this list's first case until they were ported) build:
-    # tests/test_torch_port_encoders.py holds them against JAX
-    ("decoder_conf", "use_output_layer", False, 8),
+    # tests/test_torch_port_encoders.py holds them against JAX; so do
+    # use_output_layer: false and the lightconv layer variant, which
+    # tests/test_torch_port_asr.py::test_ported_choices_build_with_the_jax_parameter_names
+    # builds and tests/test_torch_port_decoders.py holds against JAX
     ("visual_frontend_conf", "bn_axis_name", "data", 9),
-    ("decoder_conf", "layer_variant", "lightconv", 8),
 ])
 def test_unbuilt_jax_fields_name_their_item(section, key, value, item):
     cfg = graft._flagship_cfg(tiny=True)
