@@ -205,14 +205,33 @@ Run from the repository root on a machine with one CUDA card:
    path's; the RNN and VGG-RNN ASR encoders (the registry's 4
    bidirectional 320-unit layers) greedy at (a) and the VGG-RNN with the
    LSTM decoder through the beam + LM at 8 x 4 s (no kernel, as in JAX),
-   f32 held to the eager path; two bf16 micro-steps (4 x 20 s) of the
+   f32 held to the eager path, each bf16 engine's encoder handing f32 on
+   (as flax's does); two bf16 micro-steps (4 x 20 s) of the
    flagship with Sim-T and of the VGG-RNN + LSTM ASR: no kernel, finite;
    walls and peak memory printed. Each path's record in the JSON line
    is keyed ``{choice}_decoder`` / ``{choice}_encoder``.
-15. Prints one JSON line of train numbers, one of the Branchformer
+16. The input side, streaming and PIT (``input_side_streaming_phase``, run
+   after 14 and before 12), at the ASR config's widths, seeded weights,
+   counts set to 0 first: the ASR Branchformer with the fused frontend
+   (log-mel + sliding window at hop 160), global MVN (the statistics of a
+   seeded 16 x 4 s corpus) and linear pre- and post-encoders, then with utterance MVN
+   ``norm_vars``, f32 greedy at (a) 32 x 4 s (K2 12, K3 12) and (b)
+   24 x 20 s (K1 12, K3 12), ids equal to the eager path's, CTC log-probs
+   within 1e-3; the contextual-block Transformer and Conformer encoders
+   (block 40, hop 16) over 8 x 20 s fed to ``ContextualBlockStreamer`` in
+   640 ms chunks (frames within 1e-4 of the offline encode, greedy ids
+   equal; ms a chunk and the real-time factor), ``TimesyncStreamer`` at
+   beam 10 and ``TransducerStreamer`` (the transducer config on the
+   block Conformer) equal to their offline searches, no kernel launched;
+   PIT on ``transformer_multispkr`` (12 shared layers, 2 x 2 speaker
+   layers): three bf16 micro-steps at 4 x 20 s (finite, no kernel; walls
+   and peak memory), the f32 loss with the references swapped within
+   1e-6 relative, the card against the CPU within 1e-4.
+17. Prints one JSON line of train numbers, one of the Branchformer
    family's numbers, one of the Mask-CTC and transducer paths' numbers,
    one of the encoder variants' numbers, one of the decoder variants'
-   numbers, the seconds of each phase,
+   numbers, one of the input side's and streamers', the seconds of each
+   phase,
    one JSON line of per-kernel results (launches: K1-K3
    from the greedy path, K4, K5 (the step write) and K5' from the beam
    path, K6 from the int8 beam path; P1 counted over both beam paths,
@@ -220,7 +239,7 @@ Run from the repository root on a machine with one CUDA card:
    launches and K4's mixed pairs' numbers, the train path's
    launches in its train steps and in its eval step, each
    Branchformer path's, each Mask-CTC and transducer path's, the encoder
-   and decoder variants' and the recipe phase's; K4's library yardstick at the
+   and decoder variants', the input side's and the recipe phase's; K4's library yardstick at the
    decoder's shape and K5's at one layer beside them), one of the recipe's
    numbers before it, then the result line ``{"ok": true, "device":
    {...}}`` last.
@@ -228,11 +247,12 @@ Run from the repository root on a machine with one CUDA card:
 Any failed phase raises, so the run exits non-zero and prints no result line.
 Nothing here imports JAX.
 
-Three measurement modes, one card each:
+Four measurement modes, one card each:
 
     python3 chip_smoke.py --ab DIR          # DIR: a git archive of another commit
     python3 chip_smoke.py --heldout SEED ...
     python3 chip_smoke.py --k3-phases
+    python3 chip_smoke.py --walls SIDE
 
 ``--ab`` runs ``ab_measure`` (bf16 K3 at both request shapes, L2-cold, and
 the profiled device busy time of greedy requests (a) and (b)) on the
@@ -240,6 +260,8 @@ package under DIR and on this checkout's, in the order DIR, this, this,
 DIR, one process each. ``--heldout`` reads the int8 plain twin under each
 given noise seed through the envelope of both requests. ``--k3-phases``
 times K3 with its phases taken out one at a time (``K3_PHASE_CUTS``).
+``--walls`` prints five warm walls of three host-bound bf16 paths
+(``walls_main``); an A/B runs it from each tree in turns.
 """
 
 from __future__ import annotations
@@ -1520,6 +1542,34 @@ def ab_measure(greedy: bool = True) -> None:
     print(json.dumps(row))
 
 
+def walls_main(side: str) -> int:
+    """Median-ready walls of three host-bound bf16 paths, five warm calls each
+    after one untimed: the flagship anc beam + LM at (a), the VGG-RNN +
+    LSTM beam + LM at 8 x 4 s, RNN greedy at (a). Run from each tree of an
+    A/B in turns; prints one ``AB side {...}`` line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tailored_avsr_tpu_torch.kernels import build
+
+    build.load()
+    device = torch.device("cuda", 0)
+    out = {}
+    req = _request(1, 32, 4)
+    engine = _beam_engine(device, "bfloat16", beam_size=10)
+    engine.nbest(req)
+    out["flagship_anc_bf16"] = _walls(lambda: engine.nbest(req), 5)
+    req8 = _speech_request(3, 8, 4, "asr")
+    engine = _decoder_engine(ASR_CONFIG, device, "bfloat16", encoder="vgg_rnn", decoder="rnn")
+    engine.nbest(req8)
+    out["vgg_rnn_lstm_bf16"] = _walls(lambda: engine.nbest(req8), 5)
+    req_a = _speech_request(1, 32, 4, "asr")
+    engine = _decoder_engine(ASR_CONFIG, device, "bfloat16", lm=False, encoder="rnn")
+    engine.greedy(req_a)
+    out["rnn_greedy_bf16"] = _walls(lambda: engine.greedy(req_a), 5)
+    print("AB", side, json.dumps(out))
+    return 0
+
+
 def ab_main(parent: str, greedy: bool = True) -> int:
     """``ab_measure`` on the package under ``parent`` (a ``git archive`` of
     another commit) and on this checkout's, in the order parent, change,
@@ -2732,6 +2782,18 @@ def _full_prefix_beam(name: str, bf16, f32, req: dict, expect: dict) -> dict:
     return out
 
 
+def _hands_on_f32(engine, req: dict, name: str) -> None:
+    """A bf16 model's RNN encoder hands f32 memory on, as flax's does (its
+    LSTMs start from f32 carries); the CTC head's log-probs over it finite."""
+    with torch.inference_mode():
+        enc = engine.model.encode(*engine.inputs(req))[0]
+        logp = engine.model.ctc.log_softmax(enc)
+    print(f"  {name}: weights {engine.model.ctc.ctc_lo.weight.dtype}, encoder output {enc.dtype}")
+    if engine.model.ctc.ctc_lo.weight.dtype != torch.bfloat16 or enc.dtype != torch.float32 \
+            or not bool(torch.isfinite(logp).all()):
+        raise AssertionError(f"{name}: the encoder hands on {enc.dtype}; the JAX encoder hands on f32")
+
+
 def decoder_variants_phase(device, smi: str) -> tuple:
     """The decoder variants' and RNN encoders' paths in turn, counts set to 0
     first, the engines freed between them; returns (numbers, the phase's
@@ -2781,6 +2843,7 @@ def decoder_variants_phase(device, smi: str) -> tuple:
               f"{', VGG2L' if enc.use_vgg else ''}) greedy at (a) 32 x 4 s: no kernel (none in JAX either)")
         t1 = time.perf_counter()
         hyps = _family_serve(bf16, f"bf16 {encoder} greedy (a) (first call)", req_sa, {})
+        _hands_on_f32(bf16, req_sa, f"bf16 {encoder}")
         key = f"{encoder}_encoder"
         out[key] = {"first_call_ms": (time.perf_counter() - t1) * 1e3}
         print(f"    sample transcript {hyps[0][:40]!r}")
@@ -2794,6 +2857,7 @@ def decoder_variants_phase(device, smi: str) -> tuple:
     f32 = _decoder_engine(ASR_CONFIG, device, "float32", encoder="vgg_rnn", decoder="rnn")
     print("VGG-RNN ASR + LSTM decoder + 16-layer LM, full-prefix beam 10 at 8 x 4 s: no kernel (none in JAX "
           "either)")
+    _hands_on_f32(bf16, req_s8, "bf16 VGG-RNN")
     out["vgg_rnn_lstm_beam"] = _full_prefix_beam("VGG-RNN + LSTM decoder beam + LM 8 x 4 s", bf16, f32, req_s8, {})
     out["vgg_rnn_lstm_beam"]["phase_s"] = time.perf_counter() - t0
     del bf16, f32
@@ -2812,6 +2876,327 @@ def decoder_variants_phase(device, smi: str) -> tuple:
     if min(launches[k] for k in ("K1", "K2", "K3")) <= 0 or any(launches[k] for k in ("K4", "K5", "K6")):
         raise AssertionError(f"the decoder variants' paths launched {launches}: K1-K3 each, and no K4, step "
                              "write or K6")
+    return out, launches
+
+
+# ----------------------------------------------------------- input side, streaming, PIT
+#
+# The last ASR-side modules at the ASR config's widths (12 blocks, 256-d, 4
+# heads, 2048 units, the 6-layer decoder), seeded weights: the fused
+# frontend (log-mel + a sliding window, both at hop 160, 100-d projections)
+# with global MVN (statistics of a seeded corpus) or utterance MVN with
+# norm_vars, and the linear pre-encoder (200 -> 80) and post-encoder
+# (256 -> 256) around the Branchformer; the contextual-block encoders fed
+# to the streamers in 640 ms chunks; the PIT model's micro-steps.
+INPUT_SIDE_FUSED = {"frontends": [
+    {"frontend_type": "default", "n_fft": 512, "win_length": 400, "hop_length": 160, "n_mels": 80},
+    {"frontend_type": "sliding_window", "win_length": 400, "hop_length": 160}], "proj_dim": 100}
+STREAM_ATOL = 1e-4  # streamed encoder frames against the offline encode (f32, TF32 off)
+STREAM_CHUNK = 64  # feature frames a chunk: 640 ms at the 10 ms hop
+BLOCK = {"block_size": 40, "hop_size": 16, "look_ahead": 16}
+PIT_SWAP_RTOL = 1e-6
+PIT_CARD_VS_CPU_RTOL = 1e-4
+
+
+def _asr_variant_cfg(path: str, dtype: str, **keys):
+    """The repo's config at ``path`` with the encoder kernels on, top-level
+    ``keys`` set (``encoder_conf`` merged into the YAML's)."""
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    cfg = load_config(path)
+    cfg.token_list = os.path.join(ROOT, cfg.token_list)
+    cfg.dtype = dtype
+    cfg.encoder_conf = dict(cfg.encoder_conf, use_flash=True, use_fused_csgu=True, **keys.pop("encoder_conf", {}))
+    for key, value in keys.items():
+        setattr(cfg, key, value)
+    return cfg
+
+
+def _input_side_engine(device, normalize: str):
+    """The f32 ASR Branchformer with the fused frontend, ``normalize``
+    (``global_mvn`` with its statistics taken over a seeded corpus of its
+    own, 16 x 4 s, as ``compute_global_mvn_stats`` takes them, or
+    ``utterance_mvn`` with ``norm_vars``) and the linear pre- and
+    post-encoders."""
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+
+    cfg = _asr_variant_cfg(ASR_CONFIG, "float32", frontend="fused", frontend_conf=INPUT_SIDE_FUSED,
+                           normalize=normalize,
+                           normalize_conf={} if normalize == "global_mvn" else {"norm_means": True, "norm_vars": True},
+                           preencoder="linear", preencoder_conf={"output_size": 80},
+                           postencoder="linear", postencoder_conf={"output_size": 256})
+    engine = Speech2Text(cfg, rng_seed=0, device=device)
+    if normalize == "global_mvn":
+        with torch.inference_mode():
+            feats, lens = engine.model.frontend(*engine.inputs(_speech_request(6, 16, 4, "asr")))
+            f = feats[torch.arange(feats.shape[1], device=device)[None] < lens[:, None]].double()
+            mean = f.mean(dim=0)
+            std = torch.sqrt(torch.clamp((f * f).mean(dim=0) - mean * mean, min=1e-20))
+        with torch.no_grad():
+            engine.model.normalize.mean.copy_(mean)
+            engine.model.normalize.std.copy_(std)
+    return engine
+
+
+def _full_request(seed: int, batch: int, seconds: int) -> dict:
+    """An ASR request whose utterances all fill the buffer (a live stream
+    has no padding)."""
+    req = _speech_request(seed, batch, seconds, "asr")
+    req["speech_lengths"][:] = seconds * 16000
+    return req
+
+
+def _offline_encode(engine, req: dict) -> tuple:
+    """(features (B, T, F), encoder output, lengths) of a request: the
+    frontend and normalisation, then the encoder over all its blocks."""
+    model = engine.model
+    with torch.inference_mode():
+        feats, lens = model.frontend(*engine.inputs(req))
+        feats, lens = model.normalize(feats, lens)
+        enc, enc_lens, _ = model.encoder(feats, lens)
+    return feats, enc, enc_lens
+
+
+def _feed(streamer, feats: np.ndarray, out: list) -> list:
+    """``feats`` to ``streamer`` in STREAM_CHUNK-frame chunks, then its flush;
+    each call's result into ``out``; returns each call's wall ms."""
+    walls = []
+    streamer.reset(feats.shape[0])
+    for a in list(range(0, feats.shape[1], STREAM_CHUNK)) + [None]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(streamer.finalize() if a is None else streamer.accept(feats[:, a:a + STREAM_CHUNK]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def _stream_gate(name: str, engine, req: dict, seconds: float) -> dict:
+    """``ContextualBlockStreamer`` over the request's features against the
+    offline encode: frames within STREAM_ATOL, greedy ids equal; ms a
+    chunk and the real-time factor."""
+    from tailored_avsr_tpu_torch.decode.streaming import ContextualBlockStreamer
+
+    feats, enc, _ = _offline_encode(engine, req)
+    with torch.inference_mode():
+        ids = engine.model.ctc.argmax(enc).cpu().numpy()
+    parts = []
+    walls = _feed(ContextualBlockStreamer(engine.model), feats.float().cpu().numpy(), parts)
+    y = np.concatenate([p[0] for p in parts], axis=1)
+    got_ids = np.concatenate([p[1] for p in parts], axis=1)
+    err = float(np.abs(y - enc.float().cpu().numpy()).max()) if y.shape == tuple(enc.shape) else float("inf")
+    same = got_ids.shape == ids.shape and bool((got_ids == ids).all())
+    out = {"chunks": len(walls), "chunk_ms_median": float(np.median(walls)), "chunk_ms_max": float(max(walls)),
+           "rtf": sum(walls) / 1e3 / seconds, "max_abs_err": err}
+    print(f"  {name}: {len(walls)} chunks of {STREAM_CHUNK} frames (640 ms) + the flush; ms a chunk median "
+          f"{out['chunk_ms_median']:.2f}, max {out['chunk_ms_max']:.2f}; real-time factor {out['rtf']:.4f}; "
+          f"streamed frames {y.shape} vs offline {tuple(enc.shape)}, max |diff| {err:.3e} (tol {STREAM_ATOL:g}); "
+          f"greedy ids equal: {same}")
+    if err > STREAM_ATOL or not same:
+        raise AssertionError(f"{name}: the streamed encoder disagrees with the offline encode")
+    return out
+
+
+def _timesync_stream_gate(engine, req: dict) -> dict:
+    """``TimesyncStreamer`` at beam 10 against the offline time-synchronous
+    search over the offline encode: each utterance's best ids equal."""
+    from tailored_avsr_tpu_torch.decode.ctc_timesync import ctc_timesync_beam_search
+    from tailored_avsr_tpu_torch.decode.streaming import TimesyncStreamer
+
+    feats, enc, enc_lens = _offline_encode(engine, req)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        toks, tlens, _, _ = ctc_timesync_beam_search(engine.model.ctc.log_softmax(enc), enc_lens, beam_size=10,
+                                                     pre_beam=10, max_len=enc.shape[1])
+        toks, tlens = toks.cpu().numpy(), tlens.cpu().numpy()
+    offline_ms = (time.perf_counter() - t0) * 1e3
+    want = [[int(x) for x in toks[i, 0, :tlens[i, 0]]] for i in range(toks.shape[0])]
+    parts = []
+    walls = _feed(TimesyncStreamer(engine.model, beam_size=10, pre_beam=10, max_tokens=enc.shape[1]),
+                  feats.float().cpu().numpy(), parts)
+    same = parts[-1] == want
+    print(f"  TimesyncStreamer beam 10: best ids equal to the offline search's: {same} ({sum(map(len, want))} "
+          f"tokens); stream {sum(walls):.1f} ms over {len(walls)} calls, offline search {offline_ms:.1f} ms")
+    if not same or not any(want):
+        raise AssertionError("TimesyncStreamer disagrees with the offline time-synchronous search")
+    return {"stream_ms": sum(walls), "offline_ms": offline_ms}
+
+
+def _transducer_stream_gate(device, req: dict) -> dict:
+    """``TransducerStreamer`` on the transducer config with the
+    contextual-block Conformer encoder against the offline greedy
+    transducer decode over the offline encode: ids equal."""
+    from tailored_avsr_tpu_torch.decode.streaming import TransducerStreamer
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+    from tailored_avsr_tpu_torch.ops.attention import promoted_linear
+    from tailored_avsr_tpu_torch.ops.rnnt import transducer_greedy_decode
+
+    cfg = _asr_variant_cfg(TRANSDUCER_CONFIG, "float32", encoder="contextual_block_conformer", encoder_conf=dict(
+        BLOCK, attention_layer_type="selfattn", pos_enc_layer_type="abs_pos"))
+    engine = Speech2Text(cfg, rng_seed=0, device=device)
+    model = engine.model
+    feats, enc, enc_lens = _offline_encode(engine, req)
+    joint, pred = model.joint_network, model.prediction_network
+    with torch.inference_mode():
+        toks, cnt = transducer_greedy_decode(promoted_linear(joint.lin_enc, enc), enc_lens, pred.step,
+                                             joint.from_projected, pred.initial_state(enc.shape[0]))
+        toks, cnt = toks.cpu().numpy(), cnt.cpu().numpy()
+    want = [[int(x) for x in toks[i, :cnt[i]]] for i in range(toks.shape[0])]
+    parts = []
+    walls = _feed(TransducerStreamer(model), feats.float().cpu().numpy(), parts)
+    got = [sum((p[i] for p in parts), []) for i in range(len(want))]
+    same = got == want
+    print(f"  TransducerStreamer ({type(model.encoder).__name__}, block_layer conformer): ids equal to the "
+          f"offline greedy decode's: {same} ({sum(map(len, want))} tokens); stream {sum(walls):.1f} ms over "
+          f"{len(walls)} calls")
+    if not same or not any(want):
+        raise AssertionError("TransducerStreamer disagrees with the offline greedy transducer decode")
+    return {"stream_ms": sum(walls)}
+
+
+def _pit_cfg():
+    """``model: pit_espnet`` on ``transformer_multispkr``: the ASR config's
+    12 blocks as the shared layers, 2 speaker stacks of 2 layers."""
+    from tailored_avsr_tpu_torch.utils.config import load_config
+
+    cfg = load_config(ASR_CONFIG)
+    cfg.token_list = os.path.join(ROOT, cfg.token_list)
+    cfg.model, cfg.encoder = "pit_espnet", "transformer_multispkr"
+    cfg.encoder_conf = dict(cfg.encoder_conf, num_blocks_sd=2, num_inf=2)
+    cfg.model_conf = dict(cfg.model_conf, num_inf=2, num_ref=2)
+    return cfg
+
+
+def _pit_batch(seed: int, batch: int, seconds: float, vocab: int, device) -> tuple:
+    """``_asr_train_batch`` with two seeded reference transcripts an
+    utterance: text (B, 2, L) and lengths (B, 2)."""
+    audio, lens, text0, len0 = _asr_train_batch(seed, batch, seconds, vocab, (250, 300), device)
+    _, _, text1, len1 = _asr_train_batch(seed + 1000, batch, seconds, vocab, (200, 300), device)
+    width = max(text0.shape[1], text1.shape[1])
+    text = torch.stack([F.pad(x, (0, width - x.shape[1]), value=-1) for x in (text0, text1)], dim=1)
+    return audio, lens, text, torch.stack([len0, len1], dim=1)
+
+
+def _pit_phase(device, smi: str) -> dict:
+    """PIT at full width: three bf16 micro-steps (4 x 20 s, autocast over f32
+    master weights): finite losses and gradients, no kernel; then, f32, the
+    loss with the two references swapped (within PIT_SWAP_RTOL) and the
+    card against the CPU (loss and gradient norm, PIT_CARD_VS_CPU_RTOL)."""
+    from tailored_avsr_tpu_torch.inference import load_token_list
+    from tailored_avsr_tpu_torch.tasks.common import build_model
+    from tailored_avsr_tpu_torch.train.loop import create_train_state, make_train_step
+    from tailored_avsr_tpu_torch.train.optim import set_optimizer
+
+    cfg = _pit_cfg()
+    tokens = load_token_list(cfg.token_list)
+    model = build_model(cfg, tokens, generator=torch.Generator().manual_seed(0), device=device, dtype=torch.float32)
+    opt, _ = set_optimizer(cfg.training_settings, int(cfg.encoder_conf["output_size"]), 1, model.named_parameters())
+    state = create_train_state(model, opt)
+    batch = _pit_batch(40, 4, 20.0, len(tokens), device)
+    step = make_train_step(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    before = _counts()
+    walls, stats = [], {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = step(state, batch)
+        stats = {k: float(v) for k, v in out.items()}
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if not all(np.isfinite(v) for v in stats.values()):
+            raise AssertionError(f"PIT micro-step: stats not finite: {stats}")
+    grads = state.optimizer.acc if state.optimizer.acc is not None else [p.grad for p in model.parameters()]
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  PIT ({type(model.encoder).__name__}: 12 shared + 2 x 2 speaker layers, 2 references an utterance) "
+          f"bf16 micro-steps 4 x 20 s: walls ms {', '.join(f'{w:.1f}' for w in walls)}; loss {stats['loss']:.2f}, "
+          f"loss_ctc {stats['loss_ctc']:.2f}, loss_att {stats['loss_att']:.2f}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; gradients finite {_finite(grads)}; launches {launched} (card {smi})")
+    if not _finite(grads) or any(launched.values()):
+        raise AssertionError("PIT micro-steps: gradients not finite or a kernel launched")
+    model.eval()
+    with torch.no_grad():
+        audio, lens, text, tlens = batch
+        loss = float(model(audio, lens, text, tlens)[0])
+        swapped = float(model(audio, lens, text[:, [1, 0]], tlens[:, [1, 0]])[0])
+    rel = abs(swapped - loss) / abs(loss)
+    print(f"  f32 PIT loss {loss:.6f}, references swapped {swapped:.6f} (rel {rel:.2e}, tol {PIT_SWAP_RTOL:g})")
+    if rel > PIT_SWAP_RTOL:
+        raise AssertionError("the PIT loss moved when the references were swapped")
+    del state, model, opt
+    torch.cuda.empty_cache()
+    results = {}
+    for dev in (torch.device("cpu"), device):
+        m = build_model(cfg, tokens, generator=torch.Generator().manual_seed(1), device=dev, dtype=torch.float32)
+        b = _pit_batch(41, 2, 4.0, len(tokens), dev)
+        loss_d, _ = m(*b)
+        loss_d.backward()
+        norm = torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in m.parameters() if p.grad is not None]))
+        results[dev.type] = (float(loss_d.detach()), float(norm))
+    (l_cpu, n_cpu), (l_gpu, n_gpu) = results["cpu"], results["cuda"]
+    dl, dn = abs(l_gpu - l_cpu) / abs(l_cpu), abs(n_gpu - n_cpu) / abs(n_cpu)
+    print(f"  f32 PIT card vs CPU (full width, 2 x 4 s, eval): loss {l_gpu:.6f} vs {l_cpu:.6f} (rel {dl:.2e}), "
+          f"gradient norm {n_gpu:.6f} vs {n_cpu:.6f} (rel {dn:.2e}); tol {PIT_CARD_VS_CPU_RTOL:g}")
+    if dl > PIT_CARD_VS_CPU_RTOL or dn > PIT_CARD_VS_CPU_RTOL:
+        raise AssertionError("f32 PIT on the card disagrees with the CPU")
+    return {"micro_step_ms": walls, "peak_bytes": int(peak), "stats": stats, "swap_rel": rel,
+            "card_vs_cpu": {"loss_rel": dl, "grad_norm_rel": dn}}
+
+
+def input_side_streaming_phase(device, smi: str) -> tuple:
+    """The input side (fused frontend, global MVN or utterance MVN with
+    norm_vars, linear pre/post-encoders) on the ASR Branchformer: f32
+    greedy at (a) 32 x 4 s (K2 12, K3 12) and (b) 24 x 20 s (K1 12, K3 12)
+    held to the eager path; the contextual-block Transformer and Conformer
+    encoders streamed at 8 x 20 s against their offline encodes, the
+    time-synchronous and transducer streamers against their offline
+    searches (no kernel: plain MHA, as in JAX); PIT's micro-steps. Returns
+    (numbers, the phase's launch counts)."""
+    from tailored_avsr_tpu_torch.inference import Speech2Text
+
+    out = {}
+    req_a, req_b = _speech_request(1, 32, 4, "asr"), _speech_request(2, 24, 20, "asr")
+    expect_a, expect_b = {"K2": 12, "K3": 12}, {"K1": 12, "K3": 12}
+    _reset_counts()
+    for normalize in ("global_mvn", "utterance_mvn"):
+        t0 = time.perf_counter()
+        engine = _input_side_engine(device, normalize)
+        label = "global MVN" if normalize == "global_mvn" else "utterance MVN norm_vars"
+        print(f"ASR input side: fused (log-mel + sliding window, hop 160, 2 x 100-d) -> {label} -> linear "
+              f"pre-encoder 200 -> 80 -> Branchformer -> linear post-encoder 256 -> 256, f32")
+        _family_gate(engine, f"input side, {label}, request (a) 32 x 4 s", req_a, expect_a)
+        _family_gate(engine, f"input side, {label}, request (b) 24 x 20 s", req_b, expect_b)
+        out[normalize] = {"phase_s": time.perf_counter() - t0}
+        del engine
+        torch.cuda.empty_cache()
+    out["input_side_launches"] = _path_counts("input side", ("K1", "K2", "K3"))
+
+    req = _full_request(4, 8, 20)
+    for encoder in ("contextual_block_transformer", "contextual_block_conformer"):
+        t0 = time.perf_counter()
+        cfg = _asr_variant_cfg(ASR_CONFIG, "float32", encoder=encoder, encoder_conf=dict(
+            BLOCK, attention_layer_type="selfattn", pos_enc_layer_type="abs_pos"))
+        engine = Speech2Text(cfg, rng_seed=0, device=device)
+        print(f"streaming: {encoder} (block 40, hop 16, look-ahead 16, abs_pos), 8 x 20 s in 640 ms chunks, f32")
+        before = _counts()
+        out[encoder] = _stream_gate(f"ContextualBlockStreamer, {encoder}", engine, req, 20.0)
+        if encoder == "contextual_block_transformer":
+            out[encoder]["timesync"] = _timesync_stream_gate(engine, req)
+        launched = {k: v - before[k] for k, v in _counts().items()}
+        if any(launched.values()):
+            raise AssertionError(f"the contextual-block path launched {launched}: its attention is plain MHA")
+        out[encoder]["phase_s"] = time.perf_counter() - t0
+        del engine
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["transducer_stream"] = _transducer_stream_gate(device, req)
+    out["transducer_stream"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    launches = _counts()
+    t0 = time.perf_counter()
+    out["pit"] = _pit_phase(device, smi)
+    out["pit"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     return out, launches
 
 
@@ -3675,6 +4060,12 @@ def main() -> int:
     print(json.dumps({"decoder_variants": {**decoders, "card": smi}}))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    input_side, input_side_launches = input_side_streaming_phase(device, smi)
+    seconds["input_side_streaming_phase"] = time.perf_counter() - t0
+    print(f"  (input side and streaming phase: {seconds['input_side_streaming_phase']:.1f} s)")
+    print(json.dumps({"input_side_streaming": {**input_side, "card": smi}}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     recipe, recipe_launches = recipe_phase(device, smi)
     seconds["recipe"] = time.perf_counter() - t0
     print(f"  (recipe phase: {seconds['recipe']:.1f} s)")
@@ -3695,6 +4086,7 @@ def main() -> int:
                         "launches_recipe": recipe_launches[key],
                         "launches_encoder_variants": variants_launches[key],
                         "launches_decoder_variants": decoders_launches[key],
+                        "launches_input_side_streaming": input_side_launches[key],
                         **({"mixed_pairs": modes["k4_mixed"], "decoder_shape_h4": phases["K4 decoder", "bf16"]}
                            if key == "K4" else {}),
                         **({"one_layer": phases["K5 layer", "bf16"]} if key == "K5" else {})})
@@ -3710,6 +4102,8 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2], greedy="--no-greedy" not in sys.argv))
     if sys.argv[1:2] == ["--k3-phases"]:
         sys.exit(k3_phases_main())
+    if sys.argv[1:2] == ["--walls"]:  # --walls SIDE
+        sys.exit(walls_main(sys.argv[2]))
     if sys.argv[1:2] == ["--heldout"]:  # --heldout SEED [SEED ...]
         sys.exit(heldout_main([int(a) for a in sys.argv[2:]]))
     sys.exit(main())

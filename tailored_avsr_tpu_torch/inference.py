@@ -101,6 +101,7 @@ from tailored_avsr_tpu_torch.decode.greedy import ctc_greedy_collapse
 from tailored_avsr_tpu_torch.decode.ngram import NgramScorer
 from tailored_avsr_tpu_torch.decode.maskctc import maskctc_decode
 from tailored_avsr_tpu_torch.decode.transducer_beam import transducer_beam_search
+from tailored_avsr_tpu_torch.ops.attention import promoted_linear
 from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
 from tailored_avsr_tpu_torch.ops.rnnt import multiblank_greedy_decode, transducer_greedy_decode
@@ -388,6 +389,7 @@ class Speech2Text:
         result on the device and the column of each hypothesis' first token
         (1 after ``<sos>``, 0 where there is none)."""
         model = self.model
+        self._single_speaker()
         enc, enc_lens, _ = model.encode(*self.inputs(batch))
         if model.joint_network is not None:
             return self._transducer(enc, enc_lens), 0
@@ -403,7 +405,7 @@ class Speech2Text:
         (multi-blank) greedy decode as one hypothesis with score 0."""
         model, k = self.model, self.beam_config.beam_size
         joint, pred = model.joint_network, model.prediction_network
-        enc_proj = joint.lin_enc(enc)  # once for every frame
+        enc_proj = promoted_linear(joint.lin_enc, enc)  # once for every frame
 
         def joint_apply(enc_t, g):
             return joint.from_projected(enc_t, g)
@@ -655,10 +657,19 @@ class Speech2Text:
     def greedy(self, batch: Dict) -> List[str]:
         """CTC greedy decoding: one transcript per utterance of the batch."""
         self._ensure_quantized()
+        self._single_speaker()
         with torch.inference_mode(), parametrize.cached():
             ids, lens = self.model.ctc_greedy(*self.inputs(batch))
         hyps = ctc_greedy_collapse(ids.cpu().numpy(), lens.cpu().numpy())
         return [self.text([self.token_list[i] for i in h]) for h in hyps]
+
+    def _single_speaker(self) -> None:
+        """A ``pit_espnet`` model's encoder gives one encoding per speaker:
+        it trains, and neither engine decodes it (the JAX engine's decode
+        fails on its (B, num_inf, T, D) output with a TypeError)."""
+        if hasattr(self.model, "num_inf"):
+            raise TypeError("Speech2Text decodes single-speaker models; a pit_espnet model's encoder gives "
+                            f"{self.model.num_inf} encodings an utterance")
 
     def text(self, tokens: List[str]) -> str:
         """A hypothesis' text: the tokenizer's (``token_type`` char: ``<space>``

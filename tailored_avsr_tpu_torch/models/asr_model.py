@@ -1,10 +1,10 @@
 """Hybrid CTC/attention model for ASR (audio) and VSR (video)
 (counterpart of ``ASRModel`` in ``tailored_avsr_tpu/models/asr_model.py``).
 
-encode: frontend (log-mel, or the Conv3D + ResNet-18 lip frontend) ->
-SpecAug (training only) -> normalisation -> encoder (Branchformer,
-E-Branchformer, Conformer, Transformer or Longformer; the CTC head goes in
-for interCTC conditioning). ``forward`` is the hybrid loss ``ctc_weight *
+encode: frontend (log-mel, sliding window, fused, or the Conv3D +
+ResNet-18 lip frontend) -> SpecAug (training only) -> normalisation ->
+pre-encoder -> encoder (the CTC head goes in for interCTC conditioning)
+-> post-encoder. ``forward`` is the hybrid loss ``ctc_weight *
 ctc + (1 - ctc_weight) * att`` with its stats (``loss``, ``loss_ctc``,
 ``loss_att``, ``acc``, with ``return_ctc_argmax`` the greedy ids, and the
 encoder's ``branch_weights``); with ``interctc_weight`` and interCTC taps
@@ -139,13 +139,17 @@ class ASRModel(nn.Module):
         transducer_multi_blank_durations: Tuple[int, ...] = (),
         transducer_multi_blank_sigma: float = 0.05,
         interctc_weight: float = 0.0,
+        preencoder: Optional[nn.Module] = None,
+        postencoder: Optional[nn.Module] = None,
     ):
         super().__init__()
         self.vocab_size = vocab_size
         self.frontend = frontend
         self.specaug = specaug
         self.normalize = normalize
+        self.preencoder = preencoder
         self.encoder = encoder
+        self.postencoder = postencoder
         # the attention decoder, or the transducer's prediction network
         # (``decoder.*`` keys in both cases); None for a CTC-only model
         self.decoder = prediction_network if joint_network is not None else decoder
@@ -185,8 +189,13 @@ class ASRModel(nn.Module):
             feats, lens = self.specaug(feats, lens, generator)
         if self.normalize is not None:
             feats, lens = self.normalize(feats, lens)
-        return self.encoder(feats, lens, generator,
-                            ctc=self.ctc if self.encoder.conditioning_layer is not None else None)
+        if self.preencoder is not None:
+            feats, lens = self.preencoder(feats, lens)
+        enc_out, enc_lens, aux = self.encoder(feats, lens, generator,
+                                              ctc=self.ctc if self.encoder.conditioning_layer is not None else None)
+        if self.postencoder is not None:  # the interCTC taps keep the encoder's lengths (a linear one's too)
+            enc_out, enc_lens = self.postencoder(enc_out, enc_lens)
+        return enc_out, enc_lens, aux
 
     def forward(
         self,

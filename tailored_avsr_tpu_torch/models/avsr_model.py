@@ -2,9 +2,10 @@
 (counterpart of ``tailored_avsr_tpu/models/avsr_model.py``).
 
 encode: per-modality frontends, SpecAug on the audio features (training
-only), utterance MVN on the audio, embed layers, alignment of the two
-streams by padding the shorter one (pad value = ignore_id), per-modality
-pos-enc, the tailored or the conventional encoder, adaptive fusion.
+only), normalisation of the audio, per-modality pre-encoders, embed
+layers, alignment of the two streams by padding the shorter one (pad
+value = ignore_id), per-modality pos-enc, the tailored or the
+conventional encoder, adaptive fusion, the post-encoder.
 
 With interCTC taps in the encoder, the model's fusion module goes into it
 (each tap is the fused pair of stream taps) and, with
@@ -58,11 +59,17 @@ class AVSRModel(nn.Module):
         transducer_multi_blank_durations: Tuple[int, ...] = (),
         transducer_multi_blank_sigma: float = 0.05,
         interctc_weight: float = 0.0,
+        acoustic_preencoder: Optional[nn.Module] = None,
+        visual_preencoder: Optional[nn.Module] = None,
+        postencoder: Optional[nn.Module] = None,
     ):
         super().__init__()
         self.vocab_size = vocab_size
         self.acoustic_frontend = acoustic_frontend
         self.visual_frontend = visual_frontend
+        self.acoustic_preencoder = acoustic_preencoder
+        self.visual_preencoder = visual_preencoder
+        self.postencoder = postencoder
         self.specaug = specaug
         self.normalize = normalize
         self.acoustic_embed = acoustic_embed
@@ -125,6 +132,10 @@ class AVSRModel(nn.Module):
             a_feats, a_lens = self.specaug(a_feats, a_lens, generator)
         if self.normalize is not None:
             a_feats, a_lens = self.normalize(a_feats, a_lens)
+        if self.acoustic_preencoder is not None:
+            a_feats, a_lens = self.acoustic_preencoder(a_feats, a_lens)
+        if self.visual_preencoder is not None:
+            v_feats, v_lens = self.visual_preencoder(v_feats, v_lens)
 
         a_feats, a_lens = self.acoustic_embed.apply_embed_layer(a_feats, a_lens)
         v_feats, v_lens = self.visual_embed.apply_embed_layer(v_feats, v_lens)
@@ -141,7 +152,10 @@ class AVSRModel(nn.Module):
             audiovisual_fusion=self.audiovisual_fusion if self.encoder.interctc_layers else None)
         enc_out, av_mask, fusion_weights = self.audiovisual_fusion(
             a_out, a_mask, v_out, v_mask, generator)
-        return enc_out, mask_lengths(av_mask), dict(enc_aux, fusion_weights=fusion_weights)
+        enc_lens = mask_lengths(av_mask)
+        if self.postencoder is not None:  # the interCTC taps keep the encoder's lengths
+            enc_out, enc_lens = self.postencoder(enc_out, enc_lens)
+        return enc_out, enc_lens, dict(enc_aux, fusion_weights=fusion_weights)
 
     def forward(
         self,

@@ -1,13 +1,16 @@
 """CTC head: encoder features -> vocabulary logits, and its loss
 (counterpart of ``tailored_avsr_tpu/models/ctc.py``): input dropout, then
 ``ops/losses.ctc_loss``; posteriors for interCTC conditioning, f32
-log-probs and best-path ids for decoding."""
+log-probs and best-path ids for decoding. The projection runs in the
+wider of the features' and the weights' types, as a flax Dense promotes
+(an RNN encoder's f32 output under bf16 weights gives f32 logits)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from tailored_avsr_tpu_torch.ops.attention import promoted_linear
 from tailored_avsr_tpu_torch.ops.losses import ctc_loss
 
 
@@ -20,7 +23,7 @@ class CTCHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, D) -> (B, T, V) logits."""
-        return self.ctc_lo(self.dropout(x))
+        return promoted_linear(self.ctc_lo, self.dropout(x))
 
     def loss(self, x: torch.Tensor, lengths: torch.Tensor, labels: torch.Tensor,
              label_lengths: torch.Tensor, reduce: bool = True) -> torch.Tensor:

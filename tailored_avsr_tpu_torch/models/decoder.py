@@ -131,6 +131,26 @@ def by_dtype(module: nn.Module):
     return get
 
 
+def wider_than(module: nn.Module, memory: torch.Tensor):
+    """``by_dtype(module)`` when ``memory`` is wider than the module's
+    weights (an RNN encoder's f32 output under a bf16 model), else None: a
+    flax module then runs every product after the first one that reads the
+    memory in f32, on the bf16 weights upcast."""
+    if torch.promote_types(memory.dtype, module.dtype) == module.dtype:
+        return None
+    return by_dtype(module)
+
+
+def layer_at(at, stack: str, i: int):
+    """dtype -> layer ``i`` of ``stack`` in the model ``at`` gives for it."""
+    return lambda dtype: getattr(at(dtype), stack)[i]
+
+
+def _at(layer: nn.Module, at, x: torch.Tensor) -> nn.Module:
+    """``layer``, or (``at`` given) its copy in x's dtype."""
+    return layer if at is None else at(x.dtype)
+
+
 def plain_cache(layers: int, n: int, max_len: int, heads: int, dk: int, dtype, device) -> list:
     """Per-layer zero (K, V) caches (N, H, max_len, dk), rows N leading."""
     return [tuple(torch.zeros((n, heads, max_len, dk), dtype=dtype, device=device) for _ in range(2))
@@ -146,24 +166,26 @@ def cache_width(cache) -> int:
 class TransformerDecoderLayer(nn.Module):
     def __init__(self, size: int, attention_heads: int = 4, linear_units: int = 2048,
                  self_attention_dropout_rate: float = 0.0, src_attention_dropout_rate: float = 0.0,
-                 dropout_rate: float = 0.1, *, device=None, dtype=None):
+                 dropout_rate: float = 0.1, memory_size: Optional[int] = None, *, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.self_attn = MultiHeadedAttention(attention_heads, self_attention_dropout_rate, size, **kw)
-        self.src_attn = MultiHeadedAttention(attention_heads, src_attention_dropout_rate, size, **kw)
+        self.src_attn = MultiHeadedAttention(attention_heads, src_attention_dropout_rate, size, memory_size, **kw)
         self.feed_forward = PositionwiseFeedForward(size, linear_units, dropout_rate, "relu", **kw)
         self.norm1 = nn.LayerNorm(size, eps=_LN_EPS, **kw)
         self.norm2 = nn.LayerNorm(size, eps=_LN_EPS, **kw)
         self.norm3 = nn.LayerNorm(size, eps=_LN_EPS, **kw)
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, tgt, tgt_mask, memory, memory_mask):
-        h = self.norm1(tgt)
-        tgt = tgt + self.dropout(self.self_attn(h, h, h, tgt_mask))
-        h = self.norm2(tgt)
-        tgt = tgt + self.dropout(self.src_attn(h, memory, memory, memory_mask))
-        h = self.norm3(tgt)
-        return tgt + self.dropout(self.feed_forward(h))
+    def forward(self, tgt, tgt_mask, memory, memory_mask, at=None):
+        m = _at(self, at, tgt)
+        h = m.norm1(tgt)
+        tgt = tgt + m.dropout(m.self_attn(h, h, h, tgt_mask))
+        m = _at(self, at, tgt)
+        h = m.norm2(tgt)
+        tgt = tgt + m.dropout(m.src_attn(h, memory, memory, memory_mask))
+        m = _at(self, at, tgt)  # f32 past a wider memory
+        return tgt + m.dropout(m.feed_forward(m.norm3(tgt)))
 
 
 class SimTDecoderLayer(nn.Module):
@@ -181,19 +203,22 @@ class SimTDecoderLayer(nn.Module):
         self.norm_ffn = nn.LayerNorm(size, eps=_LN_EPS, **kw)
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, tgt, tgt_mask, memory, memory_mask, s1=None):
+    def forward(self, tgt, tgt_mask, memory, memory_mask, s1=None, at=None):
         """-> (output, ``s1``): the first layer (``s1`` None) donates its
         self-attention probabilities (B, H, T, T) to the layers after it."""
-        h = self.norm_mha(tgt)
-        out, scores = self.mha_attn.attend(h, h, h, tgt_mask)
-        x = tgt + self.dropout(out)
+        m = _at(self, at, tgt)
+        h = m.norm_mha(tgt)
+        out, scores = m.mha_attn.attend(h, h, h, tgt_mask)
+        x = tgt + m.dropout(out)
         if s1 is None:
             s1 = scores
-        h = self.norm_mha(x)
-        x = x + self.dropout(self.mha_attn(h, memory, memory, memory_mask))
-        x = x + self.dropout(self.feed_forward(self.norm_ffn(x)))
-        x = x + self.mha_attn.apply_scores(self.norm_mha(x), s1)
-        return x + self.dropout(self.feed_forward(self.norm_ffn(x))), s1
+        m = _at(self, at, x)
+        h = m.norm_mha(x)
+        x = x + m.dropout(m.mha_attn(h, memory, memory, memory_mask))
+        m = _at(self, at, x)  # f32 past a wider memory
+        x = x + m.dropout(m.feed_forward(m.norm_ffn(x)))
+        x = x + m.mha_attn.apply_scores(m.norm_mha(x), s1)
+        return x + m.dropout(m.feed_forward(m.norm_ffn(x))), s1
 
 
 class ConvDecoderLayer(nn.Module):
@@ -207,7 +232,8 @@ class ConvDecoderLayer(nn.Module):
 
     def __init__(self, size: int, attention_heads: int = 4, linear_units: int = 2048, kernel_size: int = 11,
                  dynamic: bool = False, two_dim: bool = False, wshare: int = 4, use_bias: bool = False,
-                 src_attention_dropout_rate: float = 0.0, dropout_rate: float = 0.1, *, device=None, dtype=None):
+                 src_attention_dropout_rate: float = 0.0, dropout_rate: float = 0.1, memory_size: Optional[int] = None,
+                 *, device=None, dtype=None):
         super().__init__()
         if size % wshare:
             raise ValueError(f"conv_wshare {wshare} does not divide the decoder width {size}")
@@ -221,7 +247,7 @@ class ConvDecoderLayer(nn.Module):
             self.conv_weight = nn.Parameter(torch.empty(wshare, taps, **kw))
         self.conv_bias = nn.Parameter(torch.empty(size, **kw)) if use_bias else None
         self.out_proj = nn.Linear(size, size, **kw)
-        self.src_attn = MultiHeadedAttention(attention_heads, src_attention_dropout_rate, size, **kw)
+        self.src_attn = MultiHeadedAttention(attention_heads, src_attention_dropout_rate, size, memory_size, **kw)
         self.feed_forward = PositionwiseFeedForward(size, linear_units, dropout_rate, "relu", **kw)
         self.norm1 = nn.LayerNorm(size, eps=_LN_EPS, **kw)
         self.norm2 = nn.LayerNorm(size, eps=_LN_EPS, **kw)
@@ -260,13 +286,15 @@ class ConvDecoderLayer(nn.Module):
             y = y + self.conv_bias
         return self.out_proj(y)
 
-    def forward(self, tgt, tgt_mask, memory, memory_mask):
+    def forward(self, tgt, tgt_mask, memory, memory_mask, at=None):
         # the taps look only left, so ``tgt_mask`` (a causal or padding mask)
         # changes nothing: padded positions are always to the right
-        tgt = tgt + self.dropout(self._conv(self.norm1(tgt)))
-        h = self.norm2(tgt)
-        tgt = tgt + self.dropout(self.src_attn(h, memory, memory, memory_mask))
-        return tgt + self.dropout(self.feed_forward(self.norm3(tgt)))
+        m = _at(self, at, tgt)
+        tgt = tgt + m.dropout(m._conv(m.norm1(tgt)))
+        h = m.norm2(tgt)
+        tgt = tgt + m.dropout(m.src_attn(h, memory, memory, memory_mask))
+        m = _at(self, at, tgt)  # f32 past a wider memory
+        return tgt + m.dropout(m.feed_forward(m.norm3(tgt)))
 
 
 CONV_VARIANTS = ("lightconv", "dynamicconv", "lightconv2d", "dynamicconv2d")
@@ -295,6 +323,7 @@ class TransformerDecoder(nn.Module):
         conv_kernel_length=11,
         conv_wshare: int = 4,
         conv_usebias: bool = False,
+        memory_size: Optional[int] = None,  # the memory's width when not d (a post-encoder's)
         *,
         device=None,
         dtype=None,
@@ -312,12 +341,12 @@ class TransformerDecoder(nn.Module):
                 k = conv_kernel_length if isinstance(conv_kernel_length, int) else conv_kernel_length[i]
                 return ConvDecoderLayer(d, attention_heads, linear_units, int(k), variant.startswith("dynamic"),
                                         variant.endswith("2d"), conv_wshare, conv_usebias,
-                                        src_attention_dropout_rate, dropout_rate, **kw)
+                                        src_attention_dropout_rate, dropout_rate, memory_size, **kw)
             if variant == "sim_t":
                 return SimTDecoderLayer(d, attention_heads, linear_units, self_attention_dropout_rate,
                                         dropout_rate, **kw)
             return TransformerDecoderLayer(d, attention_heads, linear_units, self_attention_dropout_rate,
-                                           src_attention_dropout_rate, dropout_rate, **kw)
+                                           src_attention_dropout_rate, dropout_rate, memory_size, **kw)
 
         self.decoders = nn.ModuleList(layer(i) for i in range(num_blocks))
         self.after_norm = nn.LayerNorm(d, eps=_LN_EPS, **kw)
@@ -348,13 +377,15 @@ class TransformerDecoder(nn.Module):
 
     def _run(self, ys, tgt_mask, memory, memory_mask) -> torch.Tensor:
         x = self.embed[1](self.embed[0](ys), dtype=self.dtype)
+        at = wider_than(self, memory)
         s1 = None
-        for layer in self.decoders:
+        for i, layer in enumerate(self.decoders):
+            kw = {} if at is None else {"at": layer_at(at, "decoders", i)}
             if self.layer_variant == "sim_t":
-                x, s1 = remat.run(layer, x, tgt_mask, memory, memory_mask, s1)
+                x, s1 = remat.run(layer, x, tgt_mask, memory, memory_mask, s1, **kw)
             else:
-                x = remat.run(layer, x, tgt_mask, memory, memory_mask)
-        return self._head(x)
+                x = remat.run(layer, x, tgt_mask, memory, memory_mask, **kw)
+        return (self if at is None else at(x.dtype))._head(x)
 
     def forward(self, memory, memory_mask, ys_in, ys_in_lengths) -> torch.Tensor:
         """(B, T) tokens -> (B, T, V) logits, causal over each length."""
@@ -386,16 +417,20 @@ class TransformerDecoder(nn.Module):
         lc = cache[0][0].shape[2]
         x = self._embed_step(ys, pos, lc)
         self_mask = (torch.arange(lc, device=ys.device) < pos)[None].expand(ys.shape[0], lc)
-        for layer, (mk, mv), (ck, cv) in zip(self.decoders, mem_kv, cache):
+        at = by_dtype(self)
+        for i, ((mk, mv), (ck, cv)) in enumerate(zip(mem_kv, cache)):
+            layer = at(x.dtype).decoders[i]
             h = layer.norm1(x)
             k_new, v_new = layer.self_attn.project_kv(h)  # (N, H, 1, dk)
             ck[:, :, pos - 1] = k_new[:, :, 0].to(ck.dtype)
             cv[:, :, pos - 1] = v_new[:, :, 0].to(cv.dtype)
             x = x + layer.self_attn.attend_kv(h, ck, cv, self_mask)
+            layer = at(x.dtype).decoders[i]  # f32 past a wider cache
             h = layer.norm2(x)
             x = x + layer.src_attn.attend_kv(h, mk, mv, memory_mask)
+            layer = at(x.dtype).decoders[i]  # f32 past a wider memory
             x = x + layer.feed_forward(layer.norm3(x))
-        return torch.log_softmax(self._head(x)[:, 0].float(), dim=-1), cache
+        return torch.log_softmax(at(x.dtype)._head(x)[:, 0].float(), dim=-1), cache
 
     def score_step_append(self, mem_kv, memory_mask, ys: torch.Tensor, pos: int, cache):
         """Cache-read-only beam step (the append protocol) -> ((N, V) f32
@@ -405,16 +440,19 @@ class TransformerDecoder(nn.Module):
         lc = cache[0][0].shape[2]
         x = self._embed_step(ys, pos, lc)
         cache_mask = (torch.arange(lc, device=ys.device) < pos - 1)[None].expand(ys.shape[0], lc)
-        new_kv = []
-        for layer, (mk, mv), (ck, cv) in zip(self.decoders, mem_kv, cache):
+        at, new_kv = by_dtype(self), []
+        for i, ((mk, mv), (ck, cv)) in enumerate(zip(mem_kv, cache)):
+            layer = at(x.dtype).decoders[i]
             h = layer.norm1(x)
             q, k_new, v_new = layer.self_attn.project_qkv(h)
             x = x + layer.self_attn.attend_kv_append(h, ck, cv, k_new, v_new, cache_mask, q_heads=q)
+            layer = at(x.dtype).decoders[i]  # f32 past a wider cache
             h = layer.norm2(x)
             x = x + layer.src_attn.attend_kv(h, mk, mv, memory_mask)
+            layer = at(x.dtype).decoders[i]  # f32 past a wider memory
             x = x + layer.feed_forward(layer.norm3(x))
             new_kv.append((k_new, v_new))
-        return torch.log_softmax(self._head(x)[:, 0].float(), dim=-1), new_kv
+        return torch.log_softmax(at(x.dtype)._head(x)[:, 0].float(), dim=-1), new_kv
 
     def init_cache_seg(self, n: int, max_len: int, dtype=torch.float32, num_segments: int = 4, *,
                        device=None):
@@ -444,17 +482,20 @@ class TransformerDecoder(nn.Module):
         seg = cache[0][0][0].shape[2]
         x = self._embed_step(ys, pos, seg * len(cache[0][0]))
         si, off = divmod(pos - 1, seg)
-        for layer, (mk, mv), (ks, vs) in zip(self.decoders, mem_kv, cache):
+        at = by_dtype(self)
+        for i, ((mk, mv), (ks, vs)) in enumerate(zip(mem_kv, cache)):
+            layer = at(x.dtype).decoders[i]
             h = layer.norm1(x)
             k_new, v_new = layer.self_attn.project_kv(h)
             if si < len(ks):
                 ks[si][:, :, off] = k_new[:, :, 0].to(ks[si].dtype)
                 vs[si][:, :, off] = v_new[:, :, 0].to(vs[si].dtype)
-            x = x + layer.self_attn.attend_kv_segmented(h, ks, vs, pos, seg)
+            x = x + layer.self_attn.attend_kv_segmented(h, ks, vs, pos, seg)  # in x's dtype, as in JAX
             h = layer.norm2(x)
             x = x + layer.src_attn.attend_kv(h, mk, mv, memory_mask)
+            layer = at(x.dtype).decoders[i]  # f32 past a wider memory
             x = x + layer.feed_forward(layer.norm3(x))
-        return torch.log_softmax(self._head(x)[:, 0].float(), dim=-1), cache
+        return torch.log_softmax(at(x.dtype)._head(x)[:, 0].float(), dim=-1), cache
 
     def precompute_memory(self, memory: torch.Tensor):
         """Per-layer cross-attention (K, V), each (B, H, T, dk)."""
@@ -498,6 +539,7 @@ class TransformerDecoder(nn.Module):
             layer = at(x.dtype).decoders[i]  # f32 past a wider cache
             h = layer.norm2(x)
             x = x + layer.src_attn.attend_kv_mem_grouped(h, mk, mv, memory_mask, beam)
+            layer = at(x.dtype).decoders[i]
             h = layer.norm3(x)
             x = x + layer.feed_forward(h)
             new_kv.append((k_new, v_new))

@@ -156,14 +156,18 @@ class TransformerLM(nn.Module):
         lc = cache[0][0].shape[2]
         x = self._step_input(ys, pos, lc)
         self_mask = (torch.arange(lc, device=ys.device) < pos)[None].expand(ys.shape[0], lc)
-        for layer, (ck, cv) in zip(self.encoder.encoders, cache):
+        at = by_dtype(self)
+        for i, (ck, cv) in enumerate(cache):
+            layer = at(x.dtype).encoder.encoders[i]
             h = layer.norm1(x)
             k_new, v_new = layer.self_attn.project_kv(h)
             ck[:, :, pos - 1] = k_new[:, :, 0].to(ck.dtype)
             cv[:, :, pos - 1] = v_new[:, :, 0].to(cv.dtype)
             x = x + layer.self_attn.attend_kv(h, ck, cv, self_mask)
+            layer = at(x.dtype).encoder.encoders[i]  # f32 past a wider cache
             x = x + layer.feed_forward(layer.norm2(x))
-        logits = self.decoder(self.encoder.after_norm(x))
+        head = at(x.dtype)
+        logits = head.decoder(head.encoder.after_norm(x))
         return torch.log_softmax(logits[:, 0].float(), dim=-1), cache
 
     def score_step_append(self, ys: torch.Tensor, pos: int, cache):
@@ -172,14 +176,17 @@ class TransformerLM(nn.Module):
         lc = cache[0][0].shape[2]
         x = self._step_input(ys, pos, lc)
         cache_mask = (torch.arange(lc, device=ys.device) < pos - 1)[None].expand(ys.shape[0], lc)
-        new_kv = []
-        for layer, (ck, cv) in zip(self.encoder.encoders, cache):
+        at, new_kv = by_dtype(self), []
+        for i, (ck, cv) in enumerate(cache):
+            layer = at(x.dtype).encoder.encoders[i]
             h = layer.norm1(x)
             q, k_new, v_new = layer.self_attn.project_qkv(h)
             x = x + layer.self_attn.attend_kv_append(h, ck, cv, k_new, v_new, cache_mask, q_heads=q)
+            layer = at(x.dtype).encoder.encoders[i]  # f32 past a wider cache
             x = x + layer.feed_forward(layer.norm2(x))
             new_kv.append((k_new, v_new))
-        logits = self.decoder(self.encoder.after_norm(x))
+        head = at(x.dtype)
+        logits = head.decoder(head.encoder.after_norm(x))
         return torch.log_softmax(logits[:, 0].float(), dim=-1), new_kv
 
     def nll(self, tokens: torch.Tensor, lengths: torch.Tensor):

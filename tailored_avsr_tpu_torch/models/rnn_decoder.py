@@ -10,7 +10,9 @@ the score is ``gvec(tanh(q + mlp_enc(memory) + f))``, -1e10 past each
 utterance's frames, softmaxed in f32 after the sharpening factor 2.0 and
 cast to the memory's dtype; the context feeds ``lstm_0`` beside the
 embedding. The first alignment is uniform over the valid frames; the
-carries start at zero in the memory's dtype. Key grammar: ``embed.0``,
+carries start at zero in the memory's dtype. Every product runs in the
+wider of its operands' types, as flax promotes: over an RNN encoder's f32
+memory a bf16 decoder's attention, cells and output run in f32. Key grammar: ``embed.0``,
 ``mlp_enc``, ``output_layer``, ``step.{loc_conv, mlp_att, mlp_dec, gvec,
 lstm_i}``, each ``lstm_i`` an ``ops/rnnt.LSTMLayer`` (torch's packed
 layout, flax's per-product promotion).
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tailored_avsr_tpu_torch.ops.attention import promoted_linear
 from tailored_avsr_tpu_torch.ops.rnnt import LSTMLayer
 
 NEG_SCORE = -1e10  # the JAX step's fill past the valid frames
@@ -52,9 +55,12 @@ class RNNAttStep(nn.Module):
     def forward(self, states, att_prev, memory, enc_proj, memory_mask, x_t):
         """(states: per layer (c, h) (B, H); att_prev (B, T)) and the step's
         (B, E) input -> (new states, new alignment, top layer's h)."""
-        f = self.mlp_att(self.loc_conv(att_prev[:, None, :]).transpose(1, 2))  # (B, T, att)
-        q = self.mlp_dec(states[0][1])  # the first layer's previous hidden state
-        e = self.gvec(torch.tanh(q[:, None] + enc_proj + f))[..., 0]  # (B, T)
+        conv = self.loc_conv
+        dt = torch.promote_types(att_prev.dtype, conv.weight.dtype)
+        f = F.conv1d(att_prev[:, None, :].to(dt), conv.weight.to(dt), padding=conv.padding)
+        f = promoted_linear(self.mlp_att, f.transpose(1, 2))  # (B, T, att)
+        q = promoted_linear(self.mlp_dec, states[0][1])  # the first layer's previous hidden state
+        e = promoted_linear(self.gvec, torch.tanh(q[:, None] + enc_proj + f))[..., 0]  # (B, T)
         if memory_mask is not None:
             e = torch.where(memory_mask, e, NEG_SCORE)
         w = torch.softmax(2.0 * e.float(), dim=-1).to(memory.dtype)
@@ -104,7 +110,7 @@ class RNNDecoder(nn.Module):
         """The teacher-forced recurrence -> (B, L, H), the top layer's h."""
         b, t = ys_in.shape[0], memory.shape[1]
         emb = self.dropout(self.embed[0](ys_in))
-        enc_proj = self.mlp_enc(memory)
+        enc_proj = promoted_linear(self.mlp_enc, memory)
         zeros = memory.new_zeros((b, self.hidden_size))
         states = tuple((zeros, zeros) for _ in range(self.num_layers))
         if memory_mask is not None:
@@ -120,9 +126,9 @@ class RNNDecoder(nn.Module):
     def forward(self, memory, memory_mask, ys_in, ys_in_lengths) -> torch.Tensor:
         """(B, L) tokens -> (B, L, V) logits (padded positions are the loss's
         to mask)."""
-        return self.output_layer(self._hidden(memory, memory_mask, ys_in))
+        return promoted_linear(self.output_layer, self._hidden(memory, memory_mask, ys_in))
 
     def score_step(self, memory, memory_mask, ys: torch.Tensor, pos: int) -> torch.Tensor:
         """f32 log-probs (N, V) of the token at ``pos`` given ``ys[:, :pos]``."""
         h = self._hidden(memory, memory_mask, ys[:, :pos])[:, -1]
-        return F.log_softmax(self.output_layer(h).float(), dim=-1)
+        return F.log_softmax(promoted_linear(self.output_layer, h).float(), dim=-1)

@@ -21,8 +21,10 @@ i when unidirectional). Every product runs in the type flax promotes its
 operands to: the carries start at zero in f32, as flax's do (its
 ``param_dtype``), so each LSTM returns f32 whatever the weights are stored
 in, and under a bf16 model the projections and every later layer run in
-f32, as in JAX. Only the output then takes the features' dtype, where the
-JAX encoder hands its f32 on and the model's later modules promote to f32.
+f32, as in JAX. The encoder hands its f32 output on, as the JAX one does:
+the CTC head, the decoders (their cross-attention, then the rest of the
+step on their weights upcast) and the beam's caches, which take the
+memory's dtype, run in f32 on the bf16 weights.
 """
 
 from __future__ import annotations
@@ -131,4 +133,4 @@ class RNNEncoder(nn.Module):
             h = remat.run(self._layer, i, h, lengths)
         mask = make_valid_mask(lengths, h.shape[1])
         h = torch.where(mask[..., None], h, torch.zeros((), dtype=h.dtype, device=h.device))
-        return h.to(xs.dtype), lengths, {"intermediate_outs": [], "branch_weights": []}
+        return h, lengths, {"intermediate_outs": [], "branch_weights": []}

@@ -22,12 +22,14 @@ causal); there is no cache beam step, as in the JAX package.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tailored_avsr_tpu_torch.models import remat
+from tailored_avsr_tpu_torch.models.decoder import wider_than
 from tailored_avsr_tpu_torch.ops.attention import MultiHeadedAttention
 from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
 from tailored_avsr_tpu_torch.ops.posenc import AbsolutePositionalEncoding
@@ -89,6 +91,7 @@ class S4Decoder(nn.Module):
         positional_dropout_rate: float = 0.1,
         src_attention_dropout_rate: float = 0.0,
         layer_variant: str = "s4",
+        memory_size: Optional[int] = None,  # the memory's width when not d (a post-encoder's)
         *,
         device=None,
         dtype=None,
@@ -101,7 +104,8 @@ class S4Decoder(nn.Module):
                                    AbsolutePositionalEncoding(positional_dropout_rate))
         for i in range(num_blocks):
             setattr(self, f"s4_{i}", S4DLayer(d, d_state, **kw))
-            setattr(self, f"src_attn_{i}", MultiHeadedAttention(attention_heads, src_attention_dropout_rate, d, **kw))
+            setattr(self, f"src_attn_{i}",
+                    MultiHeadedAttention(attention_heads, src_attention_dropout_rate, d, memory_size, **kw))
             setattr(self, f"ffn_{i}", PositionwiseFeedForward(d, linear_units, dropout_rate, "relu", **kw))
             for n in (1, 2, 3):
                 setattr(self, f"norms{n}_{i}", nn.LayerNorm(d, eps=_LN_EPS, **kw))
@@ -113,27 +117,33 @@ class S4Decoder(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.after_norm.weight.dtype
 
-    def _block(self, i: int, x, memory, memory_mask):
-        x = x + self.dropout(getattr(self, f"s4_{i}")(getattr(self, f"norms1_{i}")(x)))
-        h = getattr(self, f"norms2_{i}")(x)
-        x = x + self.dropout(getattr(self, f"src_attn_{i}")(h, memory, memory, memory_mask))
-        return x + self.dropout(getattr(self, f"ffn_{i}")(getattr(self, f"norms3_{i}")(x)))
+    def _block(self, i: int, x, memory, memory_mask, at=None):
+        m = self if at is None else at(x.dtype)
+        x = x + m.dropout(getattr(m, f"s4_{i}")(getattr(m, f"norms1_{i}")(x)))
+        h = getattr(m, f"norms2_{i}")(x)
+        x = x + m.dropout(getattr(m, f"src_attn_{i}")(h, memory, memory, memory_mask))
+        m = self if at is None else at(x.dtype)  # f32 past a wider memory
+        return x + m.dropout(getattr(m, f"ffn_{i}")(getattr(m, f"norms3_{i}")(x)))
 
-    def _run(self, memory, memory_mask, ys) -> torch.Tensor:
+    def _run(self, memory, memory_mask, ys):
+        """-> (the blocks' normalised output, the module of its dtype)."""
         x = self.embed[1](self.embed[0](ys), dtype=self.dtype)
+        at = wider_than(self, memory)
         for i in range(self.num_blocks):
-            x = remat.run(self._block, i, x, memory, memory_mask)
-        return self.after_norm(x)
+            x = remat.run(self._block, i, x, memory, memory_mask, at)
+        m = self if at is None else at(x.dtype)
+        return m.after_norm(x), m
 
     def forward(self, memory, memory_mask, ys_in, ys_in_lengths) -> torch.Tensor:
         """(B, L) tokens -> (B, L, V) logits (padded positions are the loss's
         to mask)."""
-        return self.output_layer(self._run(memory, memory_mask, ys_in))
+        h, m = self._run(memory, memory_mask, ys_in)
+        return m.output_layer(h)
 
     def score_step(self, memory, memory_mask, ys: torch.Tensor, pos: int) -> torch.Tensor:
         """f32 log-probs (N, V) of the token at ``pos`` given ``ys[:, :pos]``."""
-        h = self._run(memory, memory_mask, ys[:, :pos])[:, -1]
-        return F.log_softmax(self.output_layer(h).float(), dim=-1)
+        h, m = self._run(memory, memory_mask, ys[:, :pos])
+        return F.log_softmax(m.output_layer(h[:, -1]).float(), dim=-1)
 
 
 def s4_initial_values(layer: S4DLayer, generator: torch.Generator) -> dict:

@@ -11,6 +11,12 @@ through the (B, T) key mask intersected with a band |i - j| <= max(1,
 window // 2): a (B, T, T) mask, so its attention is always the plain path
 (``use_flash`` off), as in JAX. Both encoders are the Branchformer
 encoder's scaffold with these layers.
+
+``MultiSpeakerTransformerEncoder`` (espnet's ``transformer_multispkr``,
+the PIT model's encoder) runs the shared layers, then ``num_inf``
+speaker stacks of ``num_blocks_sd`` layers each (``sd{s}_layer_{i}``, no
+stochastic depth), each stack's output through ``after_norm``: (B,
+num_inf, T, D).
 """
 
 from __future__ import annotations
@@ -20,8 +26,9 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoder, attend, coin, self_attention
+from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoder, attend, coin, run_layer, self_attention
 from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
+from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
 
 _LN_EPS = 1e-6  # flax LayerNorm default
 
@@ -109,3 +116,38 @@ class LongformerEncoder(TransformerEncoder):
         return TransformerEncoderLayer(
             c["size"], c["heads"], c["att_type"], c["att_dropout"], c["linear_units"], c["ffn_activation"],
             c["dropout"], stochastic_depth_rate, w if isinstance(w, int) else int(w[i]), False, **kw)
+
+
+class MultiSpeakerTransformerEncoder(TransformerEncoder):
+    """Shared Transformer layers, then one stack of ``num_blocks_sd`` layers
+    per inferred speaker."""
+
+    def __init__(self, *args, num_inf: int = 2, num_blocks_sd: int = 2, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.num_inf, self.num_blocks_sd = num_inf, num_blocks_sd
+        c, kw = self._layer_conf
+        for s in range(num_inf):
+            for i in range(num_blocks_sd):
+                setattr(self, f"sd{s}_layer_{i}", TransformerEncoderLayer(
+                    c["size"], c["heads"], c["att_type"], c["att_dropout"], c["linear_units"], c["ffn_activation"],
+                    c["dropout"], 0.0, 0, c["use_flash"], **kw))
+
+    def make_layer(self, i, conf, cgmlp_weight, attn_branch_drop_rate, stochastic_depth_rate, kw):
+        self._layer_conf = (conf, kw)  # the speaker stacks' settings too
+        return super().make_layer(i, conf, cgmlp_weight, attn_branch_drop_rate, stochastic_depth_rate, kw)
+
+    def forward(self, xs: torch.Tensor, ilens: torch.Tensor, generator: Optional[torch.Generator] = None,
+                ctc=None):
+        """(B, T, F) features -> ((B, num_inf, T', D), lengths, aux with no
+        taps and no branch weights)."""
+        xs, ilens, pos_emb = self.embed_frames(xs, ilens)
+        mask = make_valid_mask(ilens, xs.shape[1])
+        for layer in self.encoders:
+            xs, _ = run_layer(layer, generator, xs, pos_emb, mask)
+        outs = []
+        for s in range(self.num_inf):
+            h = xs
+            for i in range(self.num_blocks_sd):
+                h, _ = run_layer(getattr(self, f"sd{s}_layer_{i}"), generator, h, pos_emb, mask)
+            outs.append(self.tap(h))
+        return torch.stack(outs, dim=1), ilens, {"intermediate_outs": [], "branch_weights": []}

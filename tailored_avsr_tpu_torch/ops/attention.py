@@ -60,6 +60,15 @@ def promoted_linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x.to(dt), m.weight.to(dt), None if m.bias is None else m.bias.to(dt))
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the wider of the two types, as ``jnp.einsum`` promotes:
+    bf16 queries over an f32 memory or cache give f32 scores."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
+
+
 class MultiHeadedAttention(nn.Module):
     """Scaled dot-product multi-head attention (``linear_q/k/v/out``).
 
@@ -68,15 +77,16 @@ class MultiHeadedAttention(nn.Module):
     """
 
     def __init__(self, num_heads: int, dropout_rate: float = 0.0, model_dim: int = 256,
-                 *, device=None, dtype=None):
+                 kv_dim: Optional[int] = None, *, device=None, dtype=None):
         super().__init__()
         if model_dim % num_heads:
             raise ValueError(f"model_dim {model_dim} is not a multiple of num_heads {num_heads}")
         kw = {"device": device, "dtype": dtype}
         self.h, self.d_k = num_heads, model_dim // num_heads
+        kv_dim = kv_dim or model_dim  # the keys' and values' input width (a post-encoder's memory)
         self.linear_q = nn.Linear(model_dim, model_dim, **kw)
-        self.linear_k = nn.Linear(model_dim, model_dim, **kw)
-        self.linear_v = nn.Linear(model_dim, model_dim, **kw)
+        self.linear_k = nn.Linear(kv_dim, model_dim, **kw)
+        self.linear_v = nn.Linear(kv_dim, model_dim, **kw)
         self.linear_out = nn.Linear(model_dim, model_dim, **kw)
         self.dropout = nn.Dropout(dropout_rate)
         self._qkv = (None, None)  # (key of the q/k/v parameters, fused weight and bias)
@@ -94,17 +104,17 @@ class MultiHeadedAttention(nn.Module):
 
     def attend(self, query, key, value, mask=None):
         """Full forward -> (output (B, Tq, D), attention (B, H, Tq, Tk))."""
-        q = self._heads(self.linear_q(query))
-        k = self._heads(self.linear_k(key))
-        v = self._heads(self.linear_v(value))
-        scores = (q @ k.transpose(-2, -1)) / math.sqrt(self.d_k)
+        q = self._heads(promoted_linear(self.linear_q, query))
+        k = self._heads(promoted_linear(self.linear_k, key))
+        v = self._heads(promoted_linear(self.linear_v, value))
+        scores = matmul(q, k.transpose(-2, -1)) / math.sqrt(self.d_k)
         attn = _masked_softmax(scores, mask).to(v.dtype)
         out = self.dropout(attn) @ v
-        return self.linear_out(self._merge(out)), attn
+        return promoted_linear(self.linear_out, self._merge(out)), attn
 
     def project_kv(self, x: torch.Tensor):
         """(B, T, D) -> heads-form key and value (B, H, T, dk)."""
-        return self._heads(self.linear_k(x)), self._heads(self.linear_v(x))
+        return self._heads(promoted_linear(self.linear_k, x)), self._heads(promoted_linear(self.linear_v, x))
 
     def _qkv_params(self):
         """The concatenated q/k/v weight and bias, rebuilt only when a
@@ -132,10 +142,10 @@ class MultiHeadedAttention(nn.Module):
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Single-query attention of (B, 1, D) inputs over cached (B, H, T, dk)
         keys and values with a (B, T) key mask -> (B, 1, D)."""
-        q = self._heads(self.linear_q(query))  # (B, H, 1, dk)
-        scores = (q @ k.transpose(-2, -1)).float() / math.sqrt(self.d_k)
+        q = self._heads(promoted_linear(self.linear_q, query))  # (B, H, 1, dk)
+        scores = matmul(q, k.transpose(-2, -1)).float() / math.sqrt(self.d_k)
         attn = _masked_softmax(scores, mask).to(v.dtype)
-        return self.linear_out(self._merge(attn @ v))
+        return promoted_linear(self.linear_out, self._merge(attn @ v))
 
     def attend_kv_append(
         self,
@@ -150,16 +160,16 @@ class MultiHeadedAttention(nn.Module):
         """Single-query attention over the cache plus the step's own column,
         appended logically (the append protocol writes it afterwards, in the
         beam's reorder: ``decode/beam_search.insert_permute_rows``) -> (B, 1, D)."""
-        q = q_heads if q_heads is not None else self._heads(self.linear_q(query))
+        q = q_heads if q_heads is not None else self._heads(promoted_linear(self.linear_q, query))
         scale = 1.0 / math.sqrt(self.d_k)
-        s_cache = (q @ k.transpose(-2, -1)).float() * scale  # (B, H, 1, T)
-        s_new = (q @ k_new.transpose(-2, -1)).float() * scale  # (B, H, 1, 1)
+        s_cache = matmul(q, k.transpose(-2, -1)).float() * scale  # (B, H, 1, T)
+        s_new = matmul(q, k_new.transpose(-2, -1)).float() * scale  # (B, H, 1, 1)
         scores = torch.cat([s_cache, s_new], dim=-1)
         if mask is not None:
             mask = torch.cat([mask, torch.ones_like(mask[:, :1])], dim=-1)
         attn = _masked_softmax(scores, mask).to(v.dtype)
         out = attn[..., :-1] @ v + attn[..., -1:] * v_new
-        return self.linear_out(self._merge(out))
+        return promoted_linear(self.linear_out, self._merge(out))
 
     def attend_kv_segmented(self, query: torch.Tensor, k_segs, v_segs, pos: int, seg_len: int) -> torch.Tensor:
         """Single-query attention over a length-segmented cache (sequences of
@@ -167,7 +177,7 @@ class MultiHeadedAttention(nn.Module):
         carried across the segments; a segment at or past ``pos`` is skipped
         (a host ``if``: ``pos`` is a host integer). -> (B, 1, D), the
         unsegmented attend's result up to the order of the sums."""
-        q = self._heads(self.linear_q(query))  # (B, H, 1, dk)
+        q = self._heads(promoted_linear(self.linear_q, query))  # (B, H, 1, dk)
         b, h = q.shape[:2]
         scale = 1.0 / math.sqrt(self.d_k)
         m = torch.full((b, h, 1, 1), MASK_MIN, device=q.device)
@@ -177,7 +187,7 @@ class MultiHeadedAttention(nn.Module):
             lo = si * seg_len
             if pos <= lo:
                 continue
-            s = (q @ k.transpose(-2, -1)).float() * scale  # (B, H, 1, S)
+            s = matmul(q, k.transpose(-2, -1)).float() * scale  # (B, H, 1, S)
             valid = (torch.arange(seg_len, device=q.device) + lo < pos)[None, None, None, :]
             s = torch.where(valid, s, MASK_MIN)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
@@ -193,7 +203,7 @@ class MultiHeadedAttention(nn.Module):
         """Project ``values`` (B, Tk, D) and weight them by precomputed
         (B, H, Tq, Tk) attention scores -> (B, Tq, D), no output projection
         (the Sim-T decoder's post-attention)."""
-        v = self._heads(self.linear_v(values))
+        v = self._heads(promoted_linear(self.linear_v, values))
         return self._merge(self.dropout(scores.to(v.dtype)) @ v)
 
     def attend_kv_anc(

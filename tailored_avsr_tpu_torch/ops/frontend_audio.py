@@ -109,3 +109,81 @@ class LogMelFrontend(nn.Module):
         logmel = torch.log(torch.clamp(power @ mel_mat, min=self.log_floor))
         out_lens = stft_num_frames(lengths, self.hop_length).to(torch.int32)
         return logmel.to(speech.dtype), out_lens
+
+
+class SlidingWindowFrontend(nn.Module):
+    """Raw-waveform frames (espnet's ``SlidingWindow``): (B, S) samples ->
+    (B, T', ``win_length``) windows every ``hop_length`` samples, with no
+    transform; a pure gather, so the input dtype is kept. T' = 1 + (S -
+    win) // hop, and each length 1 + (len - win) // hop, at least 0."""
+
+    def __init__(self, win_length: int = 400, hop_length: int = 160):
+        super().__init__()
+        self.win_length, self.hop_length = win_length, hop_length
+
+    def output_size(self) -> int:
+        return self.win_length
+
+    def forward(self, speech: torch.Tensor, lengths: torch.Tensor):
+        frames = speech.unfold(-1, self.win_length, self.hop_length)  # (B, T', win)
+        out_lens = torch.clamp(1 + torch.div(lengths - self.win_length, self.hop_length, rounding_mode="floor"),
+                               min=0).to(torch.int32)
+        return frames, out_lens
+
+
+class FusedFrontend(nn.Module):
+    """Several audio frontends fused on the feature axis (espnet's
+    ``FusedFrontends``, ``align_method: linear_projection``). Each entry of
+    ``frontends`` is a sub-frontend's config with its ``frontend_type``
+    (``default`` log-mel or ``sliding_window``). With g the gcd of the hop
+    lengths and factor_i = hop_i // g, sub-frontend i's (B, T_i, D_i)
+    features go through ``proj{i}`` (D_i -> factor_i * ``proj_dim``) and
+    are reshaped to (B, T_i * factor_i, ``proj_dim``); the streams are cut
+    to the shortest and concatenated, so ``output_size()`` is
+    ``len(frontends) * proj_dim``. The lengths are each stream's scaled
+    lengths, the smallest of them, at most the cut."""
+
+    def __init__(self, frontends=(), align_method: str = "linear_projection", proj_dim: int = 100,
+                 *, device=None, dtype=None):
+        super().__init__()
+        if align_method != "linear_projection":
+            raise NotImplementedError(f"fused frontend align_method={align_method!r}: espnet and this port "
+                                      "implement only 'linear_projection'")
+        if not frontends:
+            raise ValueError("fused frontend needs at least one sub-frontend")
+        self.proj_dim, self.n_frontends = proj_dim, len(frontends)
+        subs = []
+        for conf in frontends:
+            conf = dict(conf)
+            kind = conf.pop("frontend_type", "default")
+            if kind == "default":
+                keep = ("fs", "n_fft", "win_length", "hop_length", "n_mels", "fmin", "fmax")
+                subs.append(LogMelFrontend(**{k: v for k, v in conf.items() if k in keep}))
+            elif kind == "sliding_window":
+                subs.append(SlidingWindowFrontend(**{k: v for k, v in conf.items()
+                                                     if k in ("win_length", "hop_length")}))
+            else:
+                raise NotImplementedError(f"fused sub-frontend '{kind}' needs external pretrained weights, "
+                                          "which are not part of this repository; use 'default' or "
+                                          "'sliding_window'")
+        self.subs = subs  # no parameters: kept out of the module tree, as in the key grammar
+        g = int(np.gcd.reduce([f.hop_length for f in subs]))
+        self.factors = tuple(f.hop_length // g for f in subs)
+        for i, (sub, factor) in enumerate(zip(subs, self.factors)):
+            setattr(self, f"proj{i}", nn.Linear(sub.output_size(), factor * proj_dim, device=device, dtype=dtype))
+
+    def output_size(self) -> int:
+        return self.n_frontends * self.proj_dim
+
+    def forward(self, speech: torch.Tensor, lengths: torch.Tensor):
+        feats, lens = [], []
+        for i, (sub, factor) in enumerate(zip(self.subs, self.factors)):
+            x, xl = sub(speech, lengths)  # (B, T_i, D_i)
+            x = getattr(self, f"proj{i}")(x)  # (B, T_i, factor * proj_dim)
+            b, t, _ = x.shape
+            feats.append(x.reshape(b, t * factor, self.proj_dim))
+            lens.append(xl * factor)
+        m = min(x.shape[1] for x in feats)
+        out = torch.cat([x[:, :m] for x in feats], dim=-1)
+        out_lens = torch.clamp(torch.stack(lens).amin(0), max=m).to(torch.int32)
+        return out, out_lens

@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tailored_avsr_tpu_torch.ops.attention import promoted_linear
+
 NEG_INF = -1.0e30
 
 State = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # per layer (c, h), each (B, H)
@@ -144,12 +146,14 @@ class JointNetwork(nn.Module):
 
     def forward(self, enc: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
         """enc (..., T, 1, D) x pred (..., 1, U+1, D') broadcast -> (..., T, U+1, V)."""
-        return self.from_projected(self.lin_enc(enc), pred)
+        return self.from_projected(promoted_linear(self.lin_enc, enc), pred)
 
     def from_projected(self, enc_proj: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
         """The joint from ``lin_enc(enc)``, which a decoder computes once for
-        every frame instead of once a step."""
-        return self.lin_out(self.act(enc_proj + self.lin_dec(pred)))
+        every frame instead of once a step. Each product runs in the wider
+        of its operands' types, as flax promotes (f32 encoder frames under
+        bf16 weights give an f32 joint)."""
+        return promoted_linear(self.lin_out, self.act(enc_proj + promoted_linear(self.lin_dec, pred)))
 
 
 class LSTMLayer(nn.Module):

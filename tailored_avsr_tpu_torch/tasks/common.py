@@ -1,8 +1,9 @@
 """Shared pieces of the config -> model builders
 (counterpart of ``tailored_avsr_tpu/tasks/common.py``): the registries of
-frontends, SpecAug, normalisation, encoders and decoders (the attention
-decoders of every layer variant, MLM, LSTM and S4, the transducer's
-prediction and joint networks) for the names the port builds, the
+frontends (log-mel, sliding window, fused, the lip frontend), SpecAug,
+normalisation (utterance or global MVN), pre- and post-encoders,
+encoders and decoders (the attention decoders of every layer variant,
+MLM, LSTM and S4, the transducer's prediction and joint networks), the
 multi-blank vocabulary extension, the config-key rule, seeded
 materialisation and the device rule.
 
@@ -15,9 +16,9 @@ reaching an ``rnn`` decoder), and is dropped here after the same check of
 ``positionwise_layer_type`` and ``ctc_type``.
 ``tests/test_torch_port_train.py``, ``tests/test_torch_port_asr.py`` and
 ``tests/test_torch_port_decoders.py`` hold the tables to the JAX
-constructors' fields. A name the port does not build
-raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that will
-port it.
+constructors' fields. Every name of the JAX registries is built; the names
+that need pretrained weights from outside the repository raise
+``NotImplementedError`` and an unknown name ``ValueError``, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from torch import nn
 from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoder
 from tailored_avsr_tpu_torch.models.conformer import ConformerEncoder
+from tailored_avsr_tpu_torch.models.contextual_block import ContextualBlockEncoder
 from tailored_avsr_tpu_torch.models.conventional import ConventionalEncoder
 from tailored_avsr_tpu_torch.models.ctc import CTCHead
 from tailored_avsr_tpu_torch.models.decoder import (
@@ -44,15 +46,20 @@ from tailored_avsr_tpu_torch.models.decoder import (
     TransformerDecoder,
 )
 from tailored_avsr_tpu_torch.models.frontends import Conv3dResNet18
+from tailored_avsr_tpu_torch.models.prepostencoder import LinearPostencoder, LinearProjection
 from tailored_avsr_tpu_torch.models.rnn_decoder import RNNDecoder
 from tailored_avsr_tpu_torch.models.rnn_encoder import RNNEncoder
 from tailored_avsr_tpu_torch.models.s4_decoder import S4Decoder
 from tailored_avsr_tpu_torch.models.tailored import TailoredEncoder
-from tailored_avsr_tpu_torch.models.transformer_encoder import LongformerEncoder, TransformerEncoder
+from tailored_avsr_tpu_torch.models.transformer_encoder import (
+    LongformerEncoder,
+    MultiSpeakerTransformerEncoder,
+    TransformerEncoder,
+)
 from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
 from tailored_avsr_tpu_torch.ops.cgmlp import ConvolutionalSpatialGatingUnit
-from tailored_avsr_tpu_torch.ops.frontend_audio import LogMelFrontend
-from tailored_avsr_tpu_torch.ops.normalize import UtteranceMVN
+from tailored_avsr_tpu_torch.ops.frontend_audio import FusedFrontend, LogMelFrontend, SlidingWindowFrontend
+from tailored_avsr_tpu_torch.ops.normalize import GlobalMVN, UtteranceMVN
 from tailored_avsr_tpu_torch.ops.rnnt import JointNetwork, PredictionNetwork
 from tailored_avsr_tpu_torch.ops.specaug import SpecAug
 from tailored_avsr_tpu_torch.utils.initialize import init_params_
@@ -62,7 +69,7 @@ from tailored_avsr_tpu_torch.utils.initialize import init_params_
 # encoders and the decoders take every key of theirs.
 VISUAL_FRONTEND_FIXED = {
     "bn_axis_name": ((None,), 9),  # cross-replica BatchNorm: data parallel
-    "stem_s2d": (None, 8),  # the TPU's evaluation of the same stem weights
+    "stem_s2d": (None, None),  # the TPU's evaluation of the same stem weights: any value builds the stem
 }
 ASR_ENCODERS = {
     "branchformer": BranchformerEncoder,
@@ -72,7 +79,11 @@ ASR_ENCODERS = {
     "longformer": LongformerEncoder,
     "rnn": RNNEncoder,
     "vgg_rnn": RNNEncoder,
+    "contextual_block_transformer": ContextualBlockEncoder,
+    "contextual_block_conformer": ContextualBlockEncoder,
+    "transformer_multispkr": MultiSpeakerTransformerEncoder,
 }
+PRETRAINED_ENCODERS = ("wav2vec2", "hubert", "hubert_pretrain", "torchaudiohubert", "whisper")
 # ``tailored_avsr_tpu/tasks/common.py:build_decoder``'s table; ``whisper``
 # and ``hugging_face_transformers`` need pretrained weights from outside
 # the repository, and both packages refuse them
@@ -191,43 +202,86 @@ def set_kernels(model: nn.Module, on: bool) -> nn.Module:
 
 
 def build_frontend(name, conf: Optional[Dict]):
-    """``default`` (log-mel), ``conv3dresnet18`` or none."""
-    if name in NONE:
+    """``default`` (log-mel), ``sliding_window``, ``fused`` (its
+    ``frontends`` list of sub-frontend configs), ``conv3dresnet18`` or
+    none (``tailored_avsr_tpu/tasks/common.py:68-96``)."""
+    if name in (None, "none"):
         return None
     if name == "default":
         return LogMelFrontend(**conf_args(LogMelFrontend, conf))
     if name == "conv3dresnet18":
         return Conv3dResNet18(**conf_args(Conv3dResNet18, conf, VISUAL_FRONTEND_FIXED), **META)
-    raise refuse("frontend", name, 8)
+    if name == "sliding_window":
+        return SlidingWindowFrontend(**conf_args(SlidingWindowFrontend, conf))
+    if name == "fused":
+        conf = dict(conf or {})
+        if "frontends" in conf:
+            conf["frontends"] = tuple(dict(f) for f in conf["frontends"])
+        return FusedFrontend(**conf_args(FusedFrontend, conf), **META)
+    if name in ("s3prl", "whisper"):
+        raise NotImplementedError(f"frontend '{name}' needs external pretrained weights, which are not part "
+                                  "of this repository; use 'default' (log-mel), 'sliding_window', 'fused', or "
+                                  "'conv3dresnet18'")
+    raise ValueError(f"unknown frontend: {name}")
 
 
 def build_specaug(name, conf: Optional[Dict]):
-    if name in NONE:
+    if name in (None, "none"):
         return None
-    require("specaug", name, ("specaug",), 8)
+    if name != "specaug":
+        raise ValueError(f"unknown specaug: {name}")
     return SpecAug(**conf_args(SpecAug, conf))
 
 
-def build_normalize(name, conf: Optional[Dict]):
+def build_normalize(name, conf: Optional[Dict], feature_size: int = 80):
+    """``utterance_mvn``, ``global_mvn`` (over ``feature_size`` features,
+    its statistics 0 / 1 until loaded) or none."""
+    if name in (None, "none"):
+        return None
+    if name == "utterance_mvn":
+        return UtteranceMVN(**conf_args(UtteranceMVN, conf))
+    if name == "global_mvn":
+        return GlobalMVN(**conf_args(GlobalMVN, conf, feature_size=feature_size), **META)
+    raise ValueError(f"unknown normalize: {name}")
+
+
+def build_preencoder(name, conf: Optional[Dict], input_size: int):
+    """``linear`` (``LinearProjection`` from ``input_size`` features) or none."""
     if name in NONE:
         return None
-    require("normalize", name, ("utterance_mvn",), 8)
-    return UtteranceMVN(**conf_args(UtteranceMVN, conf))
+    if name == "linear":
+        return LinearProjection(**conf_args(LinearProjection, conf, input_size=input_size), **META)
+    raise ValueError(f"unknown preencoder: {name}")
+
+
+def build_postencoder(name, conf: Optional[Dict], input_size: int):
+    """``linear`` (``LinearPostencoder`` from ``input_size`` features) or
+    none; ``hugging_face_transformers`` needs pretrained weights."""
+    if name in NONE:
+        return None
+    if name == "linear":
+        return LinearPostencoder(**conf_args(LinearPostencoder, conf, input_size=input_size), **META)
+    if name == "hugging_face_transformers":
+        raise NotImplementedError("postencoder 'hugging_face_transformers' needs external pretrained weights, "
+                                  "which are not part of this repository; use 'linear'")
+    raise ValueError(f"unknown postencoder: {name}")
 
 
 def build_encoder(name: str, conf: Optional[Dict], input_size: Optional[int] = None,
                   vocab_size: Optional[int] = None) -> nn.Module:
-    """The encoder registry for the names the port builds
-    (``tailored_avsr_tpu/tasks/common.py:117-170``): the ASR / VSR encoders
-    ``branchformer``, ``e_branchformer`` (``concat`` and
-    ``merge_conv_kernel: 3`` unless set), ``conformer``, ``transformer``
-    and ``longformer`` (``abs_pos``, ``selfattn`` and ``relu`` unless set),
-    ``rnn`` and ``vgg_rnn`` (``use_vgg`` by the name unless set), whose
-    ``input_size`` is the frontend's feature width (the ``embed`` input
+    """The encoder registry (``tailored_avsr_tpu/tasks/common.py:117-176``):
+    the ASR / VSR encoders ``branchformer``, ``e_branchformer``
+    (``concat`` and ``merge_conv_kernel: 3`` unless set), ``conformer``,
+    ``transformer``, ``longformer`` and ``transformer_multispkr``
+    (``abs_pos``, ``selfattn`` and ``relu`` unless set),
+    ``contextual_block_transformer`` / ``_conformer`` (``abs_pos``,
+    ``selfattn`` and the ``block_layer`` of the name unless set), ``rnn``
+    and ``vgg_rnn`` (``use_vgg`` by the name unless set), whose
+    ``input_size`` is the feature width they receive (the ``embed`` input
     layer's token count comes from the config), and the AVSR encoders
     ``tailored`` and ``conventional``. ``vocab_size`` is the interCTC
-    conditioning layer's input width. The other names of the JAX registry
-    raise naming their item."""
+    conditioning layer's input width. The names that need pretrained
+    weights raise ``NotImplementedError``, an unknown one ``ValueError``."""
     conf = dict(conf or {})
     if name in ("tailored", "conventional"):
         cls = TailoredEncoder if name == "tailored" else ConventionalEncoder
@@ -235,14 +289,21 @@ def build_encoder(name: str, conf: Optional[Dict], input_size: Optional[int] = N
     if name == "e_branchformer":
         conf.setdefault("merge_method", "concat")
         conf.setdefault("merge_conv_kernel", 3)
-    elif name in ("transformer", "longformer"):
+    elif name in ("transformer", "longformer", "transformer_multispkr"):
         conf.setdefault("pos_enc_layer_type", "abs_pos")
         conf.setdefault("attention_layer_type", "selfattn")
         conf.setdefault("ffn_activation_type", "relu")
+    elif name in ("contextual_block_transformer", "contextual_block_conformer"):
+        conf.setdefault("pos_enc_layer_type", "abs_pos")
+        conf.setdefault("attention_layer_type", "selfattn")
+        conf.setdefault("block_layer", "conformer" if name.endswith("conformer") else "transformer")
     elif name in ("rnn", "vgg_rnn"):
         conf.setdefault("use_vgg", name == "vgg_rnn")
-    if name not in ASR_ENCODERS:  # transformer_multispkr (with PIT), contextual_block_*
-        raise refuse("encoder", name, 8)
+    if name in PRETRAINED_ENCODERS:
+        raise NotImplementedError(f"encoder '{name}' needs external pretrained weights, which are not part of "
+                                  "this repository")
+    if name not in ASR_ENCODERS:
+        raise ValueError(f"unknown encoder: {name}")
     cls = ASR_ENCODERS[name]
     if conf.get("input_layer", "conv2d") != "embed":
         conf["input_size"] = input_size
@@ -258,12 +319,14 @@ def is_transducer(decoder_name) -> bool:
 MLM_VARIANT = {"transformer": "mlm", "sim_t": "sim_t_mlm", "simt": "sim_t_mlm"}
 
 
-def build_transducer_modules(config, vocab_size: int, encoder_size: int):
+def build_transducer_modules(config, vocab_size: int, encoder_size: int, memory_size: Optional[int] = None):
     """(prediction network, joint network) from the espnet-style keys
     (``tailored_avsr_tpu/tasks/common.py:234-272``): ``decoder_conf``
     ``rnn_type`` (lstm only), ``num_layers``, ``hidden_size`` (the
-    embedding's too unless ``embed_size``), ``dropout`` / ``dropout_rate``;
-    ``joint_net_conf`` ``joint_space_size``, ``joint_activation_type``."""
+    embedding's too unless ``embed_size``; ``encoder_size`` unless set),
+    ``dropout`` / ``dropout_rate``; ``joint_net_conf`` ``joint_space_size``,
+    ``joint_activation_type``. The joint reads frames of ``memory_size``
+    (a post-encoder's width; ``encoder_size`` when None)."""
     jconf = dict(cfg_value(config, "joint_net_conf", {}))
     dconf = dict(cfg_value(config, "decoder_conf", {}))
     rnn_type = dconf.get("rnn_type", "lstm")
@@ -276,7 +339,8 @@ def build_transducer_modules(config, vocab_size: int, encoder_size: int):
         vocab_size, embed_dim=int(dconf.get("embed_size", hidden)), hidden_dim=hidden,
         num_layers=int(dconf.get("num_layers", 1)),
         dropout_rate=float(dconf.get("dropout", dconf.get("dropout_rate", 0.1))), **META)
-    joint = JointNetwork(vocab_size, encoder_size, hidden, joint_dim=int(jconf.get("joint_space_size", 320)),
+    joint = JointNetwork(vocab_size, memory_size or encoder_size, hidden,
+                         joint_dim=int(jconf.get("joint_space_size", 320)),
                          activation=str(jconf.get("joint_activation_type", "tanh")), **META)
     return prediction, joint
 
@@ -295,17 +359,23 @@ def extend_multi_blank(config, token_list: List[str]) -> Tuple[int, ...]:
     return durations
 
 
-def build_decoder_and_ctc(config, vocab_size: int, encoder_size: int, maskctc: bool = False):
+def build_decoder_and_ctc(config, vocab_size: int, encoder_size: int, maskctc: bool = False,
+                          memory_size: Optional[int] = None):
     """(decoder, joint network, CTC head). A transducer ``decoder`` gives the
     LSTM prediction network and the joint network; otherwise the attention
     decoder of ``DECODERS`` is built unless ``model_conf.ctc_weight`` is 1.0
     (as the JAX tasks build none), for a Mask-CTC model over V + 1 tokens
-    and, for ``transformer`` and ``sim_t``, as its MLM variant."""
+    and, for ``transformer`` and ``sim_t``, as its MLM variant. The
+    decoders are ``encoder_size`` wide; what reads the memory (the CTC
+    head, the joint, a decoder's cross-attention, the LSTM decoder) takes
+    ``memory_size`` features when a post-encoder changes the width, as the
+    JAX modules infer their input widths."""
+    memory = memory_size if memory_size not in (None, encoder_size) else None
     decoder_name = cfg_value(config, "decoder", "transformer") or "transformer"
     model_conf = dict(cfg_value(config, "model_conf", {}))
     decoder = joint = None
     if is_transducer(decoder_name):
-        decoder, joint = build_transducer_modules(config, vocab_size, encoder_size)
+        decoder, joint = build_transducer_modules(config, vocab_size, encoder_size, memory)
     elif float(model_conf.get("ctc_weight", 0.5)) < 1.0:
         if maskctc:
             decoder_name = MLM_VARIANT.get(decoder_name, decoder_name)
@@ -315,12 +385,13 @@ def build_decoder_and_ctc(config, vocab_size: int, encoder_size: int, maskctc: b
         if decoder_name not in DECODERS:
             raise ValueError(f"unknown decoder: {decoder_name}")
         cls = DECODERS[decoder_name]
+        width = {"encoder_output_size": memory or encoder_size} if cls is RNNDecoder else {
+            "encoder_output_size": encoder_size, **({"memory_size": memory} if memory else {})}
         decoder = cls(**conf_args(cls, cfg_value(config, "decoder_conf", {}),
-                                  vocab_size=vocab_size + 1 if maskctc else vocab_size,
-                                  encoder_output_size=encoder_size), **META)
+                                  vocab_size=vocab_size + 1 if maskctc else vocab_size, **width), **META)
     ctc_conf = dict(cfg_value(config, "ctc_conf", {}))
     check_dropped_key("ctc_conf", "ctc_type", ctc_conf.get("ctc_type", "builtin"))
-    ctc = CTCHead(encoder_size, vocab_size, float(ctc_conf.get("dropout_rate", 0.0)), **META)
+    ctc = CTCHead(memory or encoder_size, vocab_size, float(ctc_conf.get("dropout_rate", 0.0)), **META)
     return decoder, joint, ctc
 
 

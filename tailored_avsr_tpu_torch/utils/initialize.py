@@ -4,7 +4,8 @@ Every parameter and buffer of the port's model is drawn here, on the CPU,
 from one generator, so a seed gives the same weights on any device. The
 scheme follows flax's defaults, which the JAX package initialises with:
 kernels LeCun-normal (std 1/sqrt(fan_in)), biases 0, norm scales 1 and
-shifts 0, BatchNorm running statistics 0 / 1, the modality embedding
+shifts 0, BatchNorm running statistics 0 / 1, global MVN statistics 0 / 1
+(mean / std), the modality embedding
 normal with std 1/sqrt(d), the rel-pos u/v biases Xavier-uniform, the
 scaled positional encoding's alpha 1, an
 LSTM layer as flax's ``OptimizedLSTMCell``: each gate's input kernel
@@ -34,6 +35,7 @@ from torch import nn
 from tailored_avsr_tpu_torch.models.decoder import ConvDecoderLayer
 from tailored_avsr_tpu_torch.models.s4_decoder import S4DLayer, s4_initial_values
 from tailored_avsr_tpu_torch.ops.attention import RelPositionMultiHeadedAttention
+from tailored_avsr_tpu_torch.ops.normalize import GlobalMVN
 from tailored_avsr_tpu_torch.ops.posenc import ScaledPositionalEncoding
 from tailored_avsr_tpu_torch.ops.rnnt import LSTMLayer
 
@@ -98,6 +100,9 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 put(w, _normal(w.shape, 1.0 / math.sqrt(w.shape[0]), generator))
             if module.conv_bias is not None:
                 put(module.conv_bias, torch.zeros(module.conv_bias.shape))
+        elif isinstance(module, GlobalMVN):
+            put(module.mean, torch.zeros(module.mean.shape))
+            put(module.std, torch.ones(module.std.shape))
         elif isinstance(module, S4DLayer):
             for name, value in s4_initial_values(module, generator).items():
                 put(getattr(module, name), value)

@@ -41,7 +41,12 @@ Key mapping (flax path -> torch dotted key), by component:
 - visual frontend: ``frontend3d_conv``/``frontend3d_bn`` -> ``frontend3D.0/1``,
   ``layer{s}_block{b}`` -> ``trunk.layer{s}.{b}`` with ``downsample_conv/bn``
   -> ``downsample.0/1``;
-- LayerNorm ``scale`` -> ``weight``; BatchNorm stats -> ``running_mean/var``.
+- LayerNorm ``scale`` -> ``weight``; BatchNorm stats -> ``running_mean/var``;
+- the ``stats`` collection (``GlobalMVN``'s corpus statistics, which the
+  JAX package's own export drops) keeps its leaf names: ``normalize.mean``
+  and ``normalize.std``; the multi-speaker encoder's ``sd{s}_layer_{i}``,
+  the fused frontend's ``proj{i}`` and the pre / post-encoders'
+  ``linear_out`` keep theirs.
 
 Weight layouts: flax Linear (in, out) -> (out, in); Conv1d (k, in /
 groups, out) -> (out, in / groups, k) (the depthwise convs, the conv1d
@@ -158,8 +163,9 @@ def _subtree(root: Dict, path: List[str]) -> Optional[Dict]:
     return node
 
 
-def torch_key_for(path: List[str], params_root: Dict) -> str:
-    """Full torch dotted key for a flax leaf path."""
+def torch_key_for(path: List[str], params_root: Dict, rename_leaf: bool = True) -> str:
+    """Full torch dotted key for a flax leaf path (the leaf's name kept
+    without ``rename_leaf``)."""
     *mods, leaf = path
     in_avsr_embed = bool(mods) and mods[0] in ("acoustic_embed", "visual_embed")
     mods2 = []
@@ -171,7 +177,7 @@ def torch_key_for(path: List[str], params_root: Dict) -> str:
         else:
             mods2.append(seg)
     segs = _embed_conv_fix(_rename_segments(mods2, params_root), in_avsr_embed)
-    return ".".join(segs + [_LEAF_RENAME.get(leaf, leaf)])
+    return ".".join(segs + [_LEAF_RENAME.get(leaf, leaf) if rename_leaf else leaf])
 
 
 # torch axis i of a kernel holds flax axis _KERNEL_PERMS[ndim][i]
@@ -225,11 +231,12 @@ def _walk(tree: Dict, path: List[str]):
 
 
 def export_torch_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """flax ``{'params': ..., 'batch_stats': ...}`` variables -> a state dict
-    (numpy values) in the reference's PyTorch key grammar."""
+    """flax ``{'params': ..., 'batch_stats': ..., 'stats': ...}`` variables
+    -> a state dict (numpy values) in the reference's PyTorch key grammar."""
     params_root = variables.get("params", {})
     out: Dict[str, np.ndarray] = {}
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "stats"):
         for path, leaf_val in _walk(variables.get(collection, {}), []):
-            out[torch_key_for(path, params_root)] = _from_flax(np.asarray(leaf_val), path[-1])
+            out[torch_key_for(path, params_root, collection != "stats")] = _from_flax(np.asarray(leaf_val),
+                                                                                       path[-1])
     return _collapse_lstm_keys(out)

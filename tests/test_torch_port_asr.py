@@ -76,12 +76,17 @@ def _jax_model(cfg, tokens):
 
 
 def _jax_shapes(jm, task):
-    """The JAX variables' shapes, from an init traced on a 4-frame batch."""
+    """The JAX variables' shapes, from an init traced on a 4-frame batch (a
+    PIT model's targets one row per reference speaker)."""
     audio = (np.zeros((1, 2560), np.float32), np.array([2560], np.int32))
     video = (np.zeros((1, 4, 88, 88), np.float32), np.array([4], np.int32))
     args = {"avsr": audio + video, "asr": audio, "vsr": video}[task]
+    refs = getattr(jm, "num_ref", None)
+    text = (np.ones((1, 3), np.int32), np.array([3], np.int32)) if refs is None else (
+        np.ones((1, refs, 3), np.int32), np.full((1, refs), 3, np.int32))
+    args = [jax.numpy.asarray(a) for a in args]  # device arrays: numpy ones cannot take a traced index
     return jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0), "mlm": jax.random.PRNGKey(1)},
-                                          *args, np.ones((1, 3), np.int32), np.array([3], np.int32)))
+                                          *args, *text))
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
@@ -122,29 +127,26 @@ def _set(cfg, section, value):
 
 
 @pytest.mark.parametrize("path,section,value,item", [
-    (ASR, "model", "pit_espnet", 8),
-    (ASR, "encoder", "transformer_multispkr", 8),  # with PIT, item 8.6
-    (ASR, "encoder", "contextual_block_transformer", 8),
-    (ASR, "frontend", "sliding_window", 8),
-    (ASR, "normalize", "global_mvn", 8),
-    (ASR, "preencoder", "linear", 8),
-    (ASR, "encoder", "contextual_block_conformer", 8),
-    (ASR, "frontend", "fused", 8),
-    (CONVENTIONAL, "postencoder", "linear", 8),
+    (VSR, "frontend_conf", {"bn_axis_name": "batch"}, 9),
+    (CONVENTIONAL, "visual_frontend_conf", {"bn_axis_name": "batch"}, 9),
 ])
 def test_unported_choices_name_their_item(path, section, value, item):
-    """The choices still refused. Seventeen of these cases named choices
-    that are built now (the E-Branchformer, Conformer, ``zero_triu``,
-    interCTC, ``conv1d2``, legacy rel-pos, ``selfattn``, the conventional
-    Conformer stacks and taps; the Sim-T MLM, the ``rnn`` and ``vgg_rnn``
-    encoders, the lightweight and dynamic conv, S4 and VSR ``rnn``
-    decoders): ``test_ported_choices_build_with_the_jax_parameter_names``
-    builds each of them."""
+    """The choices still refused: item 9's cross-replica BatchNorm. The
+    nine item-8 cases this list held until the input side, the streaming
+    encoders and PIT were ported (``pit_espnet``, ``transformer_multispkr``,
+    both contextual-block encoders, the sliding-window and fused
+    frontends, ``global_mvn``, the linear pre- and post-encoders), and the
+    seventeen before them, are ``PORTED_CHOICES`` cases, built by
+    ``test_ported_choices_build_with_the_jax_parameter_names``."""
     cfg = _set(tiny_cfg(path), section, value)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md 'Modules to port' item {item}"):
         common.build_model(cfg, TOKEN_LIST, device="cpu")
 
 
+_ABS = dict(tiny_cfg(ASR).encoder_conf, attention_layer_type="selfattn", pos_enc_layer_type="abs_pos")
+_FUSED = {"frontends": [{"frontend_type": "default", "n_mels": 24, "hop_length": 160},
+                        {"frontend_type": "sliding_window", "win_length": 400, "hop_length": 80}],
+          "proj_dim": 20}
 PORTED_CHOICES = {
     "e_branchformer": (ASR, "encoder", "e_branchformer"),
     "conformer": (ASR, None, {"encoder": "conformer", "encoder_conf": dict(
@@ -181,6 +183,21 @@ PORTED_CHOICES = {
     "vgg_rnn": (ASR, "encoder", "vgg_rnn"),
     "rnn_encoder_unprojected": (ASR, None, {"encoder": "rnn", "encoder_conf": {
         "num_layers": 3, "bidirectional": False, "use_projection": False, "output_size": 96}}),
+    # items 8.4 and 8.6: the streaming encoders, the rest of the input side, PIT
+    "pit_espnet": (ASR, None, {"model": "pit_espnet", "encoder": "transformer_multispkr", "encoder_conf": _ABS}),
+    "transformer_multispkr": (ASR, None, {
+        "model": "pit_espnet", "encoder": "transformer_multispkr", "encoder_conf": dict(
+            _ABS, num_blocks_sd=1, num_inf=3), "model_conf": {"num_inf": 3, "num_ref": 3, "ctc_weight": 1.0}}),
+    "contextual_block_transformer": (ASR, None, {"encoder": "contextual_block_transformer", "encoder_conf": dict(
+        _ABS, block_size=6, hop_size=2, look_ahead=2)}),
+    "contextual_block_conformer": (ASR, None, {"encoder": "contextual_block_conformer", "encoder_conf": dict(
+        _ABS, block_size=6, hop_size=2, cnn_module_kernel=5)}),
+    "sliding_window": (ASR, None, {"frontend": "sliding_window", "frontend_conf": {"win_length": 320}}),
+    "fused": (ASR, None, {"frontend": "fused", "frontend_conf": _FUSED}),
+    "global_mvn": (ASR, "normalize", "global_mvn"),
+    "preencoder": (ASR, None, {"preencoder": "linear", "preencoder_conf": {"output_size": 40}}),
+    "conventional_postencoder": (CONVENTIONAL, None, {"postencoder": "linear",
+                                                      "postencoder_conf": {"output_size": 48}}),
 }
 FULL = {"sim_t", "sim_t_mlm", "lightweight_conv", "dynamic_conv", "lightweight_conv2d", "dynamic_conv2d",
         "no_output_layer", "lightconv_variant", "rnn_decoder", "vsr_rnn_decoder", "s4", "rnn_encoder", "vgg_rnn",
@@ -206,14 +223,20 @@ def _choice_cfg(case, full: bool):
 def test_ported_choices_build_with_the_jax_parameter_names(case):
     """Each choice this file's refusal list once held, built on the meta
     device (items 8.3 and 8.5 at full width): the state dict's keys and
-    shapes are the JAX export's."""
+    shapes are the JAX export's, a global MVN's ``stats`` collection with
+    them (the port's export carries it; the JAX export drops it)."""
+    from tailored_avsr_tpu_torch.utils.torch_compat import export_torch_state_dict as port_export
+
     cfg = _choice_cfg(case, case in FULL)
-    path = PORTED_CHOICES[case][0]
     task = "avsr" if cfg.task == "avsr" else "asr"
     port = __import__(f"tailored_avsr_tpu_torch.tasks.{task}", fromlist=["build_meta"]).build_meta(cfg, TOKEN_LIST)
     shapes = _jax_shapes(_jax_model(cfg, TOKEN_LIST), cfg.task)
     zeros = jax.tree_util.tree_map(lambda s: np.broadcast_to(np.zeros((), s.dtype), s.shape), shapes)
-    want = {k: v.shape for k, v in export_torch_state_dict(zeros).items()}
+    want = {k: v.shape for k, v in port_export(zeros).items()}
+    jax_keys = {k: v.shape for k, v in export_torch_state_dict(zeros).items()}
+    stats = sorted(set(want) - set(jax_keys))  # only the stats collection's keys are the port's own
+    assert {k: v for k, v in want.items() if k not in stats} == jax_keys
+    assert stats == (["normalize.mean", "normalize.std"] if "stats" in zeros else [])
     got = {k: tuple(v.shape) for k, v in port.state_dict().items() if not k.endswith("num_batches_tracked")}
     assert got == want
 

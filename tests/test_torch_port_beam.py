@@ -242,16 +242,20 @@ def test_lm_forward_and_score_step_anc(embed_unit, pos_enc):
 
 @pytest.mark.parametrize("section,value", [("acoustic_preencoder", "linear"), ("postencoder", "linear")])
 def test_unported_decoders_name_item_8(section, value):
-    """The modules around the decoder that are still refused name item 8.
-    The two decoder choices this test refused (``sim_t`` and
-    ``use_output_layer: false``) are built now:
-    ``tests/test_torch_port_decoders.py`` holds them against JAX."""
-    from tailored_avsr_tpu_torch.tasks.avsr import build_model
-
-    cfg = graft._flagship_cfg(tiny=True)
-    setattr(cfg, section, value)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_model(cfg, ["<blank>", "a", "<sos/eos>"])
+    """The modules around the decoder, built: the tiny flagship with a
+    linear acoustic pre-encoder (80 -> 48 features into the embed) or a
+    linear post-encoder (the memory 48 wide: the CTC head and the
+    decoder's cross-attention read 48 features) serves the JAX engine's
+    n-best (beam 2): ids equal, scores within 1e-4. Until they were
+    ported this test held their refusal naming item 8; the two decoder
+    choices it refused before (``sim_t`` and ``use_output_layer: false``)
+    ``tests/test_torch_port_decoders.py`` holds against JAX."""
+    js, ps, batch = _engines("tiny", None, cfg_keys={section: value, f"{section}_conf": {"output_size": 48}},
+                             beam_size=2, nbest=2, unroll=1)
+    module = getattr(ps.model, section)
+    assert type(module).__name__ == ("LinearProjection" if section.endswith("preencoder") else "LinearPostencoder")
+    assert module.linear_out.out_features == 48
+    _same_nbest(ps.nbest(batch), js.nbest(batch))
 
 
 # ----------------------------------------------------------- CTC prefix
@@ -339,8 +343,9 @@ LM_TINY = dict(att_unit=32, head=4, unit=40, layer=2, embed_unit=16, pos_enc=Non
 LM_FULL = dict(att_unit=512, head=8, unit=2048, layer=16, embed_unit=128, pos_enc=None, dropout_rate=0.0)
 
 
-def _engines(width: str, lm_conf, **inference_conf):
-    """A JAX and a port ``Speech2Text`` on the same random weights."""
+def _engines(width: str, lm_conf, cfg_keys=None, **inference_conf):
+    """A JAX and a port ``Speech2Text`` on the same random weights; the
+    config's top-level ``cfg_keys`` set first."""
     from tailored_avsr_tpu.inference import Speech2Text as JaxSpeech2Text
     from tailored_avsr_tpu.tasks.avsr import AVSRTask
     from tailored_avsr_tpu.tasks.lm import LMTask
@@ -350,6 +355,8 @@ def _engines(width: str, lm_conf, **inference_conf):
     cfg = graft._flagship_cfg(tiny=width == "tiny")
     cfg.token_list = TOKENS
     cfg.inference_conf = dict(cfg.inference_conf, **inference_conf)
+    for key, value in (cfg_keys or {}).items():
+        setattr(cfg, key, value)
     tokens = [line.rstrip() for line in open(TOKENS) if line.rstrip()]
     batch = _batch()
     args = tuple(batch[k] for k in ("audio", "audio_lengths", "video", "video_lengths"))

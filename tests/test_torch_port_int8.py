@@ -570,7 +570,8 @@ def test_build_model_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
     """The factories behind ``Speech2Text`` follow its rule: without
     ``device=`` they build on ``cuda`` and, on a host with no CUDA device,
     refuse with the same words; ``device="cpu"`` builds on the CPU. The
-    config gates come first, so an unported choice still names its item."""
+    config gates come first, so an unported choice (item 9's cross-replica
+    BatchNorm) still names its item."""
     import types
 
     from tailored_avsr_tpu_torch.tasks import avsr as avsr_task
@@ -589,6 +590,6 @@ def test_build_model_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
         model = build(cfg, tokens, device="cpu")
         assert {p.device for p in model.parameters()} == {torch.device("cpu")}
     cfg = _tiny_cfg()
-    cfg.postencoder = "linear"
-    with pytest.raises(NotImplementedError, match="item 8"):
+    cfg.visual_frontend_conf = dict(cfg.visual_frontend_conf or {}, bn_axis_name="batch")
+    with pytest.raises(NotImplementedError, match="item 9"):
         avsr_task.build_model(cfg, tokens)

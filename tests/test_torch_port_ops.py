@@ -119,8 +119,12 @@ def test_utterance_mvn():
     want, _ = J().apply({}, x, lens)
     got, _ = P()(t(x), t(lens))
     close(got, want)
-    with pytest.raises(NotImplementedError):
-        P(norm_vars=True)
+    # norm_vars (once refused): each utterance's deviation divided out, with
+    # and without the means (a 1-frame utterance's variance is 0: eps)
+    for means in (True, False):
+        want, _ = J(norm_means=means, norm_vars=True).apply({}, x, lens)
+        got, _ = P(norm_means=means, norm_vars=True)(t(x), t(lens))
+        close(got, want)
 
 
 def test_conv2d_subsampling():
@@ -310,22 +314,41 @@ def test_ctc_greedy_collapse():
 
 
 @pytest.mark.parametrize("name,section,value", [
-    # every encoder option of the two AVSR encoders and every decoder builds
-    # (the Conformer stacks, zero_triu and the Sim-T decoder these cases
+    # the Conformer stacks, zero_triu and the Sim-T decoder these cases
     # refused are built by
-    # tests/test_torch_port_asr.py::test_ported_choices_build_with_the_jax_parameter_names);
-    # the multi-speaker encoder and the linear pre-encoder are still refused
+    # tests/test_torch_port_asr.py::test_ported_choices_build_with_the_jax_parameter_names;
+    # the multi-speaker encoder, the last two refused, is an ASR encoder,
+    # which the AVSR task rejects as the JAX task does, and the linear
+    # pre-encoder builds
     ("conventional_transformer+ctc_spanish.yaml", "encoder", "transformer_multispkr"),
     ("tailored_transformer+ctc_spanish.yaml", "acoustic_preencoder", "linear"),
 ])
 def test_build_model_names_roadmap_item_for_unported_choices(name, section, value):
+    """Each AVSR choice the port refused naming item 8 now does what the JAX
+    task does: the multi-speaker encoder raises the JAX task's ValueError
+    in both packages, and the flagship with a linear acoustic pre-encoder
+    (80 -> 64 features) builds at full width with the JAX parameter names
+    and shapes."""
     from tailored_avsr_tpu.utils.config import load_config
-    from tailored_avsr_tpu_torch.tasks.avsr import build_model
+    from tailored_avsr_tpu.utils.torch_compat import export_torch_state_dict
+    from tailored_avsr_tpu_torch.tasks.avsr import build_meta
+    from test_torch_port_asr import _jax_model, _jax_shapes
 
     cfg = load_config(os.path.join(ROOT, "configs/AVSR", name))
     setattr(cfg, section, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md 'Modules to port' item 8"):
-        build_model(cfg, ["<blank>", "a", "<sos/eos>"])
+    setattr(cfg, f"{section}_conf", {"output_size": 64})
+    tokens = ["<blank>", "a", "<sos/eos>"]
+    if section == "encoder":
+        for build in (lambda: build_meta(cfg, list(tokens)), lambda: _jax_model(cfg, list(tokens))):
+            with pytest.raises(ValueError, match="unknown AVSR encoder: transformer_multispkr"):
+                build()
+        return
+    port = build_meta(cfg, list(tokens))
+    zeros = jax.tree_util.tree_map(lambda s: np.broadcast_to(np.zeros((), s.dtype), s.shape),
+                                   _jax_shapes(_jax_model(cfg, list(tokens)), "avsr"))
+    want = {k: v.shape for k, v in export_torch_state_dict(zeros).items()}
+    got = {k: tuple(v.shape) for k, v in port.state_dict().items() if not k.endswith("num_batches_tracked")}
+    assert got == want and port.acoustic_preencoder.linear_out.weight.shape == (64, 80)
 
 
 def test_port_imports_no_jax():
