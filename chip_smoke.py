@@ -197,8 +197,8 @@ Run from the repository root on a machine with one CUDA card:
    registry's defaults) and the 16-layer LM through the full-prefix beam
    10 at 8 x 4 s (K2 19, K3 5 a call; no K4, no step write: no cache
    step, as in JAX): the first call (its beam steps counted) and a
-   profiled one, no warm call, in bf16 (in f32 for the four conv
-   decoders, whose first call is also the gate's kernel side); f32
+   profiled one, no warm call, in bf16 (the four conv decoders: the f32
+   first call alone, which is also the gate's kernel side); f32
    through the kernels and on the eager path, n-best ids equal and scores
    within 1e-3. Mask-CTC over the Sim-T MLM decoder at
    (a) (K2 19, K3 5) and (b) (K1 19, K3 5), f32 ids equal to the eager
@@ -224,7 +224,7 @@ Run from the repository root on a machine with one CUDA card:
    beam 10 and ``TransducerStreamer`` (the transducer config on the
    block Conformer) equal to their offline searches, no kernel launched;
    PIT on ``transformer_multispkr`` (12 shared layers, 2 x 2 speaker
-   layers): three bf16 micro-steps at 4 x 20 s (finite, no kernel; walls
+   layers): two bf16 micro-steps at 4 x 20 s (finite, no kernel; walls
    and peak memory), the f32 loss with the references swapped within
    1e-6 relative, the card against the CPU within 1e-4.
 17. Prints one JSON line of train numbers, one of the Branchformer
@@ -247,12 +247,11 @@ Run from the repository root on a machine with one CUDA card:
 Any failed phase raises, so the run exits non-zero and prints no result line.
 Nothing here imports JAX.
 
-Four measurement modes, one card each:
+Three measurement modes, one card each:
 
     python3 chip_smoke.py --ab DIR          # DIR: a git archive of another commit
     python3 chip_smoke.py --heldout SEED ...
     python3 chip_smoke.py --k3-phases
-    python3 chip_smoke.py --walls SIDE
 
 ``--ab`` runs ``ab_measure`` (bf16 K3 at both request shapes, L2-cold, and
 the profiled device busy time of greedy requests (a) and (b)) on the
@@ -260,8 +259,6 @@ package under DIR and on this checkout's, in the order DIR, this, this,
 DIR, one process each. ``--heldout`` reads the int8 plain twin under each
 given noise seed through the envelope of both requests. ``--k3-phases``
 times K3 with its phases taken out one at a time (``K3_PHASE_CUTS``).
-``--walls`` prints five warm walls of three host-bound bf16 paths
-(``walls_main``); an A/B runs it from each tree in turns.
 """
 
 from __future__ import annotations
@@ -1542,34 +1539,6 @@ def ab_measure(greedy: bool = True) -> None:
     print(json.dumps(row))
 
 
-def walls_main(side: str) -> int:
-    """Median-ready walls of three host-bound bf16 paths, five warm calls each
-    after one untimed: the flagship anc beam + LM at (a), the VGG-RNN +
-    LSTM beam + LM at 8 x 4 s, RNN greedy at (a). Run from each tree of an
-    A/B in turns; prints one ``AB side {...}`` line."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from tailored_avsr_tpu_torch.kernels import build
-
-    build.load()
-    device = torch.device("cuda", 0)
-    out = {}
-    req = _request(1, 32, 4)
-    engine = _beam_engine(device, "bfloat16", beam_size=10)
-    engine.nbest(req)
-    out["flagship_anc_bf16"] = _walls(lambda: engine.nbest(req), 5)
-    req8 = _speech_request(3, 8, 4, "asr")
-    engine = _decoder_engine(ASR_CONFIG, device, "bfloat16", encoder="vgg_rnn", decoder="rnn")
-    engine.nbest(req8)
-    out["vgg_rnn_lstm_bf16"] = _walls(lambda: engine.nbest(req8), 5)
-    req_a = _speech_request(1, 32, 4, "asr")
-    engine = _decoder_engine(ASR_CONFIG, device, "bfloat16", lm=False, encoder="rnn")
-    engine.greedy(req_a)
-    out["rnn_greedy_bf16"] = _walls(lambda: engine.greedy(req_a), 5)
-    print("AB", side, json.dumps(out))
-    return 0
-
-
 def ab_main(parent: str, greedy: bool = True) -> int:
     """``ab_measure`` on the package under ``parent`` (a ``git archive`` of
     another commit) and on this checkout's, in the order parent, change,
@@ -2697,10 +2666,11 @@ def encoder_variants_phase(device, smi: str) -> tuple:
 # LSTM decoder through the beam + LM at 8 x 4 s; two bf16 micro-steps each
 # of the flagship with Sim-T and of the VGG-RNN ASR with the LSTM decoder.
 # Each path is timed by its first call and a profiled one (no warm call);
-# the conv decoders run in f32 alone. Readings: PERF.md.
+# the conv decoders run in f32 alone, timed by their first call. Readings:
+# PERF.md.
 AR_DECODERS = ("sim_t", "lightweight_conv", "dynamic_conv", "lightweight_conv2d", "dynamic_conv2d", "rnn", "s4")
-# the conv decoders run in f32 alone (the f32 call timed and profiled): one
-# engine each, to keep the script well inside its time limit
+# the conv decoders run in f32 alone (the f32 first call timed, no profiled
+# call): one engine and two calls each, to keep the script inside its limit
 F32_ONLY = ("lightweight_conv", "dynamic_conv", "lightweight_conv2d", "dynamic_conv2d")
 VARIANT_SCORE_ATOL = 1e-3  # f32 n-best scores through the kernels against the eager path's
 
@@ -2754,10 +2724,10 @@ def _step_counter(engine) -> list:
 
 def _full_prefix_beam(name: str, bf16, f32, req: dict, expect: dict) -> dict:
     """A full-prefix beam path: the first call of the timed engine (``bf16``,
-    or ``f32`` when ``bf16`` is None; launches ``expect``, steps counted)
-    and a profiled one, then f32 through the kernels (the f32 first call,
-    when it is the timed one) and on the eager path: n-best ids equal,
-    scores within VARIANT_SCORE_ATOL."""
+    or ``f32`` when ``bf16`` is None; launches ``expect``, steps counted),
+    a profiled one of a ``bf16`` engine, then f32 through the kernels (the
+    f32 first call, when it is the timed one) and on the eager path: n-best
+    ids equal, scores within VARIANT_SCORE_ATOL."""
     timed, dt = (bf16, "bf16") if bf16 is not None else (f32, "f32")
     steps = _step_counter(timed)
     hyps, first = _exact_call_ms(f"{dt} {name} (first call)", lambda: timed.nbest(req), expect)
@@ -2765,10 +2735,10 @@ def _full_prefix_beam(name: str, bf16, f32, req: dict, expect: dict) -> dict:
     print(f"    {steps[0]} beam steps; sample transcript {hyps[0][0][0][:40]!r}")
     if steps[0] <= 0 or not all(np.isfinite(h[3]) for hs in hyps for h in hs):
         raise AssertionError(f"{name}: {steps[0]} beam steps, scores {[h[0][3] for h in hyps]}")
-    out.update(call_profile(lambda: timed.nbest(req), f"{dt} {name}", repeats=0, host_events=False))
     if bf16 is None:
         got, want = hyps, _eager_call(f32, name, lambda: f32.nbest(req))
     else:
+        out.update(call_profile(lambda: bf16.nbest(req), f"{dt} {name}", repeats=0, host_events=False))
         got, want = _kernel_vs_eager(f32, name, lambda: f32.nbest(req), expect)
     same = [[h[2] for h in g] for g in got] == [[h[2] for h in w] for w in want]
     diff = max(abs(g[3] - w[3]) for gs, ws in zip(got, want) for g, w in zip(gs, ws))
@@ -3078,7 +3048,7 @@ def _pit_batch(seed: int, batch: int, seconds: float, vocab: int, device) -> tup
 
 
 def _pit_phase(device, smi: str) -> dict:
-    """PIT at full width: three bf16 micro-steps (4 x 20 s, autocast over f32
+    """PIT at full width: two bf16 micro-steps (4 x 20 s, autocast over f32
     master weights): finite losses and gradients, no kernel; then, f32, the
     loss with the two references swapped (within PIT_SWAP_RTOL) and the
     card against the CPU (loss and gradient norm, PIT_CARD_VS_CPU_RTOL)."""
@@ -3097,7 +3067,7 @@ def _pit_phase(device, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     before = _counts()
     walls, stats = [], {}
-    for _ in range(3):
+    for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, out = step(state, batch)
@@ -4102,8 +4072,6 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2], greedy="--no-greedy" not in sys.argv))
     if sys.argv[1:2] == ["--k3-phases"]:
         sys.exit(k3_phases_main())
-    if sys.argv[1:2] == ["--walls"]:  # --walls SIDE
-        sys.exit(walls_main(sys.argv[2]))
     if sys.argv[1:2] == ["--heldout"]:  # --heldout SEED [SEED ...]
         sys.exit(heldout_main([int(a) for a in sys.argv[2:]]))
     sys.exit(main())

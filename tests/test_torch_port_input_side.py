@@ -191,21 +191,24 @@ def test_asr_model_with_the_whole_input_side_matches_jax(normalize):
     jm, variables, pm, b = _models(cfg, 11)
     assert pm.decoder.decoders[0].src_attn.linear_k.in_features == 48 and pm.ctc.ctc_lo.in_features == 48
     args = (b["speech"], b["speech_lengths"])
-    want, want_lens, _ = jax.jit(lambda v, a: jm.apply(v, a, args[1], method="encode"))(variables, args[0])
+    loss_args = args + (b["text"], b["text_lengths"])
+
+    @jax.jit
+    def run(params, speech):  # one compile: the encode, its CTC log-probs, the loss and its gradients
+        v = dict(variables, params=params)
+        enc, enc_lens, _ = jm.apply(v, speech, args[1], method="encode")
+        logp = jm.apply(v, enc, method=lambda m, x: m.ctc.log_softmax(x))
+        return (enc, enc_lens, logp), jax.value_and_grad(
+            lambda p: jm.apply(dict(variables, params=p), speech, *loss_args[1:]), has_aux=True)(params)
+
+    (want, want_lens, want_logp), ((want_loss, want_stats), grads) = jax.device_get(
+        run(variables["params"], args[0]))
     with torch.no_grad():
         got, got_lens, _ = pm.encode(t(args[0]), t(args[1]))
         logp = pm.ctc.log_softmax(got)
     np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_lens))
     close(got, want, atol=1e-4)
-    close(logp, jm.apply(variables, want, method=lambda m, x: m.ctc.log_softmax(x)), atol=1e-4)
-    loss_args = args + (b["text"], b["text_lengths"])
-
-    @jax.jit
-    def run(params, speech):
-        return jax.value_and_grad(lambda p: jm.apply(dict(variables, params=p), speech, *loss_args[1:]),
-                                  has_aux=True)(params)
-
-    (want_loss, want_stats), grads = jax.device_get(run(variables["params"], args[0]))
+    close(logp, want_logp, atol=1e-4)
     loss, stats = pm(*(t(a) for a in loss_args))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-5)
