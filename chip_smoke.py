@@ -91,8 +91,8 @@ Run from the repository root on a machine with one CUDA card:
    bf16 model over f32 caches with its weights and the LM's quantised
    (``qint8``, then ``bfloat16`` storage), K4 on every cached layer (each
    model's first on the bf16-query pair), held to its plain twin's
-   envelope. Every call's launches are asserted exactly. bf16 walls (one
-   warm call) and a profiled call's device busy ms and idle share per mode.
+   envelope. Every call's launches are asserted exactly; each mode's first
+   call's wall is printed (its warm walls are the benchmark's to take).
 9. Train path (``flagship_train_phase``, ``card_vs_cpu_phase``,
    ``learning_canary``): the flagship at full width with
    its training settings (4 x 20 s of seeded int16 audio and uint8 video,
@@ -227,11 +227,25 @@ Run from the repository root on a machine with one CUDA card:
    layers): two bf16 micro-steps at 4 x 20 s (finite, no kernel; walls
    and peak memory), the f32 loss with the references swapped within
    1e-6 relative, the card against the CPU within 1e-4.
-17. Prints one JSON line of train numbers, one of the Branchformer
+17. Data and tensor parallelism (``parallel_phase``, last): two ranks
+   spawned on cuda:0 over gloo (NCCL refuses two ranks on one card), each
+   process counting its own launches: (a) the f32 beam 10 + LM over the
+   ranks with ``data_parallel: true``, 4 x 4 s, two utterances a rank,
+   greedy and 2-best ids equal to the same engine's single-process calls
+   and scores within 1e-3, K2, K3, K4 and the step write launched in each
+   rank; (b) the f32 micro-step of the flagship, rates 0, at global
+   4 x 20 s: the all-reduced gradient within relative L2 1e-3 of the
+   single-process step's, BatchNorm statistics within 1e-5 of each
+   tensor's largest, the replicas bit-identical after the update; then
+   one bf16 micro-step a rank (wall, peak memory) and the gradient's
+   all-reduce alone; (c) the same f32 gates with ``model_parallel`` 2;
+   then (d) the data-parallel f32 micro-step over a one-rank NCCL group
+   in this process, held to (b)'s reference.
+18. Prints one JSON line of train numbers, one of the Branchformer
    family's numbers, one of the Mask-CTC and transducer paths' numbers,
    one of the encoder variants' numbers, one of the decoder variants'
-   numbers, one of the input side's and streamers', the seconds of each
-   phase,
+   numbers, one of the input side's and streamers', one of the parallel
+   phase's, the seconds of each phase,
    one JSON line of per-kernel results (launches: K1-K3
    from the greedy path, K4, K5 (the step write) and K5' from the beam
    path, K6 from the int8 beam path; P1 counted over both beam paths,
@@ -239,7 +253,8 @@ Run from the repository root on a machine with one CUDA card:
    launches and K4's mixed pairs' numbers, the train path's
    launches in its train steps and in its eval step, each
    Branchformer path's, each Mask-CTC and transducer path's, the encoder
-   and decoder variants', the input side's and the recipe phase's; K4's library yardstick at the
+   and decoder variants', the input side's, the recipe phase's and each
+   rank's of the parallel phase; K4's library yardstick at the
    decoder's shape and K5's at one layer beside them), one of the recipe's
    numbers before it, then the result line ``{"ok": true, "device":
    {...}}`` last.
@@ -3425,9 +3440,10 @@ def _quantized_f32_cache_phase(device, req, layers: int) -> dict:
 
 def serving_modes_phase(device) -> tuple:
     """Every decode mode of the engine at full width (flagship + 16-layer
-    LM, beam 10, request (a) unless named), counts set to 0 first; bf16
-    walls (one warm call) and a profiled call of each mode; the f32 gates.
-    Returns (numbers, the path's launch counts)."""
+    LM, beam 10, request (a) unless named), counts set to 0 first: each
+    mode's first call and launch counts, and the f32 gates. (The modes'
+    warm walls and profiled calls went to the benchmark that is to time
+    the serving modes.) Returns (numbers, the path's launch counts)."""
     import dataclasses as dc
 
     from tailored_avsr_tpu_torch.decode.ngram import NgramScorer
@@ -3442,10 +3458,6 @@ def serving_modes_phase(device) -> tuple:
     print(f"  two engines built (model + LM, seeded): {time.perf_counter() - t0:.1f} s")
     layers = len(bf16.model.decoder.decoders) + len(bf16.lm.encoder.encoders)
     walls = {}
-
-    def wall(name, engine, batch=req):
-        walls[name] = call_profile(lambda: engine.nbest(batch), f"bf16 {name}", repeats=1, host_events=False)
-
     print(f"serving modes: flagship + 16-layer LM, beam 10, request (a) 32 x 4 s ({layers} cached layers)")
     _reset_counts()
     # mixed cache dtypes: K4 on every decoder and LM layer of every step
@@ -3454,7 +3466,6 @@ def serving_modes_phase(device) -> tuple:
     with _engine_set(bf16, cache_dtype=torch.float32):
         _mode_call(bf16, "bf16 model, f32 caches (first call)", req, layers,
                    pairs={"bfloat16 q, float32 cache": 2, "float32 q, float32 cache": layers - 2})
-        wall("anc, f32 caches", bf16)
     with _engine_set(f32, cache_dtype=torch.bfloat16):
         hyp = _mode_call(f32, "f32 model, bf16 caches", req, layers, pairs={"float32 q, bfloat16 cache": layers})
         _envelope_gate_k4(hyp, _plain_envelope(f32, req, "f32 model, bf16 caches"), "f32 K4 over bf16 caches")
@@ -3471,19 +3482,15 @@ def serving_modes_phase(device) -> tuple:
               f"scores within {MODES_ATOL:g} (max |diff| {worst:.3e})")
         if bad:
             raise AssertionError(f"the {name} protocol disagrees with the ancestry protocol")
-    wall("anc", bf16)
     for name, attrs in (("append", {"cache_protocol": "append"}), ("segments 4", {"cache_segments": 4})):
         with _engine_set(bf16, **attrs):
             _mode_call(bf16, f"bf16 {name} (first call)", req, beam=False)
-            wall(name, bf16)
 
     # time-sync: the CTC beam, decoder and LM rescoring
     for engine, dt in ((bf16, "bf16"), (f32, "f32")):
         with _engine_set(engine, decode_mode="timesync"):
             got = _mode_call(engine, f"{dt} time-sync (first call)", req, beam=False)
-            if dt == "bf16":
-                wall("time-sync", engine)
-            else:
+            if dt == "f32":
                 _same_ids(got, _eager_run(engine, "f32 time-sync", req), "f32 time-sync, kernels vs eager")
 
     # n-gram fusion: full, part, and in the time-sync beam
@@ -3497,9 +3504,7 @@ def serving_modes_phase(device) -> tuple:
         for engine, dt in ((bf16, "bf16"), (f32, "f32")):
             with _engine_set(engine, ngram=ngram, ngram_weight=0.3, **attrs):
                 got = _mode_call(engine, f"{dt} {name} (first call)", req, k4, beam=bool(k4))
-                if dt == "bf16":
-                    wall(name, engine)
-                else:
+                if dt == "f32":
                     _same_ids(got, _eager_run(engine, f"f32 {name}", req), f"f32 {name}, kernels vs eager")
 
     # the full-prefix LM: ctc_weight 1.0, the decoder's anc step selecting, 8 x 4 s
@@ -3507,8 +3512,6 @@ def serving_modes_phase(device) -> tuple:
     with _engine_set(bf16, beam_config=dc.replace(bf16.beam_config, ctc_weight=1.0)):
         _mode_call(bf16, "bf16 full-prefix LM, ctc_weight 1.0, 8 x 4 s (first call)", small,
                    len(bf16.model.decoder.decoders))
-        walls["full-prefix LM (8 x 4 s)"] = {"wall_ms": _walls(lambda: bf16.nbest(small), 1)[0]}
-        print(f"  bf16 full-prefix LM, 8 x 4 s: {walls['full-prefix LM (8 x 4 s)']['wall_ms']:.1f} ms wall")
 
     # streamed input under device_normalize (the time-sync engine: short decodes)
     with _engine_set(bf16, decode_mode="timesync", quantize_audio=True):
@@ -3520,7 +3523,6 @@ def serving_modes_phase(device) -> tuple:
         engine.quantize_asr_model = engine.quantize_lm = engine._quantize_pending = True
         engine.quantize_dtype = "qint8"
     _mode_call(qbf16, "bf16 qint8 weights (first call)", req, layers)
-    wall("qint8 weights", qbf16)
     got = _mode_call(qf32, "f32 qint8 weights", req, layers)
     payloads = [p for m in (qf32.model, qf32.lm) for p, _ in quantized_payloads(m).values()]
     q_bytes = sum(p.numel() * p.element_size() for p in payloads)
@@ -3912,6 +3914,253 @@ def recipe_phase(device, smi: str) -> tuple:
         raise AssertionError(f"a kernel of the recipe's paths never launched: {launches}")
     return out, launches
 
+# ---------------------------------------------------------------- parallel
+#
+# Data and tensor parallelism over torch.distributed (``parallel/``) on the
+# one card: two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+# device), spawned, each its own process (the launch counts are per
+# process, so each rank sends its own back); then a one-rank NCCL group in
+# this process, the backend of a machine with several cards. Readings:
+# PERF.md.
+PARALLEL_BN_RTOL = 1e-5  # BatchNorm running statistics, of each tensor's largest entry
+PARALLEL_REQUEST = (21, 4, 4)  # seed, utterances, seconds: two utterances a rank
+PARALLEL_TRAIN = (31, 4, 20.0)  # the global batch of the micro-steps: 2 x 20 s a rank
+
+
+def _parallel_train_cfg():
+    """The flagship's train config, every rate 0, one micro-step an update."""
+    cfg = _flagship_train_cfg()
+    _zero_rates(cfg)
+    cfg.training_settings = dict(cfg.training_settings, accum_grad=1)
+    return cfg
+
+
+def _parallel_step(cfg, tokens, batch, device, grid, dtype=None, keep=False) -> dict:
+    """One micro-step of the seeded flagship over ``grid`` (None: one
+    process): the gradient the optimizer consumed (gathered to the
+    single-process names), the BatchNorm statistics after it and a digest
+    of every parameter (for the replicas' identity); ``keep``: the state."""
+    import hashlib
+
+    from tailored_avsr_tpu_torch.parallel.mesh import replicate
+    from tailored_avsr_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel
+    from tailored_avsr_tpu_torch.tasks.avsr import build_model
+    from tailored_avsr_tpu_torch.train.loop import create_train_state, make_train_step
+    from tailored_avsr_tpu_torch.train.optim import set_optimizer
+
+    model = build_model(cfg, tokens, generator=torch.Generator().manual_seed(0), device=device,
+                        dtype=torch.float32)
+    tp = None
+    if grid is not None:
+        replicate(model)
+        if grid.model > 1:
+            tp = apply_tensor_parallel(model, grid.model, grid.model_rank, grid.model_group)
+    opt, _ = set_optimizer(cfg.training_settings, int(cfg.encoder_conf.get("output_size", 256)), 1,
+                           model.named_parameters())
+    if tp is not None:
+        opt.set_tensor_parallel(tp.is_split, grid.model_group)
+    state = create_train_state(model, opt, tp=tp)
+    grads, real = {}, opt.step
+
+    def capture():
+        for name, p in zip(opt.trainable, opt.params):
+            grads[name] = torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+        return real()
+
+    opt.step = capture
+    step = make_train_step(dtype, grid=grid)
+    _, stats = step(state, batch)
+    opt.step = real
+    loss = float(stats["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"parallel micro-step: loss {loss}")
+    sd = model.state_dict()  # the single-process layout (tensor-parallel shards gathered)
+    h = hashlib.sha256()
+    for k, v in sorted(sd.items()):
+        h.update(k.encode())
+        h.update(v.detach().contiguous().cpu().numpy().tobytes())
+    out = {"grads": grads if tp is None else tp.full_named(grads), "loss": loss, "digest": h.hexdigest(),
+           "bn": {k: v.clone() for k, v in sd.items() if "running_" in k}}
+    if keep:
+        out["state"] = state
+    return out
+
+
+def _grad_rel(got: dict, want: dict) -> float:
+    """Relative L2 distance of two gradients over every parameter."""
+    if set(got) != set(want):
+        raise AssertionError(f"gradients of other parameters: {sorted(set(got) ^ set(want))[:4]}")
+    num = sum(float(((got[k].double() - want[k].double()) ** 2).sum()) for k in want)
+    return (num / sum(float((w.double() ** 2).sum()) for w in want.values())) ** 0.5
+
+
+def _bn_rel(got: dict, want: dict) -> float:
+    return max(float((got[k].double() - w.double()).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for k, w in want.items())
+
+
+def _parallel_gates(name: str, got: dict, want: dict) -> dict:
+    rel, bn = _grad_rel(got["grads"], want["grads"]), _bn_rel(got["bn"], want["bn"])
+    print(f"  {name}: gradient relative L2 {rel:.3e} of the single-process global batch's (gate "
+          f"{RECIPE_GRAD_RTOL:g}); BatchNorm statistics {bn:.3e} of each tensor's largest (gate "
+          f"{PARALLEL_BN_RTOL:g}); loss {got['loss']:.6f} against {want['loss']:.6f}")
+    if not rel <= RECIPE_GRAD_RTOL or not bn <= PARALLEL_BN_RTOL:
+        raise AssertionError(f"{name}: the parallel gradient or statistics are not the global batch's")
+    return {"grad_rel_l2": rel, "bn_rel": bn}
+
+
+def _parallel_rank(rank: int, world: int, store: str, out_dir: str, device: str = "cuda:0") -> None:
+    """One of the two ranks on cuda:0 (gloo): (a) the beam + LM served over
+    the ranks, (b) the data-parallel micro-step in f32, then one in bf16,
+    timed, (c) the tensor-parallel micro-step in f32. Rank 0 also runs the
+    single-process references and holds the gates."""
+    import torch.distributed as dist
+
+    from tailored_avsr_tpu_torch.inference import load_token_list
+    from tailored_avsr_tpu_torch.kernels import build
+    from tailored_avsr_tpu_torch.parallel.mesh import all_gather_objects, make_grid
+    from tailored_avsr_tpu_torch.train.loop import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        build.load()  # the library the parent built: found under the build lock, no compile
+        out = {"rank": rank}
+        # (a) serving: each rank decodes its two utterances, the results gathered in batch order
+        engine = _beam_engine(device, "float32", nbest=2, data_parallel=True)
+        req = _request(*PARALLEL_REQUEST)
+        if rank == 0:  # the same engine's single-process calls on the whole batch
+            want_greedy, want_nbest = engine._greedy(req), engine._nbest(req)
+        _reset_counts()
+        dist.barrier()  # the ranks' calls start together
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy = engine.greedy(req)
+        t1 = time.perf_counter()
+        nbest = engine.nbest(req)
+        t2 = time.perf_counter()
+        out["launches"] = _counts()
+        out["serve_ms"] = {"greedy": (t1 - t0) * 1e3, "beam": (t2 - t1) * 1e3}
+        counts = out["launches"]
+        if min(counts["K1"] + counts["K2"], counts["K3"], counts["K4"], counts["K5"]) <= 0:
+            raise AssertionError(f"rank {rank}: a kernel of the path never launched: {counts}")
+        if rank == 0:
+            worst = max(abs(g[3] - w[3]) for gh, wh in zip(nbest, want_nbest) for g, w in zip(gh, wh))
+            same = greedy == want_greedy and all(
+                [h[2] for h in gh] == [h[2] for h in wh]
+                and all(abs(g[3] - w[3]) <= _score_tol(w[3], SCORE_ATOL["K4"]) for g, w in zip(gh, wh))
+                for gh, wh in zip(nbest, want_nbest))
+            print(f"  (a) f32 beam 10 + LM over 2 ranks, {len(req['audio'])} x {PARALLEL_REQUEST[2]} s: greedy and "
+                  f"2-best ids equal to the single-process calls: {same}; scores max |diff| {worst:.3e} (gate "
+                  f"{SCORE_ATOL['K4']:g})")
+            if not same or len(nbest) != len(req["audio"]):
+                raise AssertionError("the data-parallel engine disagrees with its single-process calls")
+            out["serve_score_max_diff"] = worst
+        del engine
+        torch.cuda.empty_cache()
+
+        # (b) data parallelism: the f32 micro-step against the single-process step on the global batch
+        cfg = _parallel_train_cfg()
+        tokens = load_token_list(cfg.token_list)
+        seed, b, seconds = PARALLEL_TRAIN
+        batch = _train_batch(seed, b, seconds, len(tokens), (int(12.5 * seconds), int(15 * seconds)), device)
+        want = _parallel_step(cfg, tokens, batch, device, None) if rank == 0 else None
+        if rank == 0:  # the reference of the parent's one-rank NCCL step too
+            torch.save({"grads": {k: v.cpu() for k, v in want["grads"].items()},
+                        "bn": {k: v.cpu() for k, v in want["bn"].items()}, "loss": want["loss"]},
+                       os.path.join(out_dir, "reference.pt"))
+        grid = make_grid(device)
+        got = _parallel_step(cfg, tokens, batch, device, grid, keep=True)
+        digests = all_gather_objects(got["digest"])
+        if rank == 0:
+            out["dp"] = _parallel_gates("(b) data-parallel f32 micro-step, 2 ranks", got, want)
+            out["dp"]["replicas_identical"] = len(set(digests)) == 1
+            print(f"  (b) the two replicas' parameters after the update bit-identical: {len(set(digests)) == 1}")
+            if len(set(digests)) != 1:
+                raise AssertionError("the data-parallel replicas differ after the update")
+        state = got.pop("state")
+        del got
+        step = make_train_step(torch.bfloat16, grid=grid)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        _, stats = step(state, batch)
+        loss = float(stats["loss"])
+        torch.cuda.synchronize()
+        out["bf16_step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["bf16_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        if not np.isfinite(loss):
+            raise AssertionError(f"rank {rank}: bf16 data-parallel micro-step loss {loss}")
+        # what the step's one gradient all-reduce costs alone: gloo sums CUDA tensors through the host
+        flat = torch.zeros(sum(p.numel() for p in state.optimizer.params), device=device)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat, group=grid.data_group)
+        torch.cuda.synchronize()
+        out["grad_all_reduce_ms"] = (time.perf_counter() - t0) * 1e3
+        del state, flat
+        torch.cuda.empty_cache()
+
+        # (c) tensor parallelism: model_parallel 2, the gradient gathered
+        tp_grid = make_grid(device, model_parallel=2)
+        got = _parallel_step(cfg, tokens, batch, device, tp_grid)
+        if rank == 0:
+            out["tp"] = _parallel_gates("(c) tensor-parallel f32 micro-step, model_parallel 2", got, want)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(device, smi: str) -> tuple:
+    """(a)-(c) in two spawned ranks on the card over gloo, then (d) the
+    data-parallel micro-step over a one-rank NCCL group here, each held to
+    the single-process step. Returns (numbers, each rank's launch counts)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from tailored_avsr_tpu_torch.inference import load_token_list
+    from tailored_avsr_tpu_torch.parallel.mesh import make_grid
+
+    print("parallel phase: flagship, two ranks on cuda:0 over gloo (spawned), then a one-rank NCCL group")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(_parallel_rank, args=(2, os.path.join(tmp, "gloo"), tmp), nprocs=2,
+                           start_method="spawn")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+        spawn_s = time.perf_counter() - t0
+        cfg = _parallel_train_cfg()
+        tokens = load_token_list(cfg.token_list)
+        seed, b, seconds = PARALLEL_TRAIN
+        batch = _train_batch(seed, b, seconds, len(tokens), (int(12.5 * seconds), int(15 * seconds)), device)
+        want = torch.load(os.path.join(tmp, "reference.pt"), weights_only=True)  # rank 0's single-process step
+        want = {**want, "grads": {k: v.to(device) for k, v in want["grads"].items()},
+                "bn": {k: v.to(device) for k, v in want["bn"].items()}}
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'nccl')}", rank=0, world_size=1)
+        try:
+            got = _parallel_step(cfg, tokens, batch, device, make_grid(device))
+        finally:
+            dist.destroy_process_group()
+        nccl = _parallel_gates("(d) data-parallel f32 micro-step, one-rank NCCL group", got, want)
+        del got, want
+        torch.cuda.empty_cache()
+    r0 = ranks[0]
+    out = {"serve_score_max_diff": r0["serve_score_max_diff"], "dp": r0["dp"], "tp": r0["tp"], "nccl_one_rank": nccl,
+           "serve_ms": [r["serve_ms"] for r in ranks], "bf16_step_ms": [r["bf16_step_ms"] for r in ranks],
+           "bf16_peak_gib": [r["bf16_peak_gib"] for r in ranks],
+           "grad_all_reduce_ms": [r["grad_all_reduce_ms"] for r in ranks], "spawned_ranks_s": spawn_s, "card": smi}
+    for r in ranks:
+        print(f"  rank {r['rank']}: greedy {r['serve_ms']['greedy']:.1f} ms, beam {r['serve_ms']['beam']:.1f} ms "
+              f"(2 of 4 utterances, both ranks on one card); the first bf16 micro-step {r['bf16_step_ms']:.1f} ms "
+              f"(2 x 20 s, peak {r['bf16_peak_gib']:.2f} GiB), of which the gradient's all-reduce alone "
+              f"{r['grad_all_reduce_ms']:.1f} ms; launches {r['launches']}")
+    print(f"  the two ranks' work, spawn to exit: {spawn_s:.1f} s")
+    return out, [r["launches"] for r in ranks]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU", file=sys.stderr)
@@ -4040,6 +4289,12 @@ def main() -> int:
     seconds["recipe"] = time.perf_counter() - t0
     print(f"  (recipe phase: {seconds['recipe']:.1f} s)")
     print(json.dumps({"recipe": recipe, "card": smi}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parallel, parallel_launches = parallel_phase(device, smi)
+    seconds["parallel"] = time.perf_counter() - t0
+    print(f"  (parallel phase: {seconds['parallel']:.1f} s)")
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"phase_seconds": seconds, "card": smi}))
 
     kernels = []
@@ -4057,6 +4312,7 @@ def main() -> int:
                         "launches_encoder_variants": variants_launches[key],
                         "launches_decoder_variants": decoders_launches[key],
                         "launches_input_side_streaming": input_side_launches[key],
+                        "launches_parallel": {f"rank{r}": c[key] for r, c in enumerate(parallel_launches)},
                         **({"mixed_pairs": modes["k4_mixed"], "decoder_shape_h4": phases["K4 decoder", "bf16"]}
                            if key == "K4" else {}),
                         **({"one_layer": phases["K5 layer", "bf16"]} if key == "K5" else {})})

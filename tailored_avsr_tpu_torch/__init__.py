@@ -7,7 +7,7 @@ AVSR model's serving: greedy CTC, and the joint CTC/attention beam search
 with Transformer-LM fusion over the ancestry KV cache, whose caches and
 cross-attention memory may be stored as int8 (``cache_dtype`` /
 ``mem_dtype: int8``) or the caches in the other float type, and every
-other decode choice of the JAX engine but ``data_parallel``: the append
+other decode choice of the JAX engine: the append
 and segmented cache protocols, the time-synchronous CTC beam with
 decoder and LM rescoring, n-gram fusion, weight-only quantisation, the
 full-prefix LM at ``ctc_weight`` 1.0 and streamed input; its training (hybrid CTC/attention loss, SpecAug,
@@ -30,8 +30,11 @@ decoders (Sim-T and its Mask-CTC MLM form, the lightweight / dynamic
 convolution decoders in 1D and 2D, the LSTM attention decoder, S4),
 served by the full-prefix beam with the LM's full-prefix step, and the
 RNN / VGG-RNN encoders;
-and the rest of the paper's recipe: the Transformer-LM trainer and the
-analysis scripts, each run with ``python -m``:
+the rest of the paper's recipe: the Transformer-LM trainer and the
+analysis scripts, each run with ``python -m``; and data-parallel serving
+and data- and tensor-parallel training over ``torch.distributed``, one
+process a card (``parallel/``), so the port does everything the JAX
+package does:
 
 - ``ops/``     : frontends, MVN, subsampling, positional encodings, rel-pos,
                  absolute and Fastformer attention, cgMLP, FFN, the int8
@@ -55,7 +58,11 @@ analysis scripts, each run with ``python -m``:
                  CTC beam, the n-gram scorer;
 - ``inference``: ``Speech2Text`` (``greedy``, ``nbest``, ``__call__``,
                  ``device_put_batch``, ``stream``);
-- ``train/``   : optimizer and schedules, train and eval steps, checkpoints;
+- ``train/``   : optimizer and schedules, train and eval steps (data-
+                 parallel over a rank grid), checkpoints;
+- ``parallel/``: the rank grid and the tensor-parallel rule, each rank's
+                 rows of the global batch, tensor-parallel layers, the
+                 multi-rank dry run;
 - ``data/``, ``evaluation/``: tokenizers, transforms, dataset and loader;
                  WER / CER;
 - ``avsr_main``: the training and inference CLI;
@@ -80,11 +87,3 @@ here imports JAX.
 
 __version__ = "0.2.0"
 
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error for a choice the port does not run yet, naming the
-    ``ROADMAP.md`` item that will port it."""
-    return NotImplementedError(
-        f"{what} is not ported to tailored_avsr_tpu_torch yet "
-        f"(ROADMAP.md 'Modules to port' item {item})"
-    )

@@ -27,9 +27,24 @@ The config's ``task`` picks the model and the batch keys: ``avsr``
 (audio + video), ``asr`` (audio) or ``vsr`` (video), each a ``speech``
 stream. training_settings ``remat`` recomputes the activations in the
 backward (``models/remat.py``); a config ``init`` scheme redraws the
-seeded weights (``utils/initialize.initialize``). Refused, naming its
-``ROADMAP.md`` item: training_settings ``data_parallel`` /
-``model_parallel`` > 1 (item 9).
+seeded weights (``utils/initialize.initialize``).
+
+On N cards: ``torchrun --nproc-per-node N -m tailored_avsr_tpu_torch.avsr_main
+...`` (``--device cpu``: N CPU ranks over gloo). Each rank takes the process
+group from the environment and its card, ``cuda:LOCAL_RANK``
+(``parallel/mesh.init_from_env``). With training_settings
+``data_parallel: true`` or ``model_parallel`` > 1 and more than one rank,
+training runs over the ``(data, model)`` rank grid it prints (the JAX
+CLI's ``training mesh``): every rank runs the same loader with the same
+seed and takes its rows of each global batch (``train/loop.py``), the
+tensor-parallel leaves are split over the model group
+(``parallel/tensor_parallel.py``), and the validation loss and CER are the
+global batch's, every rank's rows gathered. Every rank loads ``--resume``
+and ``--load-checkpoint``; rank 0's weights are broadcast; only rank 0
+writes checkpoints (gathered to the single-process layout), ``val_stats.csv``,
+the ``.inf`` / ``.wer`` files and the log, while the others wait at a
+barrier. Inference with ``inference_conf data_parallel: true`` decodes
+each rank's rows of each batch (``Speech2Text``).
 """
 
 from __future__ import annotations
@@ -43,7 +58,6 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.data.dataloader import AVSRDataLoader
 from tailored_avsr_tpu_torch.data.dataset import AVSRDataset, load_wav
 from tailored_avsr_tpu_torch.data.tokenizer import get_tokenizer_converter
@@ -59,6 +73,8 @@ from tailored_avsr_tpu_torch.data.transforms_video import TimeMasking as VideoTi
 from tailored_avsr_tpu_torch.decode.greedy import ctc_greedy_collapse
 from tailored_avsr_tpu_torch.evaluation.wer import cer_from_ids, compute_bootstrap_wer, write_inf_file
 from tailored_avsr_tpu_torch.inference import Speech2Text
+from tailored_avsr_tpu_torch.parallel import mesh as parallel_mesh
+from tailored_avsr_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel
 from tailored_avsr_tpu_torch.tasks.common import build_model, resolve_device, task_of
 from tailored_avsr_tpu_torch.train.checkpoint import (
     average_models,
@@ -100,23 +116,46 @@ def compute_dtype_of(config) -> torch.dtype:
     return torch.bfloat16 if bf16 else torch.float32
 
 
-def _check_training_settings(config) -> None:
+def _is_writer() -> bool:
+    return parallel_mesh.global_rank() == 0
+
+
+def _log(*args, **kwargs) -> None:
+    if _is_writer():
+        print(*args, **kwargs)
+
+
+def _any_rank(flag: bool, device) -> bool:
+    """Whether any rank's ``flag`` is set (every rank stops together)."""
+    if parallel_mesh.world_size() == 1:
+        return flag
+    t = torch.tensor([int(flag)], device=device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def training_grid(config, device):
+    """The ``(data, model)`` grid of a data- or tensor-parallel run over more
+    than one rank, else None (the JAX CLI builds its mesh only over more
+    than one device)."""
     ts = config.training_settings
-    if bool(ts.get("data_parallel", False)) or int(ts.get("model_parallel", 1)) > 1:
-        raise not_ported("training_settings data_parallel / model_parallel", 9)
+    model_par = int(ts.get("model_parallel", 1))
+    if not (bool(ts.get("data_parallel", False)) or model_par > 1) or parallel_mesh.world_size() == 1:
+        return None
+    return parallel_mesh.make_grid(device, model_par)
 
 
 def run_training(args, config, tokenizer, converter, transforms, device) -> bool:
     """The epoch loop; returns False when a signal stopped it early."""
     ts, task = config.training_settings, task_of(config)
-    _check_training_settings(config)
+    grid = training_grid(config, device)
     model = build_model(config, converter.token_list,
                         generator=torch.Generator().manual_seed(int(ts.get("seed", 0))),
                         device=device, dtype=torch.float32)  # f32 master weights
     init_scheme = getattr(config, "init", None)
     if init_scheme:
         initialize(model, init_scheme, torch.Generator().manual_seed(int(ts.get("seed", 0))))
-        print(f"re-initialized parameters with {init_scheme}")
+        _log(f"re-initialized parameters with {init_scheme}")
 
     def loader(path, is_training, audio_tf, video_tf):
         ds = AVSRDataset(path, task=task, nframes_limit=ts.get("nframes") if is_training else None,
@@ -128,10 +167,16 @@ def run_training(args, config, tokenizer, converter, transforms, device) -> bool
     train_loader = loader(args.training_dataset, True, transforms["train_audio"], transforms["train_video"])
     val_loader = loader(args.validation_dataset, False, transforms["eval_audio"], transforms["eval_video"])
     test_loader = loader(args.test_dataset, False, transforms["eval_audio"], transforms["eval_video"])
-    print(f"model parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M")
+    _log(f"model parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M")
 
     if args.load_checkpoint:
         load_e2e(model, args.load_checkpoint, args.load_modules)
+    parallel_mesh.replicate(model)
+    tp = None
+    if grid is not None:
+        if grid.model > 1:
+            tp = apply_tensor_parallel(model, grid.model, grid.model_rank, grid.model_group)
+        _log(f"training grid: {grid.shape()}")
     frozen = []
     if args.freeze_modules and args.freeze_modules != ["no-frozen"]:
         frozen = freeze_mask(model, args.freeze_modules)
@@ -141,9 +186,12 @@ def run_training(args, config, tokenizer, converter, transforms, device) -> bool
     optimizer, _ = set_optimizer(
         ts, model_size=int((getattr(config, "encoder_conf", {}) or {}).get("output_size", 256)),
         steps_per_epoch=len(train_loader), named_params=model.named_parameters(), frozen=frozen)
-    state = create_train_state(model, optimizer, seed=int(ts.get("seed", 0)))
-    train_step = make_train_step(compute_dtype_of(config), remat=bool(ts.get("remat", False)))
-    eval_step = make_eval_step()
+    if tp is not None:
+        optimizer.set_tensor_parallel(tp.is_split, grid.model_group)
+    state = create_train_state(model, optimizer, seed=int(ts.get("seed", 0)), tp=tp)
+    train_step = make_train_step(compute_dtype_of(config), remat=bool(ts.get("remat", False)), grid=grid)
+    eval_step = make_eval_step(grid)
+    writer = _is_writer()
 
     def validation(loader):
         tot_loss, n, refs, hyps = 0.0, 0, [], []
@@ -151,8 +199,11 @@ def run_training(args, config, tokenizer, converter, transforms, device) -> bool
             out = eval_step(state, batch_tuple(batch, task, device))
             tot_loss += float(out["loss"])
             n += 1
-            hyps.extend(ctc_greedy_collapse(out["ctc_argmax"].cpu().numpy(),
-                                            out["ctc_argmax_lens"].cpu().numpy()))
+            ids = ctc_greedy_collapse(out["ctc_argmax"].cpu().numpy(), out["ctc_argmax_lens"].cpu().numpy())
+            if grid is not None:  # every rank's rows, in batch order
+                parts = dict(parallel_mesh.all_gather_objects((out["rows"].start, ids), grid.data_group))
+                ids = [h for start in sorted(parts) for h in parts[start]]
+            hyps.extend(ids)
             refs.extend(collapse_refs(batch["text"], batch["text_lengths"]))
         return tot_loss / max(n, 1), cer_from_ids(refs, hyps)
 
@@ -161,9 +212,10 @@ def run_training(args, config, tokenizer, converter, transforms, device) -> bool
     ts_path = os.path.join(models_dir, "train_state.pt")
     start_epoch = 1
     if args.resume and os.path.exists(ts_path):
+        # every rank reads the same single-process file; a split leaf keeps its own shard of it
         state, done_epoch = load_train_state(state, ts_path)
         start_epoch = done_epoch + 1
-        print(f"resumed training state after epoch {done_epoch} (step {state.step})")
+        _log(f"resumed training state after epoch {done_epoch} (step {state.step})")
     val_stats, all_val_rows = [], []
     save_every = max(1, int(ts.get("save_every", 1) or 1))
     save_state_every = max(1, int(ts.get("save_state_every", save_every) or 1))
@@ -173,11 +225,11 @@ def run_training(args, config, tokenizer, converter, transforms, device) -> bool
         if stop_requested["flag"] and signum == signal.SIGINT:
             raise KeyboardInterrupt  # a second Ctrl-C stops at once
         stop_requested["flag"] = True
-        print(f"\nsignal {signum}: finishing the current step, then exiting (the state through the "
-              "last completed epoch is on disk; --resume re-trains the interrupted epoch)")
+        _log(f"\nsignal {signum}: finishing the current step, then exiting (the state through the "
+             "last completed epoch is on disk; --resume re-trains the interrupted epoch)")
 
     old_handlers = {s: signal.signal(s, _on_term) for s in (signal.SIGTERM, signal.SIGINT)}
-    print("\nTRAINING PHASE\n")
+    _log("\nTRAINING PHASE\n")
     try:
         for epoch in range(start_epoch, ts["epochs"] + 1):
             t0 = time.time()
@@ -189,49 +241,56 @@ def run_training(args, config, tokenizer, converter, transforms, device) -> bool
                     if k in stats:
                         sums[k] = sums.get(k, 0.0) + float(stats[k])
                 n += 1
+                stop_requested["flag"] = _any_rank(stop_requested["flag"], device)
                 if stop_requested["flag"]:
                     break
             if stop_requested["flag"]:
-                print(f"preempted during epoch {epoch} after {n} steps: abandoning the partial epoch; "
-                      f"rerun with --resume (restarts at epoch {epoch})")
+                _log(f"preempted during epoch {epoch} after {n} steps: abandoning the partial epoch; "
+                     f"rerun with --resume (restarts at epoch {epoch})")
                 return False
             train_loss = sums.get("loss", 0.0) / max(n, 1)
             val_loss, val_cer = validation(val_loader)
             test_loss, test_cer = validation(test_loader)
             detail = "".join(f" {k.removeprefix('loss_').upper()}={v / max(n, 1):.3f}"
                              for k, v in sorted(sums.items()) if k != "loss")
-            print(f"Epoch {epoch}: TRAIN LOSS={train_loss:.3f}{detail} || VAL LOSS={val_loss:.3f} "
-                  f"| VAL CER={val_cer:.2f}% || TEST LOSS={test_loss:.3f} | TEST CER={test_cer:.2f}% "
-                  f"|| {time.time() - t0:.1f}s")
+            _log(f"Epoch {epoch}: TRAIN LOSS={train_loss:.3f}{detail} || VAL LOSS={val_loss:.3f} "
+                 f"| VAL CER={val_cer:.2f}% || TEST LOSS={test_loss:.3f} | TEST CER={test_cer:.2f}% "
+                 f"|| {time.time() - t0:.1f}s")
             all_val_rows.append({"epoch": epoch, "cer": val_cer})
             last_epoch = epoch == ts["epochs"] or stop_requested["flag"]
             if epoch % save_every == 0 or last_epoch:
                 ckpt = os.path.join(models_dir, f"model_{epoch:03d}.pth")
-                save_model(state.model, ckpt)
+                save_model(state.model, ckpt, write=writer)
                 val_stats.append({"epoch": epoch, "cer": val_cer, "path": ckpt})
                 keep = int(ts.get("keep_checkpoints", 0) or 0)
-                if keep:  # never below what the final averaging needs
+                if keep and writer:  # never below what the final averaging needs
                     prune_checkpoints(val_stats, max(keep, ts["average_epochs"]))
             if epoch % save_state_every == 0 or last_epoch:
-                save_train_state(state, epoch, ts_path)
+                save_train_state(state, epoch, ts_path, write=writer)
+            parallel_mesh.barrier()
+            stop_requested["flag"] = _any_rank(stop_requested["flag"], device)
             if stop_requested["flag"]:
-                print(f"preempted after epoch {epoch} completed: state saved; rerun with --resume to continue")
+                _log(f"preempted after epoch {epoch} completed: state saved; rerun with --resume to continue")
                 return False
     finally:
         for s, h in old_handlers.items():
             signal.signal(s, h)
 
-    save_val_stats(os.path.join(args.output_dir, "val_stats.csv"),
-                   [{"epoch": r["epoch"], "cer": r["cer"]} for r in all_val_rows])
-    best = top_k_epochs(val_stats, ts["average_epochs"])
-    paths = [os.path.join(models_dir, f"model_{e:03d}.pth") for e in best]
-    torch.save(average_models(paths), os.path.join(models_dir, "model_average.pth"))
-    print(f"averaged top-{len(paths)} checkpoints -> model_average.pth")
+    if writer:
+        save_val_stats(os.path.join(args.output_dir, "val_stats.csv"),
+                       [{"epoch": r["epoch"], "cer": r["cer"]} for r in all_val_rows])
+        best = top_k_epochs(val_stats, ts["average_epochs"])
+        paths = [os.path.join(models_dir, f"model_{e:03d}.pth") for e in best]
+        torch.save(average_models(paths), os.path.join(models_dir, "model_average.pth"))
+        print(f"averaged top-{len(paths)} checkpoints -> model_average.pth")
+    parallel_mesh.barrier()
     return True
 
 
 def run_inference(args, config, tokenizer, converter, transforms, device) -> None:
-    print("\nINFERENCE PHASE\n")
+    """Decode the test set; under ``inference_conf data_parallel`` each rank
+    decodes its rows of every batch and rank 0 writes the results."""
+    _log("\nINFERENCE PHASE\n")
     task = task_of(config)
     lm_config = load_config(args.lm_config_file) if args.lm_config_file else None
     s2t = Speech2Text(config, ckpt_path=args.load_checkpoint or None, lm_config=lm_config,
@@ -251,7 +310,7 @@ def run_inference(args, config, tokenizer, converter, transforms, device) -> Non
     pairs, nbest_rows = [], []
     t0 = time.time()
     profiler = None
-    if args.profile_dir:  # a trace of the first batch
+    if args.profile_dir and _is_writer():  # a trace of the first batch (rank 0's)
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -278,8 +337,10 @@ def run_inference(args, config, tokenizer, converter, transforms, device) -> Non
             else:
                 text = hyp[0]
             pairs.append((ref, text))
-            print(f"REF: {ref}\nHYP: {text}\n")
+            _log(f"REF: {ref}\nHYP: {text}\n")
     dt = time.time() - t0
+    if not _is_writer():
+        return
     inf_dir = os.path.join(args.output_dir, "inference")
     os.makedirs(inf_dir, exist_ok=True)
     inf_path = os.path.join(inf_dir, args.output_name + ".inf")
@@ -351,12 +412,15 @@ def main(argv=None) -> None:
     task_of(config)  # avsr, asr or vsr
     if args.mode not in ("training", "inference", "both"):
         raise ValueError(f"--mode must be 'training', 'inference' or 'both', got {args.mode!r}")
-    device = resolve_device(args.device, "tailored_avsr_tpu_torch.avsr_main")
+    if parallel_mesh.world_size() > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = parallel_mesh.init_from_env(args.device)  # this rank's card, in the group
+    else:
+        device = resolve_device(args.device, "tailored_avsr_tpu_torch.avsr_main")
     tokenizer, converter = get_tokenizer_converter(config)
     transforms = build_transforms(args)
     if args.mode in ("training", "both"):
         if not run_training(args, config, tokenizer, converter, transforms, device):
-            print("training was preempted: skipping the inference phase")
+            _log("training was preempted: skipping the inference phase")
             return
         if args.mode == "both" and not args.load_checkpoint:
             args.load_checkpoint = os.path.join(args.output_dir, "models", "model_average.pth")

@@ -75,6 +75,18 @@ becomes int16), and ``stream`` decodes an iterable of batches while the
 next one uploads, on a side CUDA stream from pinned host memory.
 
 The engine runs on the CUDA card unless ``device="cpu"`` is asked for.
+
+``data_parallel: true`` (or any ``mesh`` passed, as the JAX engine takes
+one) serves over the ranks of the process group (``parallel/mesh.py``;
+``torchrun`` starts one process a card): the weights are broadcast from
+rank 0, as the JAX engine replicates them over its mesh
+(``inference.py:352-357``);
+each rank decodes its rows of a batch (``greedy``, ``nbest``,
+``__call__``, ``stream``, every decode mode) on its own device, and the
+results are gathered in batch order, so every rank returns the same list.
+A batch that does not divide over the ranks is decoded whole by every
+rank, as the JAX engine falls back to replicated placement
+(``inference.py:359-370``). Outside a process group there is one rank.
 """
 
 from __future__ import annotations
@@ -86,7 +98,6 @@ import numpy as np
 import torch
 from torch.nn.utils import parametrize
 
-from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.data.tokenizer import get_tokenizer_converter
 from tailored_avsr_tpu_torch.decode.beam_search import (
     BeamSearchConfig,
@@ -105,6 +116,8 @@ from tailored_avsr_tpu_torch.ops.attention import promoted_linear
 from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
 from tailored_avsr_tpu_torch.ops.rnnt import multiblank_greedy_decode, transducer_greedy_decode
+from tailored_avsr_tpu_torch.parallel import mesh as parallel_mesh
+from tailored_avsr_tpu_torch.parallel.host_data import process_batch_slice
 from tailored_avsr_tpu_torch.tasks import lm as lm_task
 from tailored_avsr_tpu_torch.tasks.common import build_model, resolve_device, task_of
 from tailored_avsr_tpu_torch.train.checkpoint import load_model, read_state_dict
@@ -188,8 +201,7 @@ def _normalize_inference_conf(inf: dict, config) -> dict:
 
 def _check_inference_conf(inf: dict) -> None:
     """The cache protocol and the cache and memory dtypes, checked as
-    ``tailored_avsr_tpu/inference.py:212-246`` checks them; ``data_parallel``
-    is refused, naming its ``ROADMAP.md`` item."""
+    ``tailored_avsr_tpu/inference.py:212-246`` checks them."""
     protocol = str(inf.get("cache_protocol", "anc"))
     if protocol not in ("anc", "append"):
         raise ValueError(f"cache_protocol must be 'anc' or 'append', got {protocol!r}")
@@ -206,8 +218,6 @@ def _check_inference_conf(inf: dict) -> None:
             f"mem_dtype={mem_dtype!r}: supported values are '' (compute dtype) and 'int8'")
     if mem_dtype == "int8" and protocol != "anc":
         raise NotImplementedError("mem_dtype: int8 requires cache_protocol: anc")
-    if inf.get("data_parallel"):
-        raise not_ported("data_parallel", 9)
 
 
 def _cast_kv(new_kv, dtype: torch.dtype) -> list:
@@ -229,8 +239,6 @@ class Speech2Text:
         *,
         device=None,
     ):
-        if mesh is not None:
-            raise not_ported("mesh-parallel decoding", 9)
         self.task = task_of(config)
         # char, word or none (a YAML null: tokens joined by spaces); bpe
         # needs sentencepiece, as in the JAX engine
@@ -245,6 +253,10 @@ class Speech2Text:
         self.config = config
         self.token_list = load_token_list(config.token_list)
         self.device = resolve_device(device, "Speech2Text")
+        # over the ranks of the process group (one rank outside one)
+        self.data_parallel = mesh is not None or bool(inf.get("data_parallel", False))
+        if self.data_parallel and self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())  # the rank's card
         cache_dtype = str(inf.get("cache_dtype", "") or "")
         self.quantized_cache = cache_dtype == "int8"
         self.cache_dtype = _DTYPE_NAMES.get(cache_dtype)  # None: the model's dtype
@@ -311,6 +323,34 @@ class Speech2Text:
         ngram_path = ngram_path or inf.get("ngram_file")
         if ngram_path and self.ngram_weight > 0:
             self.ngram = NgramScorer(ngram_path, self.token_list, device=self.device)
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """Rank 0's weights on every rank, when serving data-parallel."""
+        if self.data_parallel and parallel_mesh.world_size() > 1:
+            for m in (self.model, getattr(self, "lm", None)):
+                if m is not None:
+                    parallel_mesh.replicate(m)
+
+    def _rows(self, batch: Dict) -> Optional[slice]:
+        """This rank's rows of ``batch`` when serving data-parallel, or None:
+        one rank, or a batch that does not divide over the ranks (decoded
+        whole)."""
+        world = parallel_mesh.world_size()
+        if not self.data_parallel or world == 1:
+            return None
+        b = next(len(batch[k]) for k in self._DEVICE_KEYS if k in batch)
+        if b % world:
+            return None
+        return process_batch_slice(b, parallel_mesh.global_rank(), world)
+
+    def _data_parallel(self, decode, batch: Dict) -> list:
+        """``decode`` of this rank's rows, gathered from every rank in batch order."""
+        rows = self._rows(batch)
+        if rows is None:
+            return decode(batch)
+        local = {k: (v[rows] if k in self._DEVICE_KEYS else v) for k, v in batch.items()}
+        return [r for part in parallel_mesh.all_gather_objects(decode(local)) for r in part]
 
     def _ensure_quantized(self) -> None:
         """Quantise the weights ``quantize_asr_model`` / ``quantize_lm`` name,
@@ -329,12 +369,16 @@ class Speech2Text:
     def load_checkpoint(self, path: str) -> List[str]:
         """Strict load of a PyTorch state dict (``.pth`` / ``.pt``); keys the
         model has no module for (the decoder of a CTC-only model) are
-        dropped and returned."""
-        return load_model(self.model, path)
+        dropped and returned. Serving data-parallel, every rank loads, and
+        rank 0's weights are kept."""
+        dropped = load_model(self.model, path)
+        self._replicate()
+        return dropped
 
     def load_lm_checkpoint(self, path: str) -> None:
         """Strict load of an LM state dict in the ``lm.`` key grammar."""
         self.lm.load_state_dict(lm_state_dict(read_state_dict(path)), strict=True)
+        self._replicate()
 
     def inputs(self, batch: Dict) -> Tuple[torch.Tensor, ...]:
         """The model's inputs on the device, (audio, audio_lengths, video,
@@ -369,6 +413,9 @@ class Speech2Text:
     def nbest(self, batch: Dict) -> List[List[Tuple[str, List[str], List[int], float]]]:
         """Batch dict -> per utterance the n-best list [(text, tokens, ids,
         score)], best first."""
+        return self._data_parallel(self._nbest, batch)
+
+    def _nbest(self, batch: Dict) -> List[List[Tuple[str, List[str], List[int], float]]]:
         self._ensure_quantized()
         with torch.inference_mode(), parametrize.cached():
             res, first = self._decode(batch)
@@ -656,6 +703,9 @@ class Speech2Text:
 
     def greedy(self, batch: Dict) -> List[str]:
         """CTC greedy decoding: one transcript per utterance of the batch."""
+        return self._data_parallel(self._greedy, batch)
+
+    def _greedy(self, batch: Dict) -> List[str]:
         self._ensure_quantized()
         self._single_speaker()
         with torch.inference_mode(), parametrize.cached():

@@ -90,10 +90,23 @@ def build() -> Path:
     return out
 
 
+def _build_once() -> Path:
+    """``build()`` under an exclusive lock on a file in ``build/kernels/``:
+    of several processes on one host (the ranks of a process group) the
+    first builds while the others wait, then find the library built. No
+    collective, so it holds wherever each rank reaches its first kernel."""
+    import fcntl
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:  # closing the file releases the lock
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return build()
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the signatures."""
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(_build_once()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # q, k, v, bias, q_rel, pos, mask, out, batch, heads, t, dk, is_bf16, mode, stream
     lib.avsr_flash_attention.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]

@@ -12,7 +12,22 @@ eps 1e-5): in training it normalises with the batch statistics over every
 (B*T, H, W) position, padded frames included, and moves the running
 variance with the *biased* batch variance, where torch's ``BatchNorm*d``
 would use the unbiased one (``FlaxBatchNorm2d`` / ``FlaxBatchNorm3d``). In
-eval mode it uses the running statistics.
+eval mode it uses the running statistics. Inside a data-parallel step
+(``parallel/host_data.data_shard``) the batch statistics are the global
+batch's, as in a GSPMD step of the JAX package (the single-device step on
+the global batch, so its BatchNorm sees the global batch with no
+``axis_name``): each rank's sum and count are summed over the data group
+(an all-reduce that autograd differentiates) for the mean, then each
+rank's sum of squared deviations from it for the (biased) variance. That
+is flax's E[x^2] - E[x]^2 taken in two passes: in one, f32 cancels where
+a channel's mean is large against its spread, as at the stem's output on
+normalised lip crops, where it moved the stem's gradient by 4x the
+tolerance the data-parallel tests hold every gradient to.
+
+``bn_axis_name`` is accepted as the JAX frontend accepts it: any value
+builds and serves, and a training forward with it set raises the
+``NameError`` the JAX train step raises (nothing binds the axis name
+there: its data parallelism is GSPMD, ``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tailored_avsr_tpu_torch.models import remat
+from tailored_avsr_tpu_torch.parallel import host_data
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.1  # torch's convention: flax's momentum 0.9
@@ -38,6 +54,8 @@ class _BiasedRunningVar:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        if host_data.current() is not None:
+            return self._global_batch_norm(x)
         if remat.recomputing():  # the forward moved the statistics already: move copies
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(), self.weight,
                                 self.bias, True, self.momentum, self.eps)
@@ -50,6 +68,26 @@ class _BiasedRunningVar:
         with torch.no_grad():
             self.running_var.copy_(moved * ((n - 1) / n) + self.running_var * ((1.0 - self.momentum) / n))
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Training mode over the data group's global batch (f32 statistics)."""
+        c = x.shape[1]
+        dims = [d for d in range(x.dim()) if d != 1]
+        xf = x.float()
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        total = host_data.global_sum(torch.cat([
+            xf.sum(dims), torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)]))
+        n = total[-1]
+        mean = total[:c] / n
+        dev = xf - mean.reshape(shape)
+        var = host_data.global_sum((dev * dev).sum(dims)) / n
+        y = dev * torch.rsqrt(var.reshape(shape) + self.eps)
+        y = y * self.weight.float().reshape(shape) + self.bias.float().reshape(shape)
+        if not remat.recomputing():  # the recomputed forward moved them already
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+        return y.to(x.dtype)
 
 
 class FlaxBatchNorm1d(_BiasedRunningVar, nn.BatchNorm1d):
@@ -115,8 +153,9 @@ class ResNetTrunk(nn.Module):
 
 
 class Conv3dResNet18(nn.Module):
-    def __init__(self, activation_type: str = "swish", *, device=None, dtype=None):
+    def __init__(self, activation_type: str = "swish", bn_axis_name=None, *, device=None, dtype=None):
         super().__init__()
+        self.bn_axis_name = bn_axis_name
         kw = {"device": device, "dtype": dtype}
         self.act = _ACTIVATIONS[activation_type]
         self.frontend3D = nn.Sequential(
@@ -130,6 +169,10 @@ class Conv3dResNet18(nn.Module):
 
     def forward(self, video: torch.Tensor, lengths: torch.Tensor):
         """(B, T, H, W) grayscale -> (B, T, 512), lengths unchanged."""
+        if self.training and self.bn_axis_name is not None:
+            raise NameError(f"Found an unbound axis name: {self.bn_axis_name}. The BatchNorm's statistics are "
+                            "the global batch's under data parallelism without an axis name; drop "
+                            "bn_axis_name to train (the JAX train step raises the same)")
         b, t = video.shape[:2]
         x = self.act(self.frontend3D(video[:, None]))  # (B, 64, T, H', W')
         # max pool over H, W only; the padding reads -inf, as flax's max_pool

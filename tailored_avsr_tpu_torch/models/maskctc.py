@@ -21,6 +21,7 @@ import torch
 
 from tailored_avsr_tpu_torch.models.asr_model import ASRModel
 from tailored_avsr_tpu_torch.models.avsr_model import AVSRModel
+from tailored_avsr_tpu_torch.parallel.host_data import rand_rows
 
 EVAL_MASK_SEED = 0
 
@@ -33,8 +34,8 @@ def mask_uniform(text: torch.Tensor, text_lengths: torch.Tensor, mask_token: int
     uniforms are drawn on the CPU from ``generator``."""
     b, l = text.shape
     dev = text.device
-    u = torch.rand(b, generator=generator).to(dev)
-    scores = torch.rand((b, l), generator=generator).to(dev)
+    u = rand_rows(b, generator=generator).to(dev)
+    scores = rand_rows(b, l, generator=generator).to(dev)
     valid = text != ignore_id
     num_mask = 1 + torch.floor(u * text_lengths.float()).long()
     num_mask = torch.minimum(num_mask, text_lengths.long().clamp(min=1))

@@ -22,6 +22,7 @@ import torch
 from tailored_avsr_tpu_torch.models.asr_model import ASRModel
 from tailored_avsr_tpu_torch.ops.losses import add_sos_eos, label_smoothing_loss, token_accuracy
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
+from tailored_avsr_tpu_torch.parallel.host_data import global_rows
 
 
 class PITASRModel(ASRModel):
@@ -51,7 +52,7 @@ class PITASRModel(ASRModel):
         perm_losses = torch.stack([sum(loss_mat[i, p[i]] for i in range(self.num_inf)) for p in perms])
         perm_losses = perm_losses / self.num_inf  # (P, B)
         best = torch.argmin(perm_losses, dim=0)  # (B,)
-        loss_ctc = perm_losses.amin(dim=0).mean()
+        loss_ctc = perm_losses.amin(dim=0).sum() / global_rows(b)
         best_perm = torch.tensor(perms, dtype=torch.long, device=best.device)[best]  # (B, S)
         text_perm = torch.gather(text, 1, best_perm[:, :, None].expand(-1, -1, text.shape[2]))
         tlen_perm = torch.gather(text_lengths, 1, best_perm)

@@ -53,8 +53,9 @@ def _masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch
 def promoted_linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``m(x)`` computed in the wider of x's and m's types, as a flax Dense
     promotes its input and kernel: a group attend over a cache wider than
-    the model (``cache_dtype: float32`` under bf16) returns f32."""
-    if x.dtype == m.weight.dtype:
+    the model (``cache_dtype: float32`` under bf16) returns f32. A
+    tensor-parallel linear (``parallel/tensor_parallel.py``) promotes itself."""
+    if x.dtype == m.weight.dtype or getattr(m, "tensor_parallel", False):
         return m(x)
     dt = torch.promote_types(x.dtype, m.weight.dtype)
     return F.linear(x.to(dt), m.weight.to(dt), None if m.bias is None else m.bias.to(dt))

@@ -13,6 +13,9 @@
 
 Targets are (B, L) padded with ``ignore_id`` (-1); sos/eos packing gives
 (B, L+1) tensors. Losses are taken in f32 whatever the logits' dtype.
+Under data parallelism (``parallel/host_data.data_shard``) each divides
+this rank's sum by the global batch's count, so the data group's losses
+and gradients sum to the global batch's.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from tailored_avsr_tpu_torch.parallel.host_data import global_count, global_rows
 
 
 def ctc_feasible(logit_lengths: torch.Tensor, labels: torch.Tensor,
@@ -54,7 +59,7 @@ def ctc_loss(
     per_seq = torch.where(ctc_feasible(logit_lengths, labels, label_lengths), per_seq, 0.0)
     if not reduce:
         return per_seq
-    return per_seq.sum() / b
+    return per_seq.sum() / global_rows(b)
 
 
 def add_sos_eos(text: torch.Tensor, sos: int, eos: int,
@@ -101,7 +106,7 @@ def label_smoothing_loss(
     if low > 0.0:
         cross = cross + low * (logp.sum(dim=-1) - logp_tgt)
     kl = (ent - cross) * valid.float()
-    denom = valid.sum() if normalize_length else targets.shape[0]
+    denom = global_count(valid.sum()) if normalize_length else global_rows(targets.shape[0])
     return kl.sum() / denom
 
 
@@ -109,4 +114,4 @@ def token_accuracy(logits: torch.Tensor, targets: torch.Tensor, ignore_id: int =
     """Fraction of correctly predicted non-ignored tokens."""
     valid = targets != ignore_id
     correct = ((logits.argmax(dim=-1) == targets) & valid).sum()
-    return correct / valid.sum().clamp(min=1)
+    return correct / global_count(valid.sum()).clamp(min=1)

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tailored_avsr_tpu_torch.ops.attention import promoted_linear
+from tailored_avsr_tpu_torch.parallel.host_data import global_rows
 
 NEG_INF = -1.0e30
 
@@ -81,7 +82,7 @@ def rnnt_loss(
     t_last = (logit_lengths.long() - 1).clamp(0, t - 1)
     u_last = label_lengths.long()
     nll = -(alphas[t_last, rows, u_last] + blank[rows, t_last, u_last])
-    return nll.sum() / b
+    return nll.sum() / global_rows(b)
 
 
 def multiblank_rnnt_loss(
@@ -127,7 +128,7 @@ def multiblank_rnnt_loss(
         t_d = (lengths - d).clamp(0, t - 1)  # a big blank from T - d lands exactly on T
         term = alphas[t_d, rows, u_last] + bbs[i][rows, t_d, u_last]
         ll = torch.logaddexp(ll, torch.where(lengths - d >= 0, term, NEG_INF))
-    return -ll.sum() / b
+    return -ll.sum() / global_rows(b)
 
 
 class JointNetwork(nn.Module):

@@ -9,7 +9,8 @@ frames (piecewise-linear remap, linear interpolation, padding untouched);
 (at least 1 frame wide). Every random number is a uniform drawn on the CPU
 from the ``generator`` passed in (torch's default generator when None), one
 row per utterance, and moved to the device in one copy; the rest runs on
-the device without reading it back.
+the device without reading it back. Under data parallelism each rank draws
+the global batch's rows and keeps its own (``parallel/host_data.rand_rows``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from tailored_avsr_tpu_torch.parallel.host_data import rand_rows
 
 
 def _uniform_int(u: torch.Tensor, lo, hi) -> torch.Tensor:
@@ -90,7 +93,7 @@ class SpecAug(nn.Module):
         b, t, f = x.shape
         n_freq = self.num_freq_mask if self.apply_freq_mask else 0
         n_time = self.num_time_mask if self.apply_time_mask else 0
-        u = torch.rand((b, 2 + 2 * n_freq + 2 * n_time), generator=generator)
+        u = rand_rows(b, 2 + 2 * n_freq + 2 * n_time, generator=generator)
         u = u.to(x.device, non_blocking=True)
         if self.apply_time_warp:
             x = time_warp(x, lengths, self.time_warp_window, u[:, :2])

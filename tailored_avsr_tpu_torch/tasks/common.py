@@ -9,8 +9,8 @@ materialisation and the device rule.
 
 A config key reaches a constructor as in the JAX ``filter_conf``: a key the
 port's constructor takes is passed; a key the JAX constructor takes and
-the port's does not is listed in the section's ``*_FIXED`` table and must
-hold a value the port builds (else it raises naming its item); any other
+the port's does not is listed in the section's ``*_FIXED`` table, with why
+any value of it builds the same model; any other
 key is one the JAX constructor drops too (the flagship's ``num_blocks``
 reaching an ``rnn`` decoder), and is dropped here after the same check of
 ``positionwise_layer_type`` and ``ctc_type``.
@@ -29,7 +29,6 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from tailored_avsr_tpu_torch import not_ported
 from tailored_avsr_tpu_torch.models.branchformer import BranchformerEncoder
 from tailored_avsr_tpu_torch.models.conformer import ConformerEncoder
 from tailored_avsr_tpu_torch.models.contextual_block import ContextualBlockEncoder
@@ -64,12 +63,10 @@ from tailored_avsr_tpu_torch.ops.rnnt import JointNetwork, PredictionNetwork
 from tailored_avsr_tpu_torch.ops.specaug import SpecAug
 from tailored_avsr_tpu_torch.utils.initialize import init_params_
 
-# Keys a JAX constructor takes and the port's does not: (values the port
-# builds, ROADMAP item that ports the others); None: any value. The
-# encoders and the decoders take every key of theirs.
+# Keys a JAX constructor takes and the port's does not, and why any value
+# builds the same model. The encoders and the decoders take every key of theirs.
 VISUAL_FRONTEND_FIXED = {
-    "bn_axis_name": ((None,), 9),  # cross-replica BatchNorm: data parallel
-    "stem_s2d": (None, None),  # the TPU's evaluation of the same stem weights: any value builds the stem
+    "stem_s2d": "the TPU's evaluation of the same stem weights: any value builds the stem",
 }
 ASR_ENCODERS = {
     "branchformer": BranchformerEncoder,
@@ -110,15 +107,6 @@ DROPPED_KEY_ALLOWED = {
 NONE = (None, "none", "")
 
 
-def refuse(what: str, value, item: int) -> NotImplementedError:
-    return not_ported(f"{what}={value!r}", item)
-
-
-def require(what: str, value, allowed, item: int) -> None:
-    if value not in allowed:
-        raise refuse(what, value, item)
-
-
 def check_dropped_key(owner: str, key: str, value) -> None:
     allowed = DROPPED_KEY_ALLOWED.get(key)
     if allowed is not None and value not in allowed:
@@ -143,20 +131,16 @@ def constructor_names(cls) -> set:
 
 def conf_args(cls, conf: Optional[Dict], fixed: Optional[Dict] = None, **extra) -> Dict:
     """Constructor arguments of ``cls`` from a config section. A key of
-    ``fixed`` (one the JAX constructor takes and the port's does not) must
-    hold one of its values (None: any); other keys unknown to ``cls`` are
-    dropped, as the JAX task drops them."""
+    ``fixed`` (one the JAX constructor takes and the port's does not) is
+    dropped whatever its value; other keys unknown to ``cls`` are dropped
+    after the check of the keys the JAX task drops."""
     names = constructor_names(cls)
     kept = {}
     for k, v in {**(conf or {}), **extra}.items():
         v = tuple(v) if isinstance(v, list) else v
         if k in names:
             kept[k] = v
-        elif fixed and k in fixed:
-            allowed, item = fixed[k]
-            if allowed is not None:
-                require(f"{cls.__name__} {k}", v, allowed, item)
-        else:
+        elif not (fixed and k in fixed):
             check_dropped_key(cls.__name__, k, v)
     return kept
 

@@ -8,6 +8,10 @@ the reference's PyTorch key grammar, the one
 ``load_model`` reads a port checkpoint (it translates ``.pth`` files), and
 the port's ``Speech2Text`` serves one. A train state adds the optimizer's
 moments and counters, the generator's state, the step and the epoch.
+Under tensor parallelism both have the single-process layout: the model's
+state dict gathers its shards (``parallel/tensor_parallel.py``), and so do
+the moments here, so every rank takes part in a save and ``write`` says
+which one writes the file.
 """
 
 from __future__ import annotations
@@ -39,9 +43,11 @@ def _cpu_state(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
 
 
-def save_model(model: nn.Module, path: str) -> None:
-    _makedirs_for(path)
-    torch.save(_cpu_state(model), path)
+def save_model(model: nn.Module, path: str, write: bool = True) -> None:
+    state = _cpu_state(model)
+    if write:
+        _makedirs_for(path)
+        torch.save(state, path)
 
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -110,19 +116,22 @@ def freeze_mask(model: nn.Module, modules: Optional[Sequence[str]]) -> List[str]
     return [n for n, _ in model.named_parameters() if n.split(".")[0] in wanted]
 
 
-def save_train_state(state, epoch: int, path: str) -> None:
+def save_train_state(state, epoch: int, path: str, write: bool = True) -> None:
     """Everything an exact resume needs: step, epoch, model (parameters and
     BatchNorm statistics), optimizer moments and counters, generator."""
-    _makedirs_for(path)
     opt = state.optimizer.state_dict()
+    full = state.tp.full_named if state.tp is not None else (lambda d: d)
     to_cpu = lambda d: None if d is None else {k: v.to("cpu", copy=True) for k, v in d.items()}  # noqa: E731
-    torch.save({
+    payload = {
         "epoch": int(epoch),
         "step": int(state.step),
         "model": _cpu_state(state.model),
-        "optimizer": {**opt, **{k: to_cpu(opt[k]) for k in ("mu", "nu", "acc")}},
+        "optimizer": {**opt, **{k: to_cpu(full(opt[k])) for k in ("mu", "nu", "acc")}},
         "generator": state.generator.get_state(),
-    }, path)
+    }
+    if write:
+        _makedirs_for(path)
+        torch.save(payload, path)
 
 
 def load_train_state(state, path: str):
@@ -130,7 +139,10 @@ def load_train_state(state, path: str):
     one of the same model and optimizer settings, restored in place."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(payload["model"], strict=True)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    opt = payload["optimizer"]
+    if state.tp is not None:
+        opt = {**opt, **{k: state.tp.split_named(opt[k]) for k in ("mu", "nu", "acc")}}
+    state.optimizer.load_state_dict(opt)
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     return state, int(payload["epoch"])

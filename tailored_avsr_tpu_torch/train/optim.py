@@ -17,7 +17,10 @@ AdamW), ``p -= lr(count - 1) * u``; the clip scales by
 ``max_norm / norm`` when ``norm >= max_norm`` (optax's
 ``clip_by_global_norm``; torch's ``clip_grad_norm_`` divides by
 ``norm + 1e-6``). Everything is f32, on the parameters' device, in
-multi-tensor (``torch._foreach_*``) launches.
+multi-tensor (``torch._foreach_*``) launches. Under tensor parallelism
+(``set_tensor_parallel``) the moments live on the shards, and the clip's
+norm sums each split leaf's squares over the model group and each
+replicated leaf's once.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import math
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 Schedule = Callable[[int], float]
@@ -104,6 +108,13 @@ class Optimizer:
         zeros = lambda: [torch.zeros_like(p, dtype=torch.float32) for p in self.params]  # noqa: E731
         self.mu, self.nu = zeros(), zeros()
         self.acc = zeros() if self.accum_grad > 1 else None
+        self._split = None  # tensor parallelism: (bool mask of split trainables, model group)
+
+    def set_tensor_parallel(self, is_split, group) -> None:
+        """Mark the trainables whose name ``is_split`` accepts as this rank's
+        shards of leaves split over ``group`` (for the clip's norm)."""
+        mask = torch.tensor([bool(is_split(n)) for n in self.trainable])
+        self._split = (mask, group)
 
     def _grads(self):
         """(tensors with a gradient, their gradients, tensors without one)."""
@@ -147,7 +158,15 @@ class Optimizer:
 
     def _update(self, g) -> None:
         if self.grad_clip > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            norms = torch.stack(torch._foreach_norm(g))
+            if self._split is None:
+                norm = torch.linalg.vector_norm(norms)
+            else:
+                mask, group = self._split
+                mask = mask.to(norms.device)
+                split_sq = (norms * norms * mask).sum()
+                dist.all_reduce(split_sq, group=group)
+                norm = torch.sqrt(split_sq + (norms * norms * ~mask).sum())
             scale = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
             g = torch._foreach_mul(g, scale)
         b1, b2 = self.b1, self.b2

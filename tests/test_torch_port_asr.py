@@ -34,7 +34,6 @@ from test_torch_port_slice import _random_variables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(p for d in ("ASR", "VSR", "AVSR") for p in glob.glob(os.path.join(ROOT, "configs", d, "*.yaml")))
-REFUSED = {}  # every config of the repository builds in the port
 MASKCTC = "configs/AVSR/tailored_maskctc_spanish.yaml"
 FLAGSHIP = "configs/AVSR/tailored_transformer+ctc_spanish.yaml"
 TRANSDUCER = "configs/ASR/branchformer_transducer_spanish.yaml"
@@ -92,14 +91,9 @@ def _jax_shapes(jm, task):
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
 def test_config_builds_with_the_jax_parameter_names(path):
     """Full width, on the meta device: the port's state dict has the JAX
-    export's keys and shapes; the refused configs name their item."""
+    export's keys and shapes: every config of the repository builds."""
     cfg = load_config(path)
     tokens = _tokens(cfg)
-    name = os.path.basename(path)
-    if name in REFUSED:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md 'Modules to port' item {REFUSED[name]}"):
-            common.build_model(cfg, tokens, device="cpu")
-        return
     task = "avsr" if cfg.task == "avsr" else "asr"
     port = __import__(f"tailored_avsr_tpu_torch.tasks.{task}", fromlist=["build_meta"]).build_meta(cfg, tokens)
     shapes = _jax_shapes(_jax_model(cfg, tokens), cfg.task)
@@ -124,23 +118,6 @@ def _set(cfg, section, value):
             value = dict(getattr(cfg, section), **value)
         setattr(cfg, section, value)
     return cfg
-
-
-@pytest.mark.parametrize("path,section,value,item", [
-    (VSR, "frontend_conf", {"bn_axis_name": "batch"}, 9),
-    (CONVENTIONAL, "visual_frontend_conf", {"bn_axis_name": "batch"}, 9),
-])
-def test_unported_choices_name_their_item(path, section, value, item):
-    """The choices still refused: item 9's cross-replica BatchNorm. The
-    nine item-8 cases this list held until the input side, the streaming
-    encoders and PIT were ported (``pit_espnet``, ``transformer_multispkr``,
-    both contextual-block encoders, the sliding-window and fused
-    frontends, ``global_mvn``, the linear pre- and post-encoders), and the
-    seventeen before them, are ``PORTED_CHOICES`` cases, built by
-    ``test_ported_choices_build_with_the_jax_parameter_names``."""
-    cfg = _set(tiny_cfg(path), section, value)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md 'Modules to port' item {item}"):
-        common.build_model(cfg, TOKEN_LIST, device="cpu")
 
 
 _ABS = dict(tiny_cfg(ASR).encoder_conf, attention_layer_type="selfattn", pos_enc_layer_type="abs_pos")
@@ -198,6 +175,10 @@ PORTED_CHOICES = {
     "preencoder": (ASR, None, {"preencoder": "linear", "preencoder_conf": {"output_size": 40}}),
     "conventional_postencoder": (CONVENTIONAL, None, {"postencoder": "linear",
                                                       "postencoder_conf": {"output_size": 48}}),
+    # item 9: the lip frontend's cross-replica BatchNorm (trained and served
+    # by tests/test_torch_port_parallel.py)
+    "vsr_bn_axis_name": (VSR, "frontend_conf", {"bn_axis_name": "batch"}),
+    "conventional_bn_axis_name": (CONVENTIONAL, "visual_frontend_conf", {"bn_axis_name": "batch"}),
 }
 FULL = {"sim_t", "sim_t_mlm", "lightweight_conv", "dynamic_conv", "lightweight_conv2d", "dynamic_conv2d",
         "no_output_layer", "lightconv_variant", "rnn_decoder", "vsr_rnn_decoder", "s4", "rnn_encoder", "vgg_rnn",

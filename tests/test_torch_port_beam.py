@@ -411,19 +411,23 @@ def test_speech2text_nbest_full_width_matches_jax():
     _same_nbest(ps.nbest(batch), js.nbest(batch))
 
 
-@pytest.mark.parametrize("conf,item", [
-    ({"data_parallel": True}, 9),
-])
-def test_unported_inference_choices_name_their_item(conf, item):
-    """The one ``inference_conf`` choice the port does not serve:
-    ``data_parallel`` (mesh decoding)."""
+def test_data_parallel_serves_one_process_as_without_it():
+    """``data_parallel: true`` (once refused, naming item 9) outside a
+    process group: one rank, and the same n-best as the engine
+    without it on the same seeded weights. Over two ranks:
+    ``tests/test_torch_port_parallel.py``."""
     from tailored_avsr_tpu_torch.inference import Speech2Text
 
-    cfg = graft._flagship_cfg(tiny=True)
-    cfg.token_list = TOKENS
-    cfg.inference_conf = dict(cfg.inference_conf, **conf)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Speech2Text(cfg, device="cpu")
+    engines = []
+    for conf in ({}, {"data_parallel": True}):
+        cfg = graft._flagship_cfg(tiny=True)
+        cfg.token_list = TOKENS
+        cfg.inference_conf = dict(cfg.inference_conf, beam_size=2, nbest=2, **conf)
+        engines.append(Speech2Text(cfg, device="cpu"))
+    plain, parallel = engines
+    assert not plain.data_parallel and parallel.data_parallel and parallel._rows(_batch(frames=4)) is None
+    batch = _batch(frames=4)
+    _same_nbest(parallel.nbest(batch), plain.nbest(batch), atol=0.0)
 
 
 @pytest.mark.parametrize("conf", [

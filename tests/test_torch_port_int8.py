@@ -569,9 +569,8 @@ def test_speech2text_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
 def test_build_model_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
     """The factories behind ``Speech2Text`` follow its rule: without
     ``device=`` they build on ``cuda`` and, on a host with no CUDA device,
-    refuse with the same words; ``device="cpu"`` builds on the CPU. The
-    config gates come first, so an unported choice (item 9's cross-replica
-    BatchNorm) still names its item."""
+    refuse with the same words; ``device="cpu"`` builds on the CPU, a
+    ``bn_axis_name`` (once refused, naming item 9) among the rest."""
     import types
 
     from tailored_avsr_tpu_torch.tasks import avsr as avsr_task
@@ -591,5 +590,6 @@ def test_build_model_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
         assert {p.device for p in model.parameters()} == {torch.device("cpu")}
     cfg = _tiny_cfg()
     cfg.visual_frontend_conf = dict(cfg.visual_frontend_conf or {}, bn_axis_name="batch")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # built like any config: the card by default
         avsr_task.build_model(cfg, tokens)
+    assert avsr_task.build_model(cfg, tokens, device="cpu").visual_frontend.bn_axis_name == "batch"

@@ -689,19 +689,20 @@ def test_constructor_tables_cover_the_jax_fields():
     assert task.DROPPED_KEY_ALLOWED == _DROPPED_KEY_ALLOWED
 
 
-@pytest.mark.parametrize("section,key,value,item", [
-    # interCTC taps (this list's first case until they were ported) build:
-    # tests/test_torch_port_encoders.py holds them against JAX; so do
-    # use_output_layer: false and the lightconv layer variant, which
-    # tests/test_torch_port_asr.py::test_ported_choices_build_with_the_jax_parameter_names
-    # builds and tests/test_torch_port_decoders.py holds against JAX
-    ("visual_frontend_conf", "bn_axis_name", "data", 9),
-])
-def test_unbuilt_jax_fields_name_their_item(section, key, value, item):
-    cfg = graft._flagship_cfg(tiny=True)
-    setattr(cfg, section, dict(getattr(cfg, section) or {}, **{key: value}))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build_model(cfg, TOKEN_LIST, device="cpu")
+def test_bn_axis_name_builds_the_same_model_and_its_train_forward_raises_as_jax():
+    """``visual_frontend_conf bn_axis_name`` (once refused, naming item 9)
+    builds the model it builds without it (the same seeded weights), and a
+    train-mode forward raises the ``NameError`` the JAX train step raises;
+    the VSR case against the JAX model: ``tests/test_torch_port_parallel.py``."""
+    cfg = _train_cfg()
+    plain = build_model(cfg, TOKEN_LIST, device="cpu")
+    cfg.visual_frontend_conf = dict(cfg.visual_frontend_conf or {}, bn_axis_name="data")
+    model = build_model(cfg, TOKEN_LIST, device="cpu")
+    want = plain.state_dict()
+    got = model.state_dict()
+    assert got.keys() == want.keys() and all(torch.equal(v, want[k]) for k, v in got.items())
+    with pytest.raises(NameError, match="unbound axis name: data"):
+        _port_loss(model, _train_batch(frames=4, text_len=3), train=True)
 
 
 def test_training_fields_build():
@@ -815,16 +816,22 @@ def test_cli_resume_retrains_the_interrupted_epoch(corpus, tmp_path, monkeypatch
     assert calls["n"] == 2
 
 
-@pytest.mark.parametrize("override,item", [
-    ("training_settings:data_parallel:true", 9),
-])
-def test_cli_refusals_name_their_item(corpus, tmp_path, override, item):
-    from tailored_avsr_tpu_torch import avsr_main
+def test_cli_data_parallel_on_one_process_trains_as_without_it(corpus, tmp_path, capsys):
+    """``training_settings data_parallel: true`` (once refused, naming item 9)
+    on one process trains as without it, as the JAX CLI builds its mesh
+    only over more than one device: no grid, the same checkpoint. Over two
+    ranks: ``tests/test_torch_port_parallel.py``."""
+    from tests.torch_port_parallel_ranks import cli
 
     csv_path, token_path = corpus
-    cfg = _cli_config(tmp_path, token_path)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        avsr_main.main(_cli_args(cfg, csv_path, str(tmp_path / "exp")) + ["--yaml-overrides", override])
+    cfg = _cli_config(tmp_path, token_path, epochs=1, average_epochs=1)
+    outs = []
+    for extra in ([], ["--yaml-overrides", "training_settings:data_parallel:true"]):
+        out = str(tmp_path / f"exp{len(outs)}")
+        cli(_cli_args(cfg, csv_path, out, "training") + extra)  # the eval transforms: the same batches
+        outs.append(torch.load(os.path.join(out, "models", "model_001.pth"), weights_only=True))
+    assert "training grid" not in capsys.readouterr().out
+    assert outs[0].keys() == outs[1].keys() and all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
 
 
 def test_cli_ngram_file_and_missing_card_raise(corpus, tmp_path):
