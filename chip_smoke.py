@@ -13,11 +13,15 @@ Run from the repository root on a machine with one CUDA card:
    the L2 written over before each timed call), beside the least time the
    card could take (its bound) and, where one PyTorch call computes the
    same function, that call's time. K1-K3 at the encoder's shapes, and
-   bf16 K2 and K1 (tensor cores) also at T = 1, 63, 64, 65, 100, 128 and
-   500 (K2 with and without bias), one utterance fully masked (exactly 0);
-   beside bf16 K1 at T = 100 and 500 the bias route it replaces, timed as a
-   yardstick: rel_shift(q_rel . pos^T) built and streamed through K2, or
-   through ``scaled_dot_product_attention``; K4 (group
+   K2 and K1, bf16 (tensor cores) and f32 (exact f32 on the CUDA cores),
+   also at T = 1, 63, 64, 65, 100, 128, 499 and 500 (K2 with and without
+   bias; f32 K2 also at the eval batch's B=4, T=500 with bias, timed), one
+   utterance fully masked (exactly 0); beside K1 in both types at T = 100
+   and 500 the bias route it replaces, timed as a yardstick:
+   rel_shift(q_rel . pos^T) built and streamed through K2, or through
+   ``scaled_dot_product_attention`` (in f32 its memory-efficient backend
+   runs 3xTF32 on the tensor cores: timed, its error printed, not
+   gated); K4 (group
    attend) and K6 (group attend over an int8 cache) at the beam step's
    decoder and LM shapes over positions 1, 2, 17, 33, 53, 103 and two
    narrowed widths, with ancestry entries outside [0, K); at pos 53 and 103
@@ -38,11 +42,12 @@ Run from the repository root on a machine with one CUDA card:
    blocks, 256-d, random weights from a seed) with ``use_flash`` and
    ``use_fused_csgu`` on serves two requests through
    ``Speech2Text.greedy``: 32 x 4 s (encoder T = 100, K2 runs) and
-   24 x 20 s (T = 500, K1 runs), in bf16, and the first in f32 too. The f32
-   request is served again on the eager path (kernels off): the greedy ids
-   must be identical and the CTC log-probs agree within 1e-3. Launch counts
-   of K1-K3 over this path must be > 0. Then request (b) runs five times
-   more, warm (median wall printed), and once under ``torch.profiler``: the
+   24 x 20 s (T = 500, K1 runs), in bf16 and in f32 (the f32 request (b)
+   must launch K1 19 times). Each f32 request is served again on the eager
+   path (kernels off): the greedy ids must be identical and the CTC
+   log-probs agree within 1e-3. Launch counts of K1-K3 over this path must
+   be > 0. Then request (b) runs warm (five calls in bf16, two in f32;
+   median wall printed) and once under ``torch.profiler`` in each type: the
    device's busy time, its idle share and the flash-attention kernels'
    part.
 6. Beam path: the same model plus the full-width Transformer LM
@@ -262,18 +267,21 @@ Run from the repository root on a machine with one CUDA card:
 Any failed phase raises, so the run exits non-zero and prints no result line.
 Nothing here imports JAX.
 
-Three measurement modes, one card each:
+Four measurement modes, one card each:
 
     python3 chip_smoke.py --ab DIR          # DIR: a git archive of another commit
     python3 chip_smoke.py --heldout SEED ...
     python3 chip_smoke.py --k3-phases
+    python3 chip_smoke.py --attention-phases
 
-``--ab`` runs ``ab_measure`` (bf16 K3 at both request shapes, L2-cold, and
-the profiled device busy time of greedy requests (a) and (b)) on the
-package under DIR and on this checkout's, in the order DIR, this, this,
-DIR, one process each. ``--heldout`` reads the int8 plain twin under each
+``--ab`` runs ``ab_measure`` (bf16 K3 at both request shapes, K1 at (b)
+and K2 at (a) in f32 and bf16, L2-cold, and the profiled device busy time
+of greedy requests (a) and (b) in bf16 and (b) in f32) on the package
+under DIR and on this checkout's, in the order DIR, this, this, DIR, one
+process each. ``--heldout`` reads the int8 plain twin under each
 given noise seed through the envelope of both requests. ``--k3-phases``
-times K3 with its phases taken out one at a time (``K3_PHASE_CUTS``).
+times K3 with its phases taken out one after another (``K3_PHASE_CUTS``),
+``--attention-phases`` f32 K1 and K2 (``ATTENTION_F32_PHASE_CUTS``).
 """
 
 from __future__ import annotations
@@ -371,8 +379,9 @@ def _lengths_mask(gen, b, t, device):
 
 def kernel_phases(device) -> dict:
     """Each encoder kernel against its plain version; returns per-kernel
-    results of the bf16 phase at the main-path shape (the dtype the flagship
-    serves in)."""
+    results, keyed (kernel, "bf16" or "f32"), at the main-path shape: bf16
+    is the type the ``_tpu`` flagship serves in, f32 that of the other
+    configs (f32 K2 also at the eval batch's shape)."""
     from tailored_avsr_tpu_torch.ops import flash_attention as fa
     from tailored_avsr_tpu_torch.ops import fused_csgu as fc
     from tailored_avsr_tpu_torch.ops.masking import MASK_MIN
@@ -439,9 +448,10 @@ def kernel_phases(device) -> dict:
         if bool(got[1].abs().max() != 0):
             raise AssertionError("K1: a fully masked utterance must give exactly 0")
 
-        if dtype == torch.bfloat16:
-            _k2_edges(fa, randn, gen, device)
-            _k1_edges(fa, randn, gen, device)
+        eval_batch = _k2_edges(fa, randn, gen, device, dtype)
+        if eval_batch:
+            results["K2 eval batch", tag] = eval_batch
+        _k1_edges(fa, randn, gen, device, dtype)
 
         # K3: fused cgMLP gate, request (a) shapes (the kernels line), (b)'s timed beside it
         results["K3", tag] = _k3_phase(fc, randn, dtype, tag)
@@ -494,51 +504,66 @@ def _k3_phase(fc, randn, dtype, tag) -> dict:
     return results["(a)"]
 
 
-def _k2_edges(fa, randn, gen, device) -> None:
-    """bf16 K2 (tensor cores) at T across its 16-row, 16-key and 64-key
-    tile edges and at request (b)'s T = 500, with and without bias, one
+# T across the tile edges of both forms (bf16: 16 rows, 16 and 64 keys; f32:
+# 32-row warps, 32-key halves, 64-key tiles, 128-row blocks) and request
+# (b)'s T = 499 (the ASR and transducer encoders) and 500 (the flagship)
+EDGE_T = (1, 63, 64, 65, 100, 128, 499, 500)
+
+
+def _k2_edges(fa, randn, gen, device, dtype) -> dict:
+    """K2 at T across its tile edges (``EDGE_T``), with and without bias, one
     utterance fully masked (exactly 0) and ragged lengths elsewhere; times
-    at T = 500 beside the one-call yardstick (printed, not in the line)."""
+    at T = 500 (B=24) beside the one-call yardstick, and in f32 at the eval
+    batch's B=4, T=500 with bias (printed; that one returned)."""
     from tailored_avsr_tpu_torch.ops.masking import MASK_MIN
 
-    h, dk, dtype = 4, 64, torch.bfloat16
-    for t in (1, 63, 64, 65, 100, 128, 500):
-        b = 24 if t == 500 else 8
+    h, dk = 4, 64
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    shapes = [(24 if t == 500 else 8, t) for t in EDGE_T]
+    if dtype == torch.float32:
+        shapes.append((4, 500))
+    eval_batch = {}
+    for b, t in shapes:
         q, k, v = (randn(b, h, t, dk, dtype=dtype) for _ in range(3))
         bias = randn(b, h, t, t, dtype=dtype, scale=4.0)
         mask = _lengths_mask(gen, b, t, device)
         mask[1] = False
         for bname, bb in (("bias", bias), ("no bias", None)):
+            if b == 4 and bb is None:
+                continue
             got = fa.flash_attention(q, k, v, bb, mask)
-            _compare(f"K2 flash_attention {bname} bf16 B={b} H={h} T={t} (utterance 1 fully masked)",
-                     "attention", got, fa.flash_attention_plain(q, k, v, bb, mask))
+            err = _compare(f"K2 flash_attention {bname} {tag} B={b} H={h} T={t} (utterance 1 fully masked)",
+                           "attention", got, fa.flash_attention_plain(q, k, v, bb, mask))
             if bool(got[1].abs().max() != 0):
-                raise AssertionError(f"K2 bf16 T={t}: a fully masked utterance must give exactly 0")
+                raise AssertionError(f"K2 {tag} B={b} T={t}: a fully masked utterance must give exactly 0")
             if t == 500:
                 merged = torch.zeros((b, 1, 1, t), dtype=dtype, device=device).masked_fill(
                     ~mask[:, None, None, :], MASK_MIN)
                 if bb is not None:
                     merged = merged + bb / dk ** 0.5
                 args = (q, k, v, bb, mask)
-                _result(0.0, cold_time_ms(lambda: fa.flash_attention(*args)),
-                        cold_time_ms(lambda: fa.flash_attention_plain(*args)),
-                        _bound(_nbytes(*args, got), 4 * b * h * t * t * dk, dtype),
-                        cold_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=merged)))
+                r = _result(err, cold_time_ms(lambda: fa.flash_attention(*args)),
+                            cold_time_ms(lambda: fa.flash_attention_plain(*args)),
+                            _bound(_nbytes(*args, got), 4 * b * h * t * t * dk, dtype),
+                            cold_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=merged)))
+                if b == 4:
+                    eval_batch = r
+    return eval_batch
 
 
-def _k1_edges(fa, randn, gen, device) -> None:
-    """bf16 K1 (tensor cores) at T across its 16-row, 16-key and 64-key tile
-    edges and at request (b)'s T = 500, one utterance fully masked (exactly
-    0) and ragged lengths elsewhere. At T = 100 (request (a)'s shape) and
-    T = 500 it is timed beside the bias route it replaces (printed as a
-    yardstick, not in the line): rel_shift(q_rel . pos^T) materialised and
-    streamed through K2, as ``ops/attention.py`` does below its 32 MiB
-    switch, or through ``scaled_dot_product_attention``."""
+def _k1_edges(fa, randn, gen, device, dtype) -> None:
+    """K1 at T across its tile edges (``EDGE_T``), one utterance fully masked
+    (exactly 0) and ragged lengths elsewhere. At T = 100 (request (a)'s
+    shape) and T = 500 it is timed beside the bias route it replaces
+    (printed as a yardstick, not in the line): rel_shift(q_rel . pos^T)
+    materialised and streamed through K2, as ``ops/attention.py`` does
+    below its 32 MiB switch, or through ``scaled_dot_product_attention``."""
     from tailored_avsr_tpu_torch.ops.attention import rel_shift
     from tailored_avsr_tpu_torch.ops.masking import MASK_MIN
 
-    h, dk, dtype = 4, 64, torch.bfloat16
-    for t in (1, 63, 64, 65, 100, 128, 500):
+    h, dk = 4, 64
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    for t in EDGE_T:
         b = {100: 32, 500: 24}.get(t, 8)
         q, k, v, qr = (randn(b, h, t, dk, dtype=dtype) for _ in range(4))
         pos = randn(h, 2 * t - 1, dk, dtype=dtype)
@@ -546,10 +571,10 @@ def _k1_edges(fa, randn, gen, device) -> None:
         mask[1] = False
         args = (q, k, v, qr, pos, mask)
         got = fa.flash_attention_relpos(*args)
-        _compare(f"K1 flash_attention_relpos bf16 B={b} H={h} T={t} (utterance 1 fully masked)",
+        _compare(f"K1 flash_attention_relpos {tag} B={b} H={h} T={t} (utterance 1 fully masked)",
                  "attention", got, fa.flash_attention_relpos_plain(*args))
         if bool(got[1].abs().max() != 0):
-            raise AssertionError(f"K1 bf16 T={t}: a fully masked utterance must give exactly 0")
+            raise AssertionError(f"K1 {tag} T={t}: a fully masked utterance must give exactly 0")
         if t in (100, 500):
             def bias():
                 return rel_shift(qr @ pos.transpose(-2, -1)).contiguous()
@@ -562,14 +587,15 @@ def _k1_edges(fa, randn, gen, device) -> None:
                     ~mask[:, None, None, :], MASK_MIN) + bias() / dk ** 0.5
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=merged)
 
-            _compare(f"  bias route via K2, T={t}", "attention", via_k2(), fa.flash_attention_relpos_plain(*args))
+            _compare(f"  bias route via K2, {tag} T={t}", "attention", via_k2(),
+                     fa.flash_attention_relpos_plain(*args))
             _result(0.0, cold_time_ms(lambda: fa.flash_attention_relpos(*args)),
                     cold_time_ms(lambda: fa.flash_attention_relpos_plain(*args)),
                     _bound(_nbytes(*args, got), 6 * b * h * t * t * dk, dtype))
-            print(f"    K1 yardstick T={t}: bias route, materialised (B, H, T, T) bias + K2 "
+            print(f"    K1 yardstick {tag} T={t}: bias route, materialised (B, H, T, T) bias + K2 "
                   f"{cold_time_ms(via_k2):.4f} ms, + scaled_dot_product_attention "
                   f"{cold_time_ms(via_sdpa):.4f} ms, the bias alone {cold_time_ms(bias):.4f} ms "
-                  f"({b * h * t * t * 2 / 2 ** 20:.1f} MiB)")
+                  f"({b * h * t * t * got.element_size() / 2 ** 20:.1f} MiB)")
 
 
 def _group_attend_bound(anc, pos, width, cache_rows_bytes, step_tensors, heads, dtype) -> tuple:
@@ -1111,8 +1137,9 @@ def call_profile(call, name: str, repeats: int = 5, host_events: bool = True) ->
 
 def serve_phase(device) -> dict:
     """The flagship serving path with the kernels, then held against the
-    eager path on the same weights; returns the main path's launch counts.
-    Request (b), where K1 runs, is profiled after the counted calls."""
+    eager path on the same weights (f32 requests (a) and (b)); returns the
+    main path's launch counts. Request (b), where K1 runs, is profiled in
+    bf16 and f32 after the counted calls."""
     def engine(dtype: str, kernels: bool):
         return _greedy_engine(device, dtype, kernels)
 
@@ -1126,28 +1153,35 @@ def serve_phase(device) -> dict:
     _serve(bf16, "bf16 request (b) 24 x 20 s, T=500", req_b)
     _serve(f32, "f32 request (a) 32 x 4 s, T=100 (first call)", req_a)
     _serve(f32, "f32 request (a) 32 x 4 s, T=100", req_a)
+    before = _counts()["K1"]
+    _serve(f32, "f32 request (b) 24 x 20 s, T=500 (first call)", req_b)
+    if _counts()["K1"] - before != 19:
+        raise AssertionError(f"f32 request (b) launched K1 {_counts()['K1'] - before} times, not 19")
+    _serve(f32, "f32 request (b) 24 x 20 s, T=500", req_b)
     launches = {k: v for k, v in _counts().items() if k in ("K1", "K2", "K3")}
     print(f"  launches over the greedy path: {launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     print(f"  sample transcripts: (a) {hyp_a[0][:40]!r}  (b) {hyp_b[0][:40]!r}")
     greedy_profile(bf16, req_b, "bf16 request (b) 24 x 20 s")
+    greedy_profile(f32, req_b, "f32 request (b) 24 x 20 s", repeats=2)
 
     print("eager path (kernels off) on the same weights:")
-    ids_k, logp_k, lens_k = _ctc(f32, req_a)
     f32_eager = engine("float32", False)
-    before = _counts()
-    _serve(f32_eager, "f32 eager request (a)", req_a)
-    ids_e, logp_e, lens_e = _ctc(f32_eager, req_a)
-    if _counts() != before:
-        raise AssertionError("the eager path launched a kernel")
-    valid = torch.arange(ids_k.shape[1], device=device)[None] < lens_k[:, None]
-    same = bool(torch.equal(lens_k, lens_e)) and bool((ids_k == ids_e)[valid].all())
-    dlogp = float((logp_k - logp_e).abs()[valid].max())
-    print(f"  f32 request (a): greedy ids identical: {same}; max |CTC log-prob diff| "
-          f"{dlogp:.3e} (tol 1e-3)")
-    if not same or dlogp > 1e-3:
-        raise AssertionError("f32 kernel path disagrees with the eager path")
+    for name, req in (("(a)", req_a), ("(b)", req_b)):
+        ids_k, logp_k, lens_k = _ctc(f32, req)
+        before = _counts()
+        _serve(f32_eager, f"f32 eager request {name}", req)
+        ids_e, logp_e, lens_e = _ctc(f32_eager, req)
+        if _counts() != before:
+            raise AssertionError("the eager path launched a kernel")
+        valid = torch.arange(ids_k.shape[1], device=device)[None] < lens_k[:, None]
+        same = bool(torch.equal(lens_k, lens_e)) and bool((ids_k == ids_e)[valid].all())
+        dlogp = float((logp_k - logp_e).abs()[valid].max())
+        print(f"  f32 request {name}: greedy ids identical: {same}; max |CTC log-prob diff| "
+              f"{dlogp:.3e} (tol 1e-3)")
+        if not same or dlogp > 1e-3:
+            raise AssertionError(f"f32 kernel path disagrees with the eager path at request {name}")
     bf16_eager = engine("bfloat16", False)
     for name, req in (("(a)", req_a), ("(b)", req_b)):
         ids_k, _, lens_k = _ctc(bf16, req)
@@ -1459,41 +1493,75 @@ K3_PHASE_CUTS = (
 )
 
 
+# f32 K1 and K2 (``csrc/attention.cu``'s f32 template) with their phases
+# taken out one after another: the rel-pos product, Q . K^T, P . V, the
+# softmax's exponentials (with every product gone the compiler may fold
+# more of the softmax), the next tile's loads. What is left: the first
+# tile's loads, the barriers, the merge of the key halves and the stores.
+ATTENTION_F32_PHASE_CUTS = (
+    ("the rel-pos product", [
+        ("        if constexpr (REL) {\n#pragma unroll\n          for (int a = 0; a < 8; ++a)\n",
+         "        if constexpr (REL && MODE < 0) {\n#pragma unroll\n          for (int a = 0; a < 8; ++a)\n")]),
+    ("Q . K^T", [("          for (int e = 0; e < 4; ++e) s[a][e] = dot4(s[a][e], qa[a], kc[e]);", "")]),
+    ("P . V", [("for (int j4 = 0; j4 < n4; ++j4) {", "for (int j4 = 0; j4 < 0; ++j4) {")]),
+    ("the exponentials", [("const float corr = ex2(m[a] - mx);", "const float corr = m[a] - mx;"),
+                          ("s[a][e] == NEG ? 0.f : ex2(s[a][e] - mx);", "s[a][e] == NEG ? 0.f : s[a][e] - mx;")]),
+    ("the tile loads", [("    if (kt + 1 < n_tiles) {\n      load_tile(kt + 1, st ^ 1);",
+                         "    if (kt + 1 < n_tiles) {\n      if (MODE < 0) load_tile(kt + 1, st ^ 1);")]),
+)
+
+
+def _phase_libraries(source: str, cuts, tag: str) -> tuple:
+    """``csrc/<source>`` and copies with ``cuts`` taken out one after
+    another (each edit at its first match), each built by nvcc into its
+    own library under build/phases; returns their names and paths."""
+    from tailored_avsr_tpu_torch.kernels import build
+
+    out_dir = os.path.join(ROOT, "build", "phases")
+    os.makedirs(out_dir, exist_ok=True)
+    src = (build.CSRC / source).read_text()
+    names, paths, cmds = ["whole kernel"], [], []
+    for what, _ in cuts:
+        names.append(f"without {what}" if len(names) == 1 else f"{names[-1]}, {what}")
+    for i in range(len(names)):
+        text = src
+        for _, edits in cuts[:i]:
+            for old, new in edits:
+                if old not in text:
+                    raise AssertionError(f"{source} no longer holds {old!r}: update its phase cuts")
+                text = text.replace(old, new, 1)
+        path = os.path.join(out_dir, f"{tag}{i}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        paths.append(path[:-3] + ".so")
+        cmds.append([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-shared", "-o", paths[-1], path])
+    build._run_all(cmds)
+    return names, paths
+
+
+def _phases_device():
+    """The card, its name and power limit printed; None without one."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs the GPU", file=sys.stderr)
+        return None
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
 def k3_phases_main() -> int:
     """K3's L2-cold time at request (a) and (b) shapes, bf16 and f32, for
     the committed source and for copies with the conv, then also the
-    statistics, then also the cluster barriers taken out (K3_PHASE_CUTS);
-    each copy built by nvcc into its own library under build/k3_phases."""
+    statistics, then also the cluster barriers taken out (K3_PHASE_CUTS)."""
     import ctypes
 
-    from tailored_avsr_tpu_torch.kernels import build
     from tailored_avsr_tpu_torch.ops import fused_csgu as fc
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this run needs the GPU", file=sys.stderr)
+    device = _phases_device()
+    if device is None:
         return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
-    out_dir = os.path.join(ROOT, "build", "k3_phases")
-    os.makedirs(out_dir, exist_ok=True)
-    src = (build.CSRC / "csgu.cu").read_text()
-    names, cmds = ["whole kernel"], []
-    for what, cuts in K3_PHASE_CUTS:
-        names.append(f"without {what}" if len(names) == 1 else f"{names[-1]}, {what}")
-    for i, name in enumerate(names):
-        text = src
-        for _, cuts in K3_PHASE_CUTS[:i]:
-            for old, new in cuts:
-                if old not in text:
-                    raise AssertionError(f"csgu.cu no longer holds {old!r}: update K3_PHASE_CUTS")
-                text = text.replace(old, new)
-        path = os.path.join(out_dir, f"phase{i}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        cmds.append([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-shared", "-o",
-                     path[:-3] + ".so", path])
-    build._run_all(cmds)
-    device = torch.device("cuda", 0)
+    names, paths = _phase_libraries("csgu.cu", K3_PHASE_CUTS, "k3_")
     gen = torch.Generator(device=device).manual_seed(0)
 
     def randn(*shape, dtype, scale=1.0):
@@ -1501,8 +1569,8 @@ def k3_phases_main() -> int:
 
     cases = [(dtype, name, _csgu_args(randn, b, t, 2048, 31, dtype))
              for dtype in (torch.bfloat16, torch.float32) for name, b, t in (("a", 32, 100), ("b", 24, 500))]
-    for i, name in enumerate(names):
-        fn = ctypes.CDLL(os.path.join(out_dir, f"phase{i}.so")).avsr_fused_csgu
+    for i, (name, path) in enumerate(zip(names, paths)):
+        fn = ctypes.CDLL(path).avsr_fused_csgu
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         row = {"k3": name}
@@ -1524,12 +1592,65 @@ def k3_phases_main() -> int:
     return 0
 
 
+def attention_phases_main() -> int:
+    """f32 K1 at request (b) and K2 at (b) without bias and at (a) with and
+    without, L2-cold, for the committed source and for copies with the
+    phases of ATTENTION_F32_PHASE_CUTS taken out one after another."""
+    import ctypes
+
+    from tailored_avsr_tpu_torch.ops import flash_attention as fa
+
+    device = _phases_device()
+    if device is None:
+        return 1
+    names, paths = _phase_libraries("attention.cu", ATTENTION_F32_PHASE_CUTS, "attention_f32_")
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    h, dk, cases = 4, 64, []
+    for name, mode, b, t in (("k1_b", 2, 24, 500), ("k2_b", 0, 24, 500), ("k2_a_bias", 1, 32, 100),
+                             ("k2_a", 0, 32, 100)):
+        q, k, v = (randn(b, h, t, dk) for _ in range(3))
+        bias = randn(b, h, t, t, scale=4.0) if mode == 1 else None
+        q_rel, pos = (randn(b, h, t, dk), randn(h, 2 * t - 1, dk)) if mode == 2 else (None, None)
+        cases.append((name, mode, (q, k, v, bias, q_rel, pos, _lengths_mask(gen, b, t, device))))
+    for i, (name, path) in enumerate(zip(names, paths)):
+        fn = ctypes.CDLL(path).avsr_flash_attention
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        row = {"attention_f32": name}
+        for case, mode, args in cases:
+            b, _, t, _ = args[0].shape
+            out = torch.empty_like(args[0])
+
+            def run():
+                err = fn(*(None if a is None else a.data_ptr() for a in args), out.data_ptr(), b, h, t, dk,
+                         0, mode, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"f32 attention ({name}) failed: CUDA error {err}")
+
+            run()
+            if i == 0:  # the whole kernel is held to its plain version
+                q, k, v, bias, q_rel, pos, mask = args
+                want = (fa.flash_attention_relpos_plain(q, k, v, q_rel, pos, mask) if mode == 2
+                        else fa.flash_attention_plain(q, k, v, bias, mask))
+                _compare(f"f32 attention {case}", "attention", out, want, show=False)
+            row[f"{case}_ms"] = cold_time_ms(run)
+        print(json.dumps(row))
+    return 0
+
+
 def ab_measure(greedy: bool = True) -> None:
     """For whichever ``tailored_avsr_tpu_torch`` is first on ``sys.path``:
-    bf16 K3's L2-cold time at request (a) and (b) shapes (inputs from seed
-    0), then (``greedy``) the device busy time of one profiled bf16 greedy
-    call of requests (a) and (b) (``greedy_profile``). One JSON line."""
+    bf16 K3's L2-cold time at request (a) and (b) shapes, K1's at (b) and
+    K2's at (a) (with and without bias) in f32 and bf16 (inputs from seed
+    0), then (``greedy``) the device busy time of one profiled greedy call
+    of bf16 requests (a) and (b) and f32 request (b) (``greedy_profile``).
+    One JSON line."""
     from tailored_avsr_tpu_torch.kernels import build
+    from tailored_avsr_tpu_torch.ops import flash_attention as fa
     from tailored_avsr_tpu_torch.ops import fused_csgu as fc
 
     device = torch.device("cuda", 0)
@@ -1544,13 +1665,26 @@ def ab_measure(greedy: bool = True) -> None:
     for name, b, t in (("a", 32, 100), ("b", 24, 500)):
         args = _csgu_args(randn, b, t, 2048, 31, torch.bfloat16)
         row[f"k3_{name}_ms"] = cold_time_ms(lambda: fc.fused_csgu(*args))
+    h, dk = 4, 64
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        b, t = 24, 500
+        q, k, v, qr = (randn(b, h, t, dk, dtype=dtype) for _ in range(4))
+        args = (q, k, v, qr, randn(h, 2 * t - 1, dk, dtype=dtype), _lengths_mask(gen, b, t, device))
+        row[f"k1_b_{tag}_ms"] = cold_time_ms(lambda: fa.flash_attention_relpos(*args))
+        b, t = 32, 100
+        q, k, v = (randn(b, h, t, dk, dtype=dtype) for _ in range(3))
+        bias, mask = randn(b, h, t, t, dtype=dtype, scale=4.0), _lengths_mask(gen, b, t, device)
+        row[f"k2_a_bias_{tag}_ms"] = cold_time_ms(lambda: fa.flash_attention(q, k, v, bias, mask))
+        row[f"k2_a_{tag}_ms"] = cold_time_ms(lambda: fa.flash_attention(q, k, v, None, mask))
     if greedy:
-        engine = _greedy_engine(device, "bfloat16", True)
-        for name, req in (("a", _request(1, 32, 4)), ("b", _request(2, 24, 20))):
-            engine.greedy(req)
-            prof = greedy_profile(engine, req, f"bf16 request ({name})")
-            row[f"greedy_{name}_busy_ms"], row[f"greedy_{name}_wall_ms"] = (
-                prof["device_busy_ms"], prof["median_wall_ms"])
+        for dtype, tag, names in (("bfloat16", "", ("a", "b")), ("float32", "_f32", ("b",))):
+            engine = _greedy_engine(device, dtype, True)
+            for name in names:
+                req = _request(1, 32, 4) if name == "a" else _request(2, 24, 20)
+                engine.greedy(req)
+                prof = greedy_profile(engine, req, f"{dtype} request ({name})")
+                row[f"greedy{tag}_{name}_busy_ms"], row[f"greedy{tag}_{name}_wall_ms"] = (
+                    prof["device_busy_ms"], prof["median_wall_ms"])
     print(json.dumps(row))
 
 
@@ -4315,7 +4449,9 @@ def main() -> int:
                         "launches_parallel": {f"rank{r}": c[key] for r, c in enumerate(parallel_launches)},
                         **({"mixed_pairs": modes["k4_mixed"], "decoder_shape_h4": phases["K4 decoder", "bf16"]}
                            if key == "K4" else {}),
-                        **({"one_layer": phases["K5 layer", "bf16"]} if key == "K5" else {})})
+                        **({"one_layer": phases["K5 layer", "bf16"]} if key == "K5" else {}),
+                        **({"f32": phases[key, "f32"]} if (key, "f32") in phases else {}),
+                        **({"f32_eval_batch": phases["K2 eval batch", "f32"]} if key == "K2" else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4328,6 +4464,8 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2], greedy="--no-greedy" not in sys.argv))
     if sys.argv[1:2] == ["--k3-phases"]:
         sys.exit(k3_phases_main())
+    if sys.argv[1:2] == ["--attention-phases"]:
+        sys.exit(attention_phases_main())
     if sys.argv[1:2] == ["--heldout"]:  # --heldout SEED [SEED ...]
         sys.exit(heldout_main([int(a) for a in sys.argv[2:]]))
     sys.exit(main())

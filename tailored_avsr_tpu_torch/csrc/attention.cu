@@ -13,9 +13,11 @@
 // What bounds it on the H100: per (batch, head) the kernel does 4*T^2*dk
 // FLOPs (6*T^2*dk with the in-kernel rel-pos term) on O(T*dk) bytes, plus
 // B*H*T^2 bias elements streamed from HBM in the dense-bias form. At the
-// encoder's T = 100 the bf16 bias form is bound by its bytes (~9 MB); at
-// T = 500 K1's bytes (31 MB) and products (9.2 GFLOP at B=24, H=4) bound it
-// about equally (~9 us each).
+// encoder's T = 100 the bias form is bound by its bytes (~9 MB in bf16,
+// ~18 MB in f32); at T = 500 K1's bytes (31 MB in bf16) and products
+// (9.2 GFLOP at B=24, H=4) bound bf16 about equally (~9 us each), while
+// f32 K1, on the CUDA cores' 67 TFLOP/s, is bound by its products (0.138
+// ms against 0.018 ms of bytes).
 //
 // bf16 K1 and K2 (all three modes) run on the tensor cores
 // (flash_attention_tc_kernel): one 128-thread block owns a (batch*head,
@@ -52,16 +54,48 @@
 // ldmatrix (52 ldmatrix.x4 and 104 mma a warp and key tile) at 8 warps an
 // SM, plus the strip round trip; wgmma and TMA would be next.
 //
-// f32 K1 and K2 keep the first template (flash_attention_kernel), f32 FMA
-// loops from shared memory: f32 is the parity dtype (the greedy f32 gate
-// wants ids identical to the eager path, which TF32 products would spend).
-// There one block owns a (batch*head, 64-query tile) pair and loops over
-// 64-key tiles with an online softmax; the 256 threads form a 16x16 grid,
-// each owning 4 query rows and 4 key columns of the score tile and 4 rows by
-// dk/16 columns of the accumulator. The rel-pos tile is index arithmetic
-// over the same span of BQ+BK-1 table rows (no barrel shifter and no
-// block-aligned re-basing: those were Mosaic workarounds). The ragged edge
-// (T not a multiple of 64) is masked in both kernels.
+// f32 K1 and K2 (all three modes) run on the CUDA cores in exact IEEE f32
+// (f32::flash_attention_f32_kernel): f32 is the parity dtype (the greedy
+// f32 gate wants ids identical to the eager path, which TF32 products would
+// spend), so every product and sum is an f32 FMA and no operand is rounded
+// to TF32. One 256-thread block owns a (batch*head, 128-query tile); its 8
+// warps are 4 row warps (32 query rows each) by 2 key halves (32 keys of
+// every 64-key tile each). Each warp keeps its own online softmax over its
+// half of the keys; at the end the two halves of a row warp merge through
+// shared memory. Register blocking: a thread owns 8 consecutive rows x 4
+// consecutive keys of the score tile and 8 rows x 8 dims of the output.
+// Every tile stays row-major (64 floats a row) and is read along d as
+// float4s, so a step of 4 dims costs 8 Q and 4 K reads of 16 bytes for 128
+// FMAs; the 16-byte chunks of a row are XOR-swizzled by (row / 4) % 8, so
+// the 8 lanes of a quarter warp read distinct banks or one broadcast
+// address. The rel-pos term is Toeplitz: a thread's rows r0..r0+7 and keys
+// c0..c0+3 need table rows T-1-i+j from only 11 consecutive span rows, so
+// per 4 dims it adds 8 Q_rel and 11 table reads for another 128 FMAs into
+// the same score registers. K, V, the bias and the table come in by
+// cp.async (16 bytes; the f32 bias in 8 or 4 when T is not a multiple of
+// 4), double-buffered: tile j+1 is in flight while tile j is multiplied.
+// The table is a ring of four 64-row chunks, each fetched once: tile j
+// reads span row 127 - r + c, chunks j..j+2, while chunk j+3 is in flight;
+// rows outside [0, 2T-1) are zero-filled (they feed only masked keys or
+// rows past T). P makes a warp-local trip through a 32 x 32 key-major strip
+// (the owner of an output row and dim needs P over all 32 keys, which 8
+// lanes hold): per key 2 P and 2 V float4 reads for 64 FMAs. Logits are
+// base-2 (log2 e folded into the scale) and go through the SFU's ex2 with
+// subnormal results flushed to 0. Row warps whose 32 rows lie past T and
+// key halves past T skip their products, and P . V stops after the half's
+// last real key (4 at a time): at T = 100 the products cover 128 x 128
+// scores for Q . K^T and 128 x 100 for P . V; at T = 500, 512 x 512
+// (1.05x). Shared memory a block: 224.5 KB in mode 2 (Q, Q_rel, two K and
+// V stages, the table ring, strips), 192.5 KB in mode 1, 128.5 KB in mode
+// 0: one block of 8 warps an SM; 250, 248 and 234 registers a thread, no
+// spills (ptxas, sm_90a). What bounds it (cut-out timings, H100): the
+// three product loops run at ~55-65 % of the FMA rate, held by their
+// shared reads (the rel-pos term's 19 reads a 4-dim step make it cost
+// ~1.4x Q . K^T) and the FMA issue slots they share with addresses and
+// loads; around them, with one block an SM and two barriers a tile, the
+// softmax and the first tile's loads of each wave do not overlap any
+// product (~0.1 of K1's 0.31 ms at B=24 H=4 T=500), and at T = 100 those
+// fixed costs are most of the time.
 
 #include <math.h>
 
@@ -69,219 +103,7 @@
 
 namespace {
 
-using avsr::store;
-using avsr::to_f32;
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NTHREADS = 256;
-constexpr float NEG_INF = -1.0e30f;  // finite, as in the TPU kernel
-
 enum { MODE_NONE = 0, MODE_DENSE = 1, MODE_RELPOS = 2 };
-
-template <int DK, int MODE>
-constexpr size_t smem_floats() {
-  return size_t(BQ) * (DK + 1)                  // q tile
-         + 2 * size_t(BK) * (DK + 1)            // k, v tiles
-         + size_t(BQ) * (BK + 1)                // probabilities
-         + BK                                   // key validity
-         + (MODE == MODE_RELPOS                 // q_rel tile, table span
-                ? size_t(BQ) * (DK + 1) + size_t(BQ + BK - 1) * (DK + 1)
-                : 0);
-}
-
-// Rows [row0, row0 + nrows) of a (rows_total, DK) matrix into shared memory
-// with row stride DK + 1 (conflict-free column reads); rows outside
-// [0, rows_total) read as 0.
-template <typename T, int DK>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int row0,
-                                          int nrows, int rows_total) {
-  for (int idx = threadIdx.x; idx < nrows * DK; idx += NTHREADS) {
-    const int r = idx / DK, d = idx - r * DK;
-    const int row = row0 + r;
-    dst[r * (DK + 1) + d] =
-        (row >= 0 && row < rows_total) ? to_f32(src[size_t(row) * DK + d]) : 0.f;
-  }
-}
-
-template <typename T, int DK, int MODE>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ bias,
-                           const T* __restrict__ q_rel, const T* __restrict__ pos,
-                           const unsigned char* __restrict__ mask, T* __restrict__ out,
-                           int t_len, int heads, float scale) {
-  static_assert(DK % 16 == 0, "dk must be a multiple of 16");
-  static_assert(BQ == 64 && BK == 64 && NTHREADS == 256, "thread map assumes 64x64 tiles");
-  constexpr int LD = DK + 1;
-  constexpr int SLD = BK + 1;
-  constexpr int NDC = DK / 16;  // accumulator columns per thread
-
-  extern __shared__ float smem[];
-  float* s_q = smem;
-  float* s_k = s_q + BQ * LD;
-  float* s_v = s_k + BK * LD;
-  float* s_p = s_v + BK * LD;
-  float* s_valid = s_p + BQ * SLD;
-  float* s_qr = s_valid + BK;  // MODE_RELPOS only
-  float* s_pos = s_qr + BQ * LD;  // MODE_RELPOS only
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh - b * heads;
-  const size_t head_off = size_t(bh) * t_len * DK;
-  const int n_pos = 2 * t_len - 1;
-
-  load_rows<T, DK>(s_q, q + head_off, q0, BQ, t_len);
-  if constexpr (MODE == MODE_RELPOS) load_rows<T, DK>(s_qr, q_rel + head_off, q0, BQ, t_len);
-
-  float m[4], l[4], acc[4][NDC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = NEG_INF;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NDC; ++c) acc[a][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < t_len; k0 += BK) {
-    __syncthreads();  // every reader of the previous tile is done
-    load_rows<T, DK>(s_k, k + head_off, k0, BK, t_len);
-    load_rows<T, DK>(s_v, v + head_off, k0, BK, t_len);
-    if (tid < BK) {
-      const int j = k0 + tid;
-      s_valid[tid] = (j < t_len && mask[size_t(b) * t_len + j]) ? 1.f : 0.f;
-    }
-    if constexpr (MODE == MODE_RELPOS) {
-      // query i = q0 + r and key j = k0 + c read table row T-1-i+j,
-      // which is row (BQ-1-r+c) of the span starting at `base`
-      const int base = t_len - q0 - BQ + k0;
-      load_rows<T, DK>(s_pos, pos + size_t(h) * n_pos * DK, base, BQ + BK - 1, n_pos);
-    }
-    __syncthreads();
-
-    // scores for rows ty+16a, columns tx+16c
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DK; ++d) {
-      float qa[4], kc[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = s_q[(ty + 16 * a) * LD + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kc[c] = s_k[(tx + 16 * c) * LD + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
-    }
-
-    if constexpr (MODE == MODE_RELPOS) {
-      // (a, c) reads span row u0 + 16*(c - a): seven distinct rows per thread
-      const int u0 = BQ - 1 - ty + tx;
-      float r[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) r[a][c] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DK; ++d) {
-        float qa[4], pe[7];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) qa[a] = s_qr[(ty + 16 * a) * LD + d];
-#pragma unroll
-        for (int e = 0; e < 7; ++e) pe[e] = s_pos[(u0 + 16 * (e - 3)) * LD + d];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) r[a][c] = fmaf(qa[a], pe[c - a + 3], r[a][c]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] = (s[a][c] + r[a][c]) * scale;
-    } else if constexpr (MODE == MODE_DENSE) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = q0 + ty + 16 * a;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = k0 + tx + 16 * c;
-          const float bv =
-              (i < t_len && j < t_len) ? to_f32(bias[(size_t(bh) * t_len + i) * t_len + j]) : 0.f;
-          s[a][c] = s[a][c] * scale + bv * scale;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] *= scale;
-    }
-
-    // online softmax; the 16 threads of a row are one half-warp
-    float valid[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) valid[c] = s_valid[tx + 16 * c];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (valid[c] == 0.f) s[a][c] = NEG_INF;
-        mx = fmaxf(mx, s[a][c]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[a], mx);
-      const float corr = expf(m[a] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // a fully masked tile has m_new == NEG_INF and exp(0) == 1: the
-        // validity factor keeps those probabilities at 0
-        const float p = valid[c] * expf(s[a][c] - m_new);
-        s_p[(ty + 16 * a) * SLD + tx + 16 * c] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[a] = l[a] * corr + sum;
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < NDC; ++c) acc[a][c] *= corr;
-    }
-    __syncthreads();
-
-    // acc += P . V
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pa[4], vc[NDC];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = s_p[(ty + 16 * a) * SLD + j];
-#pragma unroll
-      for (int c = 0; c < NDC; ++c) vc[c] = s_v[j * LD + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < NDC; ++c) acc[a][c] = fmaf(pa[a], vc[c], acc[a][c]);
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i >= t_len) continue;
-#pragma unroll
-    for (int c = 0; c < NDC; ++c)
-      store(&out[head_off + size_t(i) * DK + tx + 16 * c], l[a] > 0.f ? acc[a][c] / l[a] : 0.f);
-  }
-}
 
 struct AttnArgs {
   const void *q, *k, *v, *bias, *q_rel, *pos;
@@ -290,6 +112,353 @@ struct AttnArgs {
   int batch, heads, t_len;
   cudaStream_t stream;
 };
+
+// f32 K1 and K2 on the CUDA cores, exact f32 (see the header)
+namespace f32 {
+
+constexpr int DK = 64;
+constexpr int BQ = 128;            // query rows a block: 32 a row warp
+constexpr int BK = 64;             // keys a tile: 32 a key half
+constexpr int NWARPS = 8;          // 4 row warps x 2 key halves
+constexpr int NTHREADS = 32 * NWARPS;
+constexpr int CH = DK / 4;         // 16-byte chunks a row
+constexpr int NSLOT = 4;           // MODE_RELPOS: 64-row table chunks in the ring
+constexpr int STRIP = 32 * 32;     // a warp's P: 32 keys x 32 rows
+constexpr float NEG = -1.0e30f;    // finite, as in the TPU kernel
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(BQ == 4 * 32 && BK == 2 * 32 && NTHREADS >= BK && DK == 64,
+              "the warp map assumes 4 row warps and 2 key halves of 32, and 64-float rows");
+
+constexpr size_t smem_bytes(int mode) {
+  return (size_t(BQ) * DK                                                         // q tile
+          + (mode == MODE_RELPOS ? size_t(BQ) * DK + size_t(NSLOT) * BK * DK : 0)  // q_rel, table ring
+          + 2 * 2 * size_t(BK) * DK                                               // k, v: two stages
+          + (mode == MODE_DENSE ? 2 * size_t(BQ) * BK : 0)                        // bias: two stages
+          + size_t(NWARPS) * STRIP                                                // P strips
+          + 2 * BK) * sizeof(float);                                              // key validity: two stages
+}
+
+// Float offset of 16-byte chunk p of row r in a swizzled 64-float-row tile.
+__device__ __forceinline__ int swz(int r, int p) { return r * DK + 4 * (p ^ ((r >> 2) & 7)); }
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// 2^x by the SFU's ex2 (exp2f's instruction), results below 2^-126 flushed
+// to 0: a probability that small is below every row sum's last bit
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// acc + a . b over 4 dims, in order
+__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// Rows [row0, row0 + NROWS) of a (rows_total, 64) f32 matrix into a swizzled
+// tile by 16-byte copies; rows outside [0, rows_total) are zero-filled.
+template <int NROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0,
+                                          int rows_total) {
+  for (int c = threadIdx.x; c < NROWS * CH; c += NTHREADS) {
+    const int r = c / CH, p = c % CH, row = row0 + r;
+    const bool ok = row >= 0 && row < rows_total;
+    avsr::cp_async<16>(dst + swz(r, p), src + size_t(ok ? row : 0) * DK + 4 * p, ok);
+  }
+}
+
+// The (BQ, BK) bias tile at (q0, k0) of a (t_len, t_len) matrix, row-major,
+// VEC floats a copy (t_len % VEC == 0, so a copy is all inside or all past
+// the edge); past the edge zero-filled.
+template <int VEC>
+__device__ __forceinline__ void load_bias(float* dst, const float* __restrict__ src, int q0, int k0,
+                                          int t_len) {
+  constexpr int PER_ROW = BK / VEC;
+  for (int c = threadIdx.x; c < BQ * PER_ROW; c += NTHREADS) {
+    const int r = c / PER_ROW, col = (c % PER_ROW) * VEC, row = q0 + r;
+    const bool ok = row < t_len && k0 + col < t_len;
+    avsr::cp_async<VEC * 4>(dst + r * BK + col, src + (ok ? size_t(row) * t_len + k0 + col : 0), ok);
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ bias,
+                               const float* __restrict__ q_rel, const float* __restrict__ pos,
+                               const unsigned char* __restrict__ mask, float* __restrict__ out,
+                               int t_len, int heads, int bias_vec, float scale_log2) {
+  constexpr bool REL = MODE == MODE_RELPOS, DENSE = MODE == MODE_DENSE;
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;
+  float* s_qr = s_q + BQ * DK;                       // REL only
+  float* s_pos = s_qr + (REL ? BQ * DK : 0);         // REL only: chunk c in slot c % NSLOT
+  float* s_k = s_pos + (REL ? NSLOT * BK * DK : 0);  // stage st at s_k + st * BK * DK
+  float* s_v = s_k + 2 * BK * DK;
+  float* s_b = s_v + 2 * BK * DK;                    // DENSE only
+  float* s_p = s_b + (DENSE ? 2 * BQ * BK : 0);      // warp w's strip at s_p + w * STRIP
+  float* s_valid = s_p + NWARPS * STRIP;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = lane >> 3, kg = lane & 7;  // row group; key group (the dims group in P . V)
+  const int r0 = 32 * (warp & 3) + 8 * rg;  // this thread's rows r0.. r0+7 of the tile
+  const int c0 = 32 * (warp >> 2);          // this warp's key half: keys c0.. c0+31 of a tile
+  const int q0 = blockIdx.x * BQ, bh = blockIdx.y, b = bh / heads;
+  const size_t head_off = size_t(bh) * t_len * DK;
+  const float* bias_head = DENSE ? bias + size_t(bh) * t_len * t_len : nullptr;
+  const int n_pos = 2 * t_len - 1;
+  const float* pos_head = REL ? pos + size_t(bh - b * heads) * n_pos * DK : nullptr;
+  const int table0 = t_len - q0 - BQ;  // REL: table row of chunk 0's first row
+  const int n_tiles = (t_len + BK - 1) / BK;
+  const bool rows_real = q0 + 32 * (warp & 3) < t_len;  // warp-uniform: some of its rows are real
+
+  auto load_chunk = [&](int c) {
+    load_rows<BK>(s_pos + (c % NSLOT) * BK * DK, pos_head, table0 + c * BK, n_pos);
+  };
+  auto load_tile = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    load_rows<BK>(s_k + st * BK * DK, k + head_off, k0, t_len);
+    load_rows<BK>(s_v + st * BK * DK, v + head_off, k0, t_len);
+    if constexpr (DENSE) {
+      float* d = s_b + st * BQ * BK;
+      switch (bias_vec) {
+        case 4: load_bias<4>(d, bias_head, q0, k0, t_len); break;
+        case 2: load_bias<2>(d, bias_head, q0, k0, t_len); break;
+        default: load_bias<1>(d, bias_head, q0, k0, t_len); break;
+      }
+    }
+    if constexpr (REL) load_chunk(kt + 2);  // tile kt reads chunks kt.. kt + 2
+  };
+  // key validity of tile kt for thread tid < BK; read a tile ahead, stored
+  // to shared memory at the top of the tile's iteration
+  auto key_valid = [&](int kt) {
+    const int j = kt * BK + tid;
+    return tid < BK && j < t_len && mask[size_t(b) * t_len + j] != 0;
+  };
+
+  load_rows<BQ>(s_q, q + head_off, q0, t_len);
+  if constexpr (REL) {
+    load_rows<BQ>(s_qr, q_rel + head_off, q0, t_len);
+    load_chunk(0);
+    load_chunk(1);
+  }
+  load_tile(0, 0);
+  avsr::cp_async_commit();
+  bool valid_next = key_valid(0);
+
+  float o[8][8];  // output rows r0 + a, dims 4 kg.. +3 and 32 + 4 kg.. +3
+  float m[8], l[8];  // running max (base-2 logits) of rows r0 + a; this thread's part of the sums
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    m[a] = NEG;
+    l[a] = 0.f;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) o[a][d] = 0.f;
+  }
+  // swizzle keys of rows r0.. r0+3 and r0+4.. r0+7 (r0 is a multiple of 8)
+  const int qkey0 = (r0 >> 2) & 7, qkey1 = qkey0 ^ 1;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt & 1, k0 = kt * BK;
+    if (tid < BK) s_valid[st * BK + tid] = valid_next ? 1.f : 0.f;
+    if (kt + 1 < n_tiles) {
+      load_tile(kt + 1, st ^ 1);
+      avsr::cp_async_commit();
+      valid_next = key_valid(kt + 1);
+      avsr::cp_async_wait<1>();
+    } else {
+      avsr::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (rows_real && k0 + c0 < t_len) {
+      // S = Q . K^T (+ the rel-pos term) for rows r0 + a, keys c0 + 4 kg + e
+      // (key rows c0 + 4 kg.. +3 share swizzle key kg: c0 / 4 is 0 or 8)
+      const float* qrow = s_q + r0 * DK;
+      const float* krow = s_k + st * BK * DK + (c0 + 4 * kg) * DK;
+      // REL: pair (a, e) reads span row u0 + 7 - a + e; the 12 rows from u0
+      // (a multiple of 4) are three groups of 4 in one chunk each
+      const int u0 = BQ - 8 - r0 + c0 + 4 * kg;
+      const float* trow[3];
+      int tkey[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const int u = u0 + 4 * g;
+        trow[g] = s_pos + ((kt + (u >> 6)) % NSLOT) * BK * DK + (u & (BK - 1)) * DK;
+        tkey[g] = (u >> 2) & 7;
+      }
+      float s[8][4];
+#pragma unroll
+      for (int a = 0; a < 8; ++a) s[a][0] = s[a][1] = s[a][2] = s[a][3] = 0.f;
+#pragma unroll 2
+      for (int p = 0; p < CH; ++p) {
+        float4 qa[8], kc[4];
+#pragma unroll
+        for (int a = 0; a < 8; ++a) qa[a] = ld4(qrow + a * DK + 4 * (p ^ (a < 4 ? qkey0 : qkey1)));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) kc[e] = ld4(krow + e * DK + 4 * (p ^ kg));
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[a][e] = dot4(s[a][e], qa[a], kc[e]);
+        if constexpr (REL) {
+#pragma unroll
+          for (int a = 0; a < 8; ++a)
+            qa[a] = ld4(s_qr + r0 * DK + a * DK + 4 * (p ^ (a < 4 ? qkey0 : qkey1)));
+#pragma unroll
+          for (int mm = 0; mm < 11; ++mm) {
+            const float4 w = ld4(trow[mm >> 2] + (mm & 3) * DK + 4 * (p ^ tkey[mm >> 2]));
+#pragma unroll
+            for (int a = 0; a < 8; ++a) {
+              const int e = mm + a - 7;
+              if (e >= 0 && e < 4) s[a][e] = dot4(s[a][e], qa[a], w);
+            }
+          }
+        }
+      }
+
+      // bias, scale (to base-2 logits), key mask, online softmax over the
+      // half; the 8 lanes of a row group hold a row's 32 keys
+      const float4 vk = ld4(s_valid + st * BK + c0 + 4 * kg);
+      const float valid[4] = {vk.x, vk.y, vk.z, vk.w};
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        float add[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (DENSE) {
+          const float4 bv = ld4(s_b + st * BQ * BK + (r0 + a) * BK + c0 + 4 * kg);
+          add[0] = bv.x;
+          add[1] = bv.y;
+          add[2] = bv.z;
+          add[3] = bv.w;
+        }
+        float mx = m[a];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[a][e] = valid[e] != 0.f ? (s[a][e] + add[e]) * scale_log2 : NEG;
+          mx = fmaxf(mx, s[a][e]);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float corr = ex2(m[a] - mx);
+        m[a] = mx;
+        l[a] *= corr;
+#pragma unroll
+        for (int d = 0; d < 8; ++d) o[a][d] *= corr;
+        // a masked key is exactly 0 (its logit is NEG, and while every key
+        // so far is masked the max is NEG too)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[a][e] = s[a][e] == NEG ? 0.f : ex2(s[a][e] - mx);
+          l[a] += s[a][e];
+        }
+      }
+
+      // P into the warp's strip: key row 4 kg + e (swizzle key kg), rows r0.. in chunks 2 rg, 2 rg + 1
+      float* strip = s_p + warp * STRIP;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float* row = strip + (4 * kg + e) * 32;
+        *reinterpret_cast<float4*>(row + 4 * ((2 * rg) ^ kg)) = make_float4(s[0][e], s[1][e], s[2][e], s[3][e]);
+        *reinterpret_cast<float4*>(row + 4 * ((2 * rg + 1) ^ kg)) =
+            make_float4(s[4][e], s[5][e], s[6][e], s[7][e]);
+      }
+      __syncwarp();
+
+      // O += P . V over the half's real keys, 4 at a time (P is 0 past them
+      // and V's rows there are zero-filled); key j's strip row and V row
+      // c0 + j share swizzle key j / 4
+      const float* vrow = s_v + st * BK * DK + c0 * DK;
+      const int n4 = (min(32, t_len - k0 - c0) + 3) >> 2;
+      for (int j4 = 0; j4 < n4; ++j4) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * j4 + jj;
+          const float4 p0 = ld4(strip + j * 32 + 4 * ((2 * rg) ^ j4));
+          const float4 p1 = ld4(strip + j * 32 + 4 * ((2 * rg + 1) ^ j4));
+          const float4 v0 = ld4(vrow + j * DK + 4 * (kg ^ j4));
+          const float4 v1 = ld4(vrow + j * DK + 4 * ((8 + kg) ^ j4));
+          const float pa[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+          for (int a = 0; a < 8; ++a) {
+            o[a][0] = fmaf(pa[a], v0.x, o[a][0]);
+            o[a][1] = fmaf(pa[a], v0.y, o[a][1]);
+            o[a][2] = fmaf(pa[a], v0.z, o[a][2]);
+            o[a][3] = fmaf(pa[a], v0.w, o[a][3]);
+            o[a][4] = fmaf(pa[a], v1.x, o[a][4]);
+            o[a][5] = fmaf(pa[a], v1.y, o[a][5]);
+            o[a][6] = fmaf(pa[a], v1.z, o[a][6]);
+            o[a][7] = fmaf(pa[a], v1.w, o[a][7]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every reader of stage st (and of the ring's chunk kt) is done before reuse
+  }
+
+  // the two key halves of a row warp merge: half 1 hands its (m, l, O) to
+  // half 0 through the k stages (free after the last barrier); a row whose
+  // keys are all masked has l = 0 in both and gives exactly 0
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    l[a] += __shfl_xor_sync(0xffffffffu, l[a], 1);
+    l[a] += __shfl_xor_sync(0xffffffffu, l[a], 2);
+    l[a] += __shfl_xor_sync(0xffffffffu, l[a], 4);
+  }
+  float* x_o = s_k;   // (BQ, DK) row-major
+  float* x_ml = s_v;  // m of row r at [r], l at [BQ + r]
+  if (c0 != 0 && rows_real) {
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      float* row = x_o + (r0 + a) * DK;
+      *reinterpret_cast<float4*>(row + 4 * kg) = make_float4(o[a][0], o[a][1], o[a][2], o[a][3]);
+      *reinterpret_cast<float4*>(row + 32 + 4 * kg) = make_float4(o[a][4], o[a][5], o[a][6], o[a][7]);
+      if (kg == 0) {
+        x_ml[r0 + a] = m[a];
+        x_ml[BQ + r0 + a] = l[a];
+      }
+    }
+  }
+  __syncthreads();
+  if (c0 != 0 || !rows_real) return;
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int i = q0 + r0 + a;
+    if (i >= t_len) continue;
+    const float m1 = x_ml[r0 + a], l1 = x_ml[BQ + r0 + a], mn = fmaxf(m[a], m1);
+    const float f0 = ex2(m[a] - mn), f1 = ex2(m1 - mn), lt = l[a] * f0 + l1 * f1;
+    const float* row = x_o + (r0 + a) * DK;
+    const float4 h0 = ld4(row + 4 * kg), h1 = ld4(row + 32 + 4 * kg);
+    const float x[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+    float y[8];
+#pragma unroll
+    for (int d = 0; d < 8; ++d) y[d] = lt > 0.f ? fmaf(o[a][d], f0, x[d] * f1) / lt : 0.f;
+    float* dst = out + head_off + size_t(i) * DK;
+    *reinterpret_cast<float4*>(dst + 4 * kg) = make_float4(y[0], y[1], y[2], y[3]);
+    *reinterpret_cast<float4*>(dst + 32 + 4 * kg) = make_float4(y[4], y[5], y[6], y[7]);
+  }
+}
+
+template <int MODE>
+cudaError_t launch(const AttnArgs& a) {
+  constexpr size_t smem = smem_bytes(MODE);
+  constexpr auto kernel = &flash_attention_f32_kernel<MODE>;
+  const cudaError_t err = avsr::allow_dynamic_smem<kernel>(smem);
+  if (err != cudaSuccess) return err;
+  // widest bias copy that keeps every row start aligned
+  const int t = a.t_len;
+  const int bias_vec = t % 4 == 0 ? 4 : t % 2 == 0 ? 2 : 1;
+  const dim3 grid((t + BQ - 1) / BQ, a.batch * a.heads);
+  kernel<<<grid, NTHREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const float*>(a.bias), static_cast<const float*>(a.q_rel),
+      static_cast<const float*>(a.pos), a.mask, static_cast<float*>(a.out), t, a.heads, bias_vec,
+      float(LOG2E / sqrt(double(DK))));
+  return cudaGetLastError();
+}
+
+}  // namespace f32
 
 // bf16 K1 and K2 on the tensor cores (see the header)
 namespace tc {
@@ -677,35 +846,11 @@ cudaError_t launch(const AttnArgs& a) {
 
 }  // namespace tc
 
-template <typename T, int DK, int MODE>
-cudaError_t launch(const AttnArgs& a) {
-  constexpr size_t smem = smem_floats<DK, MODE>() * sizeof(float);
-  constexpr auto kernel = &flash_attention_kernel<T, DK, MODE>;
-  const cudaError_t err = avsr::allow_dynamic_smem<kernel>(smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.t_len + BQ - 1) / BQ, a.batch * a.heads);
-  kernel<<<grid, NTHREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.bias), static_cast<const T*>(a.q_rel),
-      static_cast<const T*>(a.pos), a.mask, static_cast<T*>(a.out), a.t_len, a.heads,
-      float(1.0 / sqrt(double(DK))));
-  return cudaGetLastError();
-}
-
-template <typename T, int DK>
-cudaError_t dispatch_mode(int mode, const AttnArgs& a) {
-  switch (mode) {
-    case MODE_NONE: return launch<T, DK, MODE_NONE>(a);
-    case MODE_DENSE: return launch<T, DK, MODE_DENSE>(a);
-    case MODE_RELPOS: return launch<T, DK, MODE_RELPOS>(a);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// dk = 64 is the head size of every config in the repository (256-d, 4 heads)
-template <typename T>
-cudaError_t dispatch_dk(int dk, int mode, const AttnArgs& a) {
-  if (dk == 64) return dispatch_mode<T, 64>(mode, a);
+cudaError_t dispatch_f32(int dk, int mode, const AttnArgs& a) {
+  if (dk != f32::DK) return cudaErrorInvalidValue;
+  if (mode == MODE_NONE) return f32::launch<MODE_NONE>(a);
+  if (mode == MODE_DENSE) return f32::launch<MODE_DENSE>(a);
+  if (mode == MODE_RELPOS) return f32::launch<MODE_RELPOS>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -721,8 +866,9 @@ cudaError_t dispatch_bf16(int dk, int mode, const AttnArgs& a) {
 
 // q, k, v, q_rel, out: (B*H, T, dk) contiguous; bias: (B*H, T, T) for
 // mode 1; pos: (H, 2T-1, dk) for mode 2; mask: (B, T) bytes, nonzero = valid
-// key. Unused pointers may be null; in bf16 q, k, v, bias, q_rel, pos and
-// out 16-byte aligned.
+// key. Unused pointers may be null; q, k, v, bias, q_rel, pos and out
+// 16-byte aligned (both types copy 16 bytes at a time). dk = 64, the head
+// size of every config in the repository.
 // Returns the launch's cudaError_t.
 extern "C" int avsr_flash_attention(const void* q, const void* k, const void* v,
                                     const void* bias, const void* q_rel, const void* pos,
@@ -730,5 +876,5 @@ extern "C" int avsr_flash_attention(const void* q, const void* k, const void* v,
                                     int dk, int is_bf16, int mode, void* stream) {
   const AttnArgs a{q,   k,    v,     bias,  q_rel, pos, static_cast<const unsigned char*>(mask),
                    out, batch, heads, t_len, static_cast<cudaStream_t>(stream)};
-  return int(is_bf16 ? dispatch_bf16(dk, mode, a) : dispatch_dk<float>(dk, mode, a));
+  return int(is_bf16 ? dispatch_bf16(dk, mode, a) : dispatch_f32(dk, mode, a));
 }

@@ -1,8 +1,9 @@
 """Flash attention with an additive bias or an in-kernel rel-pos term.
 
 Counterpart of ``tailored_avsr_tpu/ops/flash_attention.py``. Both wrappers
-launch the one CUDA kernel template in ``csrc/attention.cu`` (see its header
-for the design and what bounds it on the H100):
+launch ``csrc/attention.cu`` (bf16 on the tensor cores, f32 in exact f32 on
+the CUDA cores; see its header for the designs and what bounds them on the
+H100):
 
 - ``flash_attention_relpos`` (K1) replaces ``_attn_rel_kernel``: the
   Transformer-XL term ``rel_shift(q_rel . pos^T)`` is computed inside the
@@ -59,10 +60,10 @@ def flash_attention_relpos_plain(
 
 
 def check_inputs(mode: int, q, k, v, bias, q_rel, pos, mask) -> None:
-    """Raise on inputs the kernel does not take. The bf16 tensor-core forms of
-    K1 and K2 copy 16 bytes at a time, so they also want every tensor they
-    copy (q, k, v and the bias, or q_rel and the rel table ``pos``) to start
-    16-byte aligned."""
+    """Raise on inputs the kernel does not take. Both forms of K1 and K2 (bf16
+    on the tensor cores, f32 on the CUDA cores) copy 16 bytes at a time, so
+    they also want every tensor they copy (q, k, v and the bias, or q_rel
+    and the rel table ``pos``) to start 16-byte aligned."""
     b, h, t, dk = q.shape
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, got {q.dtype}")
@@ -78,9 +79,8 @@ def check_inputs(mode: int, q, k, v, bias, q_rel, pos, mask) -> None:
         check_kernel_input(q_rel, "q_rel", (b, h, t, dk), q.dtype)
         check_kernel_input(pos, "pos", (h, 2 * t - 1, dk), q.dtype)
     check_kernel_input(mask, "mask", (b, t), torch.bool)
-    if q.dtype == torch.bfloat16 and any(
-            x.data_ptr() % 16 for x in (q, k, v, bias, q_rel, pos) if x is not None):
-        raise ValueError("bf16 flash attention kernel: q, k, v, bias, q_rel and pos must be "
+    if any(x.data_ptr() % 16 for x in (q, k, v, bias, q_rel, pos) if x is not None):
+        raise ValueError("flash attention kernel: q, k, v, bias, q_rel and pos must be "
                          "16-byte aligned")
 
 

@@ -184,3 +184,67 @@ def test_wrappers_are_forward_only_and_count_only_launches():
         fc.fused_csgu(x.detach(), torch.ones(4, device="meta"), torch.zeros(4),
                       torch.zeros(3, 1, 4), torch.zeros(4))
 
+
+
+def _flash_check_inputs(b=24, h=4, t=500, dk=64, dtype=torch.float32, bias=True):
+    """Inputs of K1 and K2 at a flagship shape (request (b) by default)."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v, qr = (torch.randn(b, h, t, dk, generator=g).to(dtype) for _ in range(4))
+    pos = torch.randn(h, 2 * t - 1, dk, generator=g).to(dtype)
+    bb = torch.zeros(b, h, t, t, dtype=dtype) if bias else None
+    return q, k, v, bb, qr, pos, torch.ones(b, t, dtype=torch.bool)
+
+
+def test_flash_checks_refuse_what_the_kernel_does_not_take():
+    """The flagship's f32 and bf16 shapes pass (K1 at request (b) 24 x 20 s,
+    T = 500; K2 at request (a) 32 x 4 s, T = 100, with and without bias, and
+    at the eval batch's 4 x 20 s); another type, another head dim, a
+    non-contiguous input and a misaligned f32 view (both types copy 16 bytes
+    at a time) raise."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _, qr, pos, mask = _flash_check_inputs(dtype=dtype, bias=False)
+        fa.check_inputs(fa._MODE_RELPOS, q, k, v, None, qr, pos, mask)
+        for b, t in ((32, 100), (4, 500)):
+            q, k, v, bias, _, _, mask = _flash_check_inputs(b=b, t=t, dtype=dtype)
+            fa.check_inputs(fa._MODE_DENSE, q, k, v, bias, None, None, mask)
+            fa.check_inputs(fa._MODE_NONE, q, k, v, None, None, None, mask)
+    q, k, v, bias, qr, pos, mask = _flash_check_inputs(b=2, t=65)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.check_inputs(fa._MODE_NONE, *(x.half() for x in (q, k, v)), None, None, None, mask)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.check_inputs(fa._MODE_NONE, *(x[..., :32].contiguous() for x in (q, k, v)), None, None,
+                        None, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.check_inputs(fa._MODE_NONE, q, k.transpose(2, 3).contiguous().transpose(2, 3), v, None,
+                        None, None, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.check_inputs(fa._MODE_RELPOS, q, k, v, None, qr, pos.transpose(1, 2).contiguous().transpose(1, 2),
+                        mask)
+    for name in ("q", "k", "v", "bias", "q_rel", "pos"):
+        args = {"q": q, "k": k, "v": v, "bias": bias, "q_rel": None, "pos": None}
+        mode = fa._MODE_DENSE
+        if name in ("q_rel", "pos"):
+            args.update(bias=None, q_rel=qr, pos=pos)
+            mode = fa._MODE_RELPOS
+        x = args[name]
+        off = torch.empty(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+        assert off.is_contiguous() and off.data_ptr() % 16
+        args[name] = off.copy_(x)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.check_inputs(mode, *args.values(), mask)
+
+
+def test_chip_smokes_attention_phase_cuts_still_apply_to_the_f32_template():
+    """``chip_smoke.py --attention-phases`` times copies of
+    ``csrc/attention.cu`` with the f32 template's phases edited out, each
+    edit at its first match: every edit must still find its text, and find
+    it in the f32 template (before the bf16 ``namespace tc``)."""
+    from chip_smoke import ATTENTION_F32_PHASE_CUTS
+    from tailored_avsr_tpu_torch.kernels import build
+
+    src = (build.CSRC / "attention.cu").read_text()
+    for _, cuts in ATTENTION_F32_PHASE_CUTS:
+        for old, new in cuts:
+            at = src.find(old)
+            assert 0 <= at < src.index("namespace tc {"), old
+            src = src.replace(old, new, 1)

@@ -174,15 +174,13 @@ def _attn(b=2, h=2, t=40, dk=64, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_checks_want_aligned_tensors_for_the_bf16_tensor_cores(dtype):
-    """The bf16 K1 and K2 copy 16 bytes at a time; f32 K1 and K2 (FMA
-    template) take any alignment."""
+    """The bf16 K1 and K2 copy 16 bytes at a time, and so do f32 K1 and K2
+    (their cp.async tiles on the CUDA cores): a misaligned bias is refused
+    in both types."""
     q, k, v, bias, mask = _attn(dtype=dtype)
     fa.check_inputs(fa._MODE_DENSE, q, k, v, bias, None, None, mask)
     off = torch.zeros(bias.numel() + 1, dtype=dtype)[1:].view(bias.shape)
-    if dtype == torch.bfloat16:
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            fa.check_inputs(fa._MODE_DENSE, q, k, v, off, None, None, mask)
-    else:
+    with pytest.raises(ValueError, match="16-byte aligned"):
         fa.check_inputs(fa._MODE_DENSE, q, k, v, off, None, None, mask)
     pos = torch.randn(2, 2 * q.shape[2] - 1, 64).to(dtype)
     fa.check_inputs(fa._MODE_RELPOS, q, k, v, None, q, pos, mask)
@@ -195,9 +193,9 @@ def test_flash_checks_want_aligned_tensors_for_the_bf16_tensor_cores(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_relpos_checks_want_aligned_q_rel_and_table_in_bf16(dtype):
-    """bf16 K1 copies q_rel and the rel table by 16-byte cp.async too: a
-    misaligned q_rel, or a table that starts off a 16-byte boundary (a
-    caller's view), is refused; f32 K1 takes them."""
+    """K1 copies q_rel and the rel table by 16-byte cp.async too, in bf16 and
+    in f32: a misaligned q_rel, or a table that starts off a 16-byte
+    boundary (a caller's view), is refused."""
     q, k, v, _, mask = _attn(dtype=dtype)
     t = q.shape[2]
     pos = torch.randn(2, 2 * t - 1, 64).to(dtype)
@@ -205,10 +203,7 @@ def test_relpos_checks_want_aligned_q_rel_and_table_in_bf16(dtype):
     off_pos = torch.zeros(pos.numel() + 1, dtype=dtype)[1:].view(pos.shape)
     fa.check_inputs(fa._MODE_RELPOS, q, k, v, None, q, pos, mask)
     for q_rel, table in ((off_q, pos), (q, off_pos)):
-        if dtype == torch.bfloat16:
-            with pytest.raises(ValueError, match="q_rel and pos must be 16-byte aligned"):
-                fa.check_inputs(fa._MODE_RELPOS, q, k, v, None, q_rel, table, mask)
-        else:
+        with pytest.raises(ValueError, match="q_rel and pos must be 16-byte aligned"):
             fa.check_inputs(fa._MODE_RELPOS, q, k, v, None, q_rel, table, mask)
 
 
