@@ -90,6 +90,7 @@ from tailored_avsr_tpu_torch.train.checkpoint import (
 from tailored_avsr_tpu_torch.train.loop import create_train_state, make_eval_step, make_train_step
 from tailored_avsr_tpu_torch.train.optim import set_optimizer
 from tailored_avsr_tpu_torch.utils.config import load_config, security_checks
+from tailored_avsr_tpu_torch.utils import tracing
 from tailored_avsr_tpu_torch.utils.initialize import initialize
 
 BATCH_KEYS = {
@@ -315,6 +316,7 @@ def run_inference(args, config, tokenizer, converter, transforms, device) -> Non
         if device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=acts)
+        tracing.enable()  # the program's spans over the kernels in the trace
         profiler.start()
     def masked_batches():
         for batch in loader:
@@ -325,6 +327,7 @@ def run_inference(args, config, tokenizer, converter, transforms, device) -> Non
     for batch, results in s2t.stream(masked_batches(), nbest=n_best > 1):
         if profiler is not None:
             profiler.stop()
+            tracing.disable()
             os.makedirs(args.profile_dir, exist_ok=True)
             profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
             print(f"wrote profiler trace to {args.profile_dir}")
@@ -392,7 +395,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--load-lm", default="", type=str)
     parser.add_argument("--ngram-file", default="", type=str, help="ARPA n-gram LM for shallow fusion")
     parser.add_argument("--profile-dir", default="", type=str,
-                        help="write a torch.profiler trace of the first inference batch to this directory")
+                        help="write a torch.profiler trace of the first inference batch, with the program's "
+                        "spans (utils/tracing.py) over its kernels, to this directory")
     parser.add_argument("--resume", action="store_true",
                         help="resume from <output-dir>/models/train_state.pt")
     parser.add_argument("--load-modules", nargs="+", default=["entire-e2e"], type=str)

@@ -55,6 +55,7 @@ from tailored_avsr_tpu_torch.decode.ctc_prefix import (
 from tailored_avsr_tpu_torch.ops.cache_update import write_cache_column, write_step_columns
 from tailored_avsr_tpu_torch.ops.group_attend import to_group
 from tailored_avsr_tpu_torch.ops.kv_quant import quantize_kv_column
+from tailored_avsr_tpu_torch.utils.tracing import span, spanned
 
 NEG_INF = -1.0e10
 
@@ -159,6 +160,7 @@ class BeamSearchResult(NamedTuple):
     lengths: torch.Tensor  # (B, nbest) token count excluding sos/eos
 
 
+@spanned("beam.search")
 def beam_search(
     att_score_fn: Callable,
     ctc_logp: torch.Tensor,  # (B, T, V) CTC log-probs
@@ -228,67 +230,72 @@ def beam_search(
         nonlocal ys, scores, ctc_state, state, fin_tokens, fin_scores, fin_lengths
         pos = i + 1  # position being generated
         ys_flat = ys.reshape(n, lmax + 2)
-        if stateful:
-            att_logp, state = score_fn(ys_flat, pos, state)
-        else:
-            att_logp = score_fn(ys_flat, pos)  # (N, V)
-        # with att_w == 0 (pure CTC) select candidates on the unweighted
-        # decoder posterior; the accumulated totals still use 0 * att
-        sel_w = att_w if att_w > 0.0 else 1.0
-        step_logp = sel_w * att_logp
-        if lm_score_fn is not None and config.lm_weight > 0.0:
-            step_logp = step_logp + config.lm_weight * lm_score_fn(ys_flat, pos)
-        step_logp = step_logp + config.penalty
+        with span("beam.score"):
+            if stateful:
+                att_logp, state = score_fn(ys_flat, pos, state)
+            else:
+                att_logp = score_fn(ys_flat, pos)  # (N, V)
+            # with att_w == 0 (pure CTC) select candidates on the unweighted
+            # decoder posterior; the accumulated totals still use 0 * att
+            sel_w = att_w if att_w > 0.0 else 1.0
+            step_logp = sel_w * att_logp
+            if lm_score_fn is not None and config.lm_weight > 0.0:
+                step_logp = step_logp + config.lm_weight * lm_score_fn(ys_flat, pos)
+            step_logp = step_logp + config.penalty
 
-        # eos gating: block eos before minlen, force eos at maxlen
-        block_eos = (i < minlen)[:, None]  # (B, 1)
-        force_eos = (i >= maxlen - 1)[:, None]
-        gate = torch.zeros((b, v), device=dev)
-        gate = torch.where(block_eos & is_eos, NEG_INF, gate)
-        gate = torch.where(force_eos & ~is_eos, NEG_INF, gate)
-        step_logp = step_logp + gate.repeat_interleave(k, dim=0)
-        step_logp[:, blank_id] += NEG_INF  # blank is never a decoder output
+        with span("beam.select"):
+            # eos gating: block eos before minlen, force eos at maxlen
+            block_eos = (i < minlen)[:, None]  # (B, 1)
+            force_eos = (i >= maxlen - 1)[:, None]
+            gate = torch.zeros((b, v), device=dev)
+            gate = torch.where(block_eos & is_eos, NEG_INF, gate)
+            gate = torch.where(force_eos & ~is_eos, NEG_INF, gate)
+            step_logp = step_logp + gate.repeat_interleave(k, dim=0)
+            step_logp[:, blank_id] += NEG_INF  # blank is never a decoder output
 
-        pre_scores, cand_ids = top_k(step_logp, p)  # (N, P)
-        if att_w == 0.0:
-            pre_scores = pre_scores - torch.gather(att_logp, 1, cand_ids)
+            pre_scores, cand_ids = top_k(step_logp, p)  # (N, P)
+            if att_w == 0.0:
+                pre_scores = pre_scores - torch.gather(att_logp, 1, cand_ids)
+        with span("beam.ctc_prefix"):
+            if use_ctc:
+                psi, r_new = ctc_prefix_score_step(logp_vt, ctc_state, cand_ids, eos, blank_id)
+                cand_scores = pre_scores + config.ctc_weight * (psi - ctc_state.score[:, None])
+            else:
+                cand_scores = pre_scores
+        with span("beam.select"):
+            if ngram_part_fn is not None and config.ngram_weight > 0.0:
+                cand_scores = cand_scores + config.ngram_weight * ngram_part_fn(ys_flat, pos, cand_ids)
+            total = torch.clamp(scores.reshape(n, 1) + cand_scores, min=NEG_INF)  # (N, P)
+
+            # finished (eos) candidates merge into the finished buffer
+            cand_tok = cand_ids.reshape(b, k * p)
+            cand_total = total.reshape(b, k * p)
+            eos_cand = cand_tok == eos
+            fin_cand = torch.where(eos_cand, cand_total, NEG_INF)
+            top_fin, top_fin_idx = top_k(torch.cat([fin_scores, fin_cand], dim=1), k)  # (B, K)
+            from_old = top_fin_idx < k
+            new_src = torch.clamp(top_fin_idx - k, 0, k * p - 1) // p
+            new_fin_tokens = ys[batch_idx, new_src]  # (B, K, L+2)
+            new_fin_tokens[:, :, pos] = eos
+            old_rows = torch.clamp(top_fin_idx, 0, k - 1)
+            fin_tokens = torch.where(from_old[..., None], fin_tokens[batch_idx, old_rows], new_fin_tokens)
+            fin_lengths = torch.where(from_old, fin_lengths[batch_idx, old_rows], i)
+            fin_scores = top_fin
+
+            # alive: the top K non-eos candidates
+            top_alive, top_alive_idx = top_k(torch.where(eos_cand, NEG_INF, cand_total), k)
+            src_hyp = top_alive_idx // p  # (B, K) source slot in the group
+            sel_cand = top_alive_idx % p
+            new_ys = ys[batch_idx, src_hyp]
+            new_ys[:, :, pos] = cand_tok[batch_idx, top_alive_idx]
+            ys, scores = new_ys, top_alive
+
+            g_src = (batch_idx * k + src_hyp).reshape(n)
+            if stateful:  # the scorer state's reorder (with the step write, K5)
+                state = att_gather_fn(state, g_src, pos)
         if use_ctc:
-            psi, r_new = ctc_prefix_score_step(logp_vt, ctc_state, cand_ids, eos, blank_id)
-            cand_scores = pre_scores + config.ctc_weight * (psi - ctc_state.score[:, None])
-        else:
-            cand_scores = pre_scores
-        if ngram_part_fn is not None and config.ngram_weight > 0.0:
-            cand_scores = cand_scores + config.ngram_weight * ngram_part_fn(ys_flat, pos, cand_ids)
-        total = torch.clamp(scores.reshape(n, 1) + cand_scores, min=NEG_INF)  # (N, P)
-
-        # finished (eos) candidates merge into the finished buffer
-        cand_tok = cand_ids.reshape(b, k * p)
-        cand_total = total.reshape(b, k * p)
-        eos_cand = cand_tok == eos
-        fin_cand = torch.where(eos_cand, cand_total, NEG_INF)
-        top_fin, top_fin_idx = top_k(torch.cat([fin_scores, fin_cand], dim=1), k)  # (B, K)
-        from_old = top_fin_idx < k
-        new_src = torch.clamp(top_fin_idx - k, 0, k * p - 1) // p
-        new_fin_tokens = ys[batch_idx, new_src]  # (B, K, L+2)
-        new_fin_tokens[:, :, pos] = eos
-        old_rows = torch.clamp(top_fin_idx, 0, k - 1)
-        fin_tokens = torch.where(from_old[..., None], fin_tokens[batch_idx, old_rows], new_fin_tokens)
-        fin_lengths = torch.where(from_old, fin_lengths[batch_idx, old_rows], i)
-        fin_scores = top_fin
-
-        # alive: the top K non-eos candidates
-        top_alive, top_alive_idx = top_k(torch.where(eos_cand, NEG_INF, cand_total), k)
-        src_hyp = top_alive_idx // p  # (B, K) source slot in the group
-        sel_cand = top_alive_idx % p
-        new_ys = ys[batch_idx, src_hyp]
-        new_ys[:, :, pos] = cand_tok[batch_idx, top_alive_idx]
-        ys, scores = new_ys, top_alive
-
-        g_src = (batch_idx * k + src_hyp).reshape(n)
-        if use_ctc:
-            ctc_state = ctc_prefix_select(ctc_state, psi, r_new, cand_ids, g_src, sel_cand.reshape(n))
-        if stateful:
-            state = att_gather_fn(state, g_src, pos)
+            with span("beam.ctc_prefix"):
+                ctc_state = ctc_prefix_select(ctc_state, psi, r_new, cand_ids, g_src, sel_cand.reshape(n))
 
     def running(i: int, hi: int) -> bool:
         if i >= hi:
@@ -297,7 +304,8 @@ def beam_search(
             return True
         pen = max(config.penalty, 0.0)
         bound = scores.max(dim=1).values + torch.clamp(maxlen - i, min=0).float() * pen
-        return not bool((bound <= fin_scores[:, nbest - 1]).all())  # the one host read
+        with span("beam.exit_read"):
+            return not bool((bound <= fin_scores[:, nbest - 1]).all())  # the one host read
 
     phases = []
     if config.phase_widths and stateful and att_fn_for_width is not None:
@@ -311,7 +319,8 @@ def beam_search(
     i = 0
     for hi, fn in [(w, att_fn_for_width(w)) for w in phases] + [(lmax, att_score_fn)]:
         while running(i, hi):
-            step(i, fn)
+            with span("beam.step"):
+                step(i, fn)
             i += 1
     best_scores, best_idx = top_k(fin_scores, nbest)
     return BeamSearchResult(

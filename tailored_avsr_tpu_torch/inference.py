@@ -123,6 +123,7 @@ from tailored_avsr_tpu_torch.tasks.common import build_model, resolve_device, ta
 from tailored_avsr_tpu_torch.train.checkpoint import load_model, read_state_dict
 from tailored_avsr_tpu_torch.utils.convert import lm_state_dict
 from tailored_avsr_tpu_torch.utils.quantize import quantize_model
+from tailored_avsr_tpu_torch.utils.tracing import call, span
 
 def load_token_list(token_list) -> List[str]:
     """A token-list file (one token per line) or a list of tokens."""
@@ -389,21 +390,22 @@ class Speech2Text:
         value of the float path); every float stream in the model's dtype."""
         keys = ("audio", "audio_lengths", "video", "video_lengths") if self.task == "avsr" else (
             "speech", "speech_lengths")
-        args = [torch.as_tensor(batch[k], device=self.device) for k in keys]
-        for i, a in enumerate(args):
-            if a.dim() < 2:
-                continue  # length vectors
-            if a.dtype == torch.uint8:
-                x = (a.float() / self.video_scale - self.video_mean) / self.video_std
-            elif a.dtype == torch.int16:
-                x = a.float() / 32768.0
-            else:
-                args[i] = a.to(self.dtype)
-                continue
-            lengths = args[i + 1]  # (tensor, lengths) pairs by convention
-            valid = torch.arange(x.shape[1], device=x.device) < lengths[:, None]
-            x = torch.where(valid.reshape(valid.shape + (1,) * (x.dim() - 2)), x, -1.0)
-            args[i] = x.to(self.dtype)
+        with span("s2t.inputs"):
+            args = [torch.as_tensor(batch[k], device=self.device) for k in keys]
+            for i, a in enumerate(args):
+                if a.dim() < 2:
+                    continue  # length vectors
+                if a.dtype == torch.uint8:
+                    x = (a.float() / self.video_scale - self.video_mean) / self.video_std
+                elif a.dtype == torch.int16:
+                    x = a.float() / 32768.0
+                else:
+                    args[i] = a.to(self.dtype)
+                    continue
+                lengths = args[i + 1]  # (tensor, lengths) pairs by convention
+                valid = torch.arange(x.shape[1], device=x.device) < lengths[:, None]
+                x = torch.where(valid.reshape(valid.shape + (1,) * (x.dim() - 2)), x, -1.0)
+                args[i] = x.to(self.dtype)
         return tuple(args)
 
     def __call__(self, batch: Dict) -> List[Tuple[str, List[str], List[int]]]:
@@ -413,21 +415,24 @@ class Speech2Text:
     def nbest(self, batch: Dict) -> List[List[Tuple[str, List[str], List[int], float]]]:
         """Batch dict -> per utterance the n-best list [(text, tokens, ids,
         score)], best first."""
-        return self._data_parallel(self._nbest, batch)
+        with call("s2t.nbest"):
+            return self._data_parallel(self._nbest, batch)
 
     def _nbest(self, batch: Dict) -> List[List[Tuple[str, List[str], List[int], float]]]:
         self._ensure_quantized()
         with torch.inference_mode(), parametrize.cached():
             res, first = self._decode(batch)
-        tokens, lengths, scores = (x.cpu().numpy() for x in (res.tokens, res.lengths, res.scores))
-        results = []
-        for i in range(tokens.shape[0]):
-            hyps = []
-            for j in range(tokens.shape[1]):
-                ids = [int(t) for t in tokens[i, j, first:first + lengths[i, j]]]
-                toks = [self.token_list[t] for t in ids]
-                hyps.append((self.text(toks), toks, ids, float(scores[i, j])))
-            results.append(hyps)
+        with span("s2t.readback"):
+            tokens, lengths, scores = (x.cpu().numpy() for x in (res.tokens, res.lengths, res.scores))
+        with span("s2t.detokenize"):
+            results = []
+            for i in range(tokens.shape[0]):
+                hyps = []
+                for j in range(tokens.shape[1]):
+                    ids = [int(t) for t in tokens[i, j, first:first + lengths[i, j]]]
+                    toks = [self.token_list[t] for t in ids]
+                    hyps.append((self.text(toks), toks, ids, float(scores[i, j])))
+                results.append(hyps)
         return results
 
     def _decode(self, batch: Dict) -> Tuple[BeamSearchResult, int]:
@@ -437,10 +442,12 @@ class Speech2Text:
         (1 after ``<sos>``, 0 where there is none)."""
         model = self.model
         self._single_speaker()
-        enc, enc_lens, _ = model.encode(*self.inputs(batch))
+        inputs = self.inputs(batch)
+        with span("s2t.forward"):
+            enc, enc_lens, _ = model.encode(*inputs)
+            ctc_logp = None if model.joint_network is not None else model.ctc.log_softmax(enc)
         if model.joint_network is not None:
             return self._transducer(enc, enc_lens), 0
-        ctc_logp = model.ctc.log_softmax(enc)
         if self.is_maskctc:
             return self._maskctc(enc, enc_lens, ctc_logp), 0
         if self.decode_mode == "timesync" or model.decoder is None:
@@ -651,16 +658,17 @@ class Speech2Text:
         ``clip(a * 32768, -32768, 32767)``, half the bytes; ``inputs``
         dequantises it on the device."""
         out = dict(batch)
-        for key in self._DEVICE_KEYS:
-            if key not in out or (torch.is_tensor(out[key]) and out[key].device == self.device):
-                continue
-            a = out[key].numpy() if torch.is_tensor(out[key]) else np.asarray(out[key])
-            if self.quantize_audio and key in ("audio", "speech") and a.ndim == 2 and a.dtype == np.float32:
-                a = np.clip(a * 32768.0, -32768, 32767).astype(np.int16)
-            x = torch.from_numpy(np.ascontiguousarray(a))
-            if self.device.type == "cuda":
-                x = x.pin_memory().to(self.device, non_blocking=True)
-            out[key] = x
+        with span("s2t.device_put"):
+            for key in self._DEVICE_KEYS:
+                if key not in out or (torch.is_tensor(out[key]) and out[key].device == self.device):
+                    continue
+                a = out[key].numpy() if torch.is_tensor(out[key]) else np.asarray(out[key])
+                if self.quantize_audio and key in ("audio", "speech") and a.ndim == 2 and a.dtype == np.float32:
+                    a = np.clip(a * 32768.0, -32768, 32767).astype(np.int16)
+                x = torch.from_numpy(np.ascontiguousarray(a))
+                if self.device.type == "cuda":
+                    x = x.pin_memory().to(self.device, non_blocking=True)
+                out[key] = x
         return out
 
     def stream(self, batches: Iterable[Dict], nbest: bool = False) -> Iterator[Tuple[Dict, list]]:
@@ -703,15 +711,20 @@ class Speech2Text:
 
     def greedy(self, batch: Dict) -> List[str]:
         """CTC greedy decoding: one transcript per utterance of the batch."""
-        return self._data_parallel(self._greedy, batch)
+        with call("s2t.greedy"):
+            return self._data_parallel(self._greedy, batch)
 
     def _greedy(self, batch: Dict) -> List[str]:
         self._ensure_quantized()
         self._single_speaker()
         with torch.inference_mode(), parametrize.cached():
-            ids, lens = self.model.ctc_greedy(*self.inputs(batch))
-        hyps = ctc_greedy_collapse(ids.cpu().numpy(), lens.cpu().numpy())
-        return [self.text([self.token_list[i] for i in h]) for h in hyps]
+            inputs = self.inputs(batch)
+            with span("s2t.forward"):
+                ids, lens = self.model.ctc_greedy(*inputs)
+        with span("s2t.readback"):
+            ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
+        with span("s2t.detokenize"):
+            return [self.text([self.token_list[i] for i in h]) for h in ctc_greedy_collapse(ids, lens)]
 
     def _single_speaker(self) -> None:
         """A ``pit_espnet`` model's encoder gives one encoding per speaker:

@@ -31,9 +31,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from tailored_avsr_tpu_torch.models.frontends import Conv3dResNet18
 from tailored_avsr_tpu_torch.ops.losses import add_sos_eos, label_smoothing_loss, token_accuracy
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask
 from tailored_avsr_tpu_torch.ops.rnnt import multiblank_rnnt_loss, rnnt_loss
+from tailored_avsr_tpu_torch.utils.tracing import span
 
 
 def transducer_loss(model: nn.Module, enc_out, enc_lens, text, text_lengths) -> torch.Tensor:
@@ -162,6 +164,8 @@ class ASRModel(nn.Module):
         self.ignore_id = ignore_id
         self.lsm_weight = float(lsm_weight)
         self.length_normalized_loss = bool(length_normalized_loss)
+        self.frontend_span = ("encode.visual_frontend" if isinstance(frontend, Conv3dResNet18)
+                              else "encode.audio_frontend")
 
     is_maskctc = False
     attention_targets = sos_eos_targets
@@ -183,14 +187,15 @@ class ASRModel(nn.Module):
         """Returns (encoder_out (B, T, D), encoder_out_lens (B,), aux with
         the encoder's ``branch_weights`` and ``intermediate_outs``)."""
         feats, lens = speech, speech_lengths
-        if self.frontend is not None:  # the lip frontend's BatchNorm follows the train flag
-            feats, lens = self.frontend(speech, speech_lengths)
-        if self.specaug is not None and self.training:
-            feats, lens = self.specaug(feats, lens, generator)
-        if self.normalize is not None:
-            feats, lens = self.normalize(feats, lens)
-        if self.preencoder is not None:
-            feats, lens = self.preencoder(feats, lens)
+        with span(self.frontend_span):  # the encoder's own input layer opens it again
+            if self.frontend is not None:  # the lip frontend's BatchNorm follows the train flag
+                feats, lens = self.frontend(speech, speech_lengths)
+            if self.specaug is not None and self.training:
+                feats, lens = self.specaug(feats, lens, generator)
+            if self.normalize is not None:
+                feats, lens = self.normalize(feats, lens)
+            if self.preencoder is not None:
+                feats, lens = self.preencoder(feats, lens)
         enc_out, enc_lens, aux = self.encoder(feats, lens, generator,
                                               ctc=self.ctc if self.encoder.conditioning_layer is not None else None)
         if self.postencoder is not None:  # the interCTC taps keep the encoder's lengths (a linear one's too)

@@ -34,6 +34,7 @@ from torch import nn
 
 from tailored_avsr_tpu_torch.models.asr_model import hybrid_loss, nll, sos_eos_targets
 from tailored_avsr_tpu_torch.ops.masking import make_valid_mask, mask_lengths
+from tailored_avsr_tpu_torch.utils.tracing import span
 
 
 class AVSRModel(nn.Module):
@@ -122,23 +123,29 @@ class AVSRModel(nn.Module):
         """Returns (encoder_out (B, T, D), encoder_out_lens (B,) int32, aux):
         aux holds ``fusion_weights`` and, for the conventional encoder, its
         ``branch_weights``."""
-        a_feats, a_lens = audio, audio_lengths
-        if self.acoustic_frontend is not None:
-            a_feats, a_lens = self.acoustic_frontend(audio, audio_lengths)
-        v_feats, v_lens = video, video_lengths
-        if self.visual_frontend is not None:
-            v_feats, v_lens = self.visual_frontend(video, video_lengths)
-        if self.specaug is not None and self.training:
-            a_feats, a_lens = self.specaug(a_feats, a_lens, generator)
-        if self.normalize is not None:
-            a_feats, a_lens = self.normalize(a_feats, a_lens)
-        if self.acoustic_preencoder is not None:
-            a_feats, a_lens = self.acoustic_preencoder(a_feats, a_lens)
-        if self.visual_preencoder is not None:
-            v_feats, v_lens = self.visual_preencoder(v_feats, v_lens)
+        # each stream's steps under its span, the draws (SpecAug, the
+        # pre-encoders' and embeds' dropout) in their order
+        with span("encode.audio_frontend"):
+            a_feats, a_lens = audio, audio_lengths
+            if self.acoustic_frontend is not None:
+                a_feats, a_lens = self.acoustic_frontend(audio, audio_lengths)
+            if self.specaug is not None and self.training:
+                a_feats, a_lens = self.specaug(a_feats, a_lens, generator)
+            if self.normalize is not None:
+                a_feats, a_lens = self.normalize(a_feats, a_lens)
+            if self.acoustic_preencoder is not None:
+                a_feats, a_lens = self.acoustic_preencoder(a_feats, a_lens)
+        with span("encode.visual_frontend"):
+            v_feats, v_lens = video, video_lengths
+            if self.visual_frontend is not None:
+                v_feats, v_lens = self.visual_frontend(video, video_lengths)
+            if self.visual_preencoder is not None:
+                v_feats, v_lens = self.visual_preencoder(v_feats, v_lens)
 
-        a_feats, a_lens = self.acoustic_embed.apply_embed_layer(a_feats, a_lens)
-        v_feats, v_lens = self.visual_embed.apply_embed_layer(v_feats, v_lens)
+        with span("encode.audio_frontend"):
+            a_feats, a_lens = self.acoustic_embed.apply_embed_layer(a_feats, a_lens)
+        with span("encode.visual_frontend"):
+            v_feats, v_lens = self.visual_embed.apply_embed_layer(v_feats, v_lens)
         a_mask = make_valid_mask(a_lens, a_feats.shape[1])
         v_mask = make_valid_mask(v_lens, v_feats.shape[1])
         a_feats, a_mask, v_feats, v_mask = self._align(
@@ -146,12 +153,13 @@ class AVSRModel(nn.Module):
         a_feats, a_pos = self.acoustic_embed.apply_pos_enc(a_feats)
         v_feats, v_pos = self.visual_embed.apply_pos_enc(v_feats)
 
-        a_out, a_mask, v_out, v_mask, enc_aux = self.encoder(
-            a_feats, a_pos, a_mask, v_feats, v_pos, v_mask, generator,
-            ctc=self.ctc if self.encoder.conditioning_layer is not None else None,
-            audiovisual_fusion=self.audiovisual_fusion if self.encoder.interctc_layers else None)
-        enc_out, av_mask, fusion_weights = self.audiovisual_fusion(
-            a_out, a_mask, v_out, v_mask, generator)
+        with span("encode.encoder"):
+            a_out, a_mask, v_out, v_mask, enc_aux = self.encoder(
+                a_feats, a_pos, a_mask, v_feats, v_pos, v_mask, generator,
+                ctc=self.ctc if self.encoder.conditioning_layer is not None else None,
+                audiovisual_fusion=self.audiovisual_fusion if self.encoder.interctc_layers else None)
+            enc_out, av_mask, fusion_weights = self.audiovisual_fusion(
+                a_out, a_mask, v_out, v_mask, generator)
         enc_lens = mask_lengths(av_mask)
         if self.postencoder is not None:  # the interCTC taps keep the encoder's lengths
             enc_out, enc_lens = self.postencoder(enc_out, enc_lens)

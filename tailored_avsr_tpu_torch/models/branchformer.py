@@ -62,6 +62,7 @@ from tailored_avsr_tpu_torch.ops.feedforward import PositionwiseFeedForward
 from tailored_avsr_tpu_torch.ops.masking import MASK_MIN, make_valid_mask
 from tailored_avsr_tpu_torch.ops.posenc import RELATIVE, positional_encoding
 from tailored_avsr_tpu_torch.ops.subsampling import Conv1dSubsampling, Conv2dSubsampling, subsampled_length
+from tailored_avsr_tpu_torch.utils.tracing import span
 
 _LN_EPS = 1e-6  # flax LayerNorm default
 CONV2D_FACTORS = {"conv2d": 4, "conv2d1": 1, "conv2d2": 2, "conv2d6": 6, "conv2d8": 8}
@@ -350,6 +351,8 @@ class BranchformerEncoder(nn.Module):
         att, pos = resolve_types(attention_layer_type, pos_enc_layer_type, rel_pos_type, use_attn_branch)
         self.output_size = output_size
         self.input_layer = input_layer
+        # the span of the input layer: the frontend's, which the lip frontend's 512-d features enter
+        self.frontend_span = "encode.visual_frontend" if input_layer == "conv3dresnet18" else "encode.audio_frontend"
         if input_layer in CONV2D_FACTORS:
             self.embed = Conv2dSubsampling(input_size, output_size, CONV2D_FACTORS[input_layer],
                                            pos_enc_slot=True, **kw)
@@ -420,16 +423,19 @@ class BranchformerEncoder(nn.Module):
         {weight_global, weight_local})]``, layers from 1. ``ctc`` (the
         model's head) conditions the stream at each tap when the encoder
         has a conditioning layer."""
-        xs, ilens, pos_emb = self.embed_frames(xs, ilens)
-        mask = make_valid_mask(ilens, xs.shape[1])
-        branch_weights, intermediate_outs = [], []
-        for i, layer in enumerate(self.encoders):
-            xs, aux = run_layer(layer, generator, xs, pos_emb, mask)
-            if aux:
-                branch_weights.append((i + 1, aux))
-            if i + 1 in self.interctc_layer_idx:
-                out = self.tap(xs)
-                intermediate_outs.append((i + 1, out))
-                if self.conditioning_layer is not None and ctc is not None:
-                    xs = xs + self.conditioning_layer(ctc.softmax(out))
-        return self.tap(xs), ilens, {"intermediate_outs": intermediate_outs, "branch_weights": branch_weights}
+        with span(self.frontend_span):
+            xs, ilens, pos_emb = self.embed_frames(xs, ilens)
+        with span("encode.encoder"):
+            mask = make_valid_mask(ilens, xs.shape[1])
+            branch_weights, intermediate_outs = [], []
+            for i, layer in enumerate(self.encoders):
+                xs, aux = run_layer(layer, generator, xs, pos_emb, mask)
+                if aux:
+                    branch_weights.append((i + 1, aux))
+                if i + 1 in self.interctc_layer_idx:
+                    out = self.tap(xs)
+                    intermediate_outs.append((i + 1, out))
+                    if self.conditioning_layer is not None and ctc is not None:
+                        xs = xs + self.conditioning_layer(ctc.softmax(out))
+            xs = self.tap(xs)
+        return xs, ilens, {"intermediate_outs": intermediate_outs, "branch_weights": branch_weights}
