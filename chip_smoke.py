@@ -37,13 +37,20 @@ Run from the repository root on a machine with one CUDA card:
    streaming probe) against its plain version, with the four cases of
    ``scripts/bench_int8_stream.py``; K3 (the cgMLP gate) over an edge
    sweep (T = 1, 15, 16, 17, 31, 100, 500; k = 3 and 31; B = 1 and 32) and
-   timed at request (a) (the kernels line) and request (b)'s shape.
+   timed at request (a) (the kernels line) and request (b)'s shape. Then
+   the visual stem (``visual_stem_phase``; its own JSON line): at 24 x 500
+   frames of 88 x 88 its error against the f32 plain version no larger
+   than the bf16 module chain's, at 512 x 100 each element within half a
+   bf16 step of the f32 plain version (computed a slice of the batch at a
+   time), an edge sweep, and times at the greedy and beam shapes beside
+   its bound and the module chain.
 5. Greedy path: the flagship serving model (the ``_tpu.yaml`` values, 12
    blocks, 256-d, random weights from a seed) with ``use_flash`` and
    ``use_fused_csgu`` on serves two requests through
    ``Speech2Text.greedy``: 32 x 4 s (encoder T = 100, K2 runs) and
    24 x 20 s (T = 500, K1 runs), in bf16 and in f32 (the f32 request (b)
-   must launch K1 19 times). Each f32 request is served again on the eager
+   must launch K1 19 times; each bf16 call launches the visual stem kernel
+   once, each f32 call never). Each f32 request is served again on the eager
    path (kernels off): the greedy ids must be identical and the CTC
    log-probs agree within 1e-3. Launch counts of K1-K3 over this path must
    be > 0. Then request (b) runs warm (five calls in bf16, two in f32;
@@ -351,7 +358,8 @@ def _nbytes(*tensors) -> int:
 
 def _result(err, ms, plain_ms, bound, library_ms=None) -> dict:
     bound_ms, bound_by = bound
-    print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+    print(f"    kernel {ms:.4f} ms, plain {'not measured' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), "
           f"library {'none' if library_ms is None else f'{library_ms:.4f} ms'}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
@@ -503,6 +511,120 @@ def _k3_phase(fc, randn, dtype, tag) -> dict:
                                 cold_time_ms(lambda: fc.fused_csgu_plain(*args)), _csgu_bound(args, out))
     return results["(a)"]
 
+
+
+def _stem_params(randn, gen, device) -> tuple:
+    """A stem weight at its initialiser's scale and BatchNorm parameters
+    and running statistics away from 1 and 0, in bf16."""
+    weight = randn(64, 1, 5, 7, 7, dtype=torch.bfloat16, scale=(2 / 245) ** 0.5)
+    var = (torch.rand(64, generator=gen, device=device) * 2.8 + 0.2).to(torch.bfloat16)
+    return (weight, (1.0 + randn(64, dtype=torch.float32, scale=0.3)).to(torch.bfloat16),
+            randn(64, dtype=torch.bfloat16, scale=0.3), randn(64, dtype=torch.bfloat16, scale=0.5), var)
+
+
+def _stem_chain(video, weight, bn_w, bn_b, mean, var, eps, act):
+    """The module chain the kernel replaces, in the video's type: cuDNN's
+    conv, eval BatchNorm, the activation, ``max_pool3d``, the trunk's layout."""
+    b, t = video.shape[:2]
+    x = F.conv3d(video[:, None], weight, None, (1, 2, 2), (2, 3, 3))
+    x = act(F.batch_norm(x, mean, var, bn_w, bn_b, False, 0.0, eps))
+    x = F.max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+    return x.transpose(1, 2).reshape(b * t, x.shape[1], x.shape[3], x.shape[4])
+
+
+# Tolerance of the stem's edge sweep against its plain version: both sum in
+# f32 in other orders and round once to bf16, so they differ by at most one
+# bf16 step (2^-7 relative), and by the sums' order (~1e-6 of the sum of
+# |terms|, under 1e-3 at these magnitudes) where a value sits on a rounding
+# boundary.
+STEM_TOL = (1e-3, 2 ** -7)
+
+
+def visual_stem_phase(device) -> dict:
+    """The fused visual stem (``ops/visual_stem.py``). Gate: at the greedy
+    cell's shape (24 x 500 frames of 88 x 88, swish), the kernel and the
+    bf16 module chain it replaces (``_stem_chain``) against the f32 plain
+    version on the same bf16-rounded video, weight and BatchNorm; the
+    kernel's max and mean abs errors must be no larger than the chain's (it
+    rounds once where the chain rounds three times), and each element within
+    2^-8 |ref| (half a bf16 step: its one rounding) + 1e-3 (the sums'
+    order). Then an edge sweep against the plain version (T = 1, 3, 7 with
+    frames past both ends; 88 x 88 and 100 x 104 through the tensor map,
+    13 x 11, 20 x 17 and 30 x 200 element by element; one, two and three
+    units of 48 conv columns; each activation). At the beam cell's shape
+    (512 x 100 frames, where each persistent block walks more frames) each
+    element within the same 2^-8 |ref| + 1e-3 of the f32 plain version,
+    computed 32 utterances at a time. Then L2-cold times at both shapes
+    beside the bound, the plain version (greedy shape only: in f32 at the
+    beam shape at once it needs ~76 GB) and the chain (``library_ms``).
+    Returns {shape: result}."""
+    from tailored_avsr_tpu_torch.ops import visual_stem as vs
+
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
+
+    params, eps = _stem_params(randn, gen, device), 1e-5
+    for act in vs.ACTIVATIONS:
+        for shape in ((2, 1, 88, 88), (3, 3, 13, 11), (2, 7, 20, 17), (1, 4, 100, 104), (1, 2, 30, 200)):
+            video = randn(*shape, dtype=torch.bfloat16)
+            got = vs.visual_stem(video, *params, eps, act)
+            want = vs.visual_stem_plain(video, *params, eps, act)
+            diff = (got.float() - want.float()).abs()
+            excess = float((diff - STEM_TOL[1] * want.float().abs()).max())
+            ok = got.shape == want.shape and bool(torch.isfinite(got.float()).all()) and excess <= STEM_TOL[0]
+            print(f"  visual stem {act} {shape}: max_abs_err={float(diff.max()):.3e} against the plain "
+                  f"version -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"visual stem {act} {shape}: kernel disagrees with its plain version")
+
+    results = {}
+    for name, (b, t) in (("greedy 24 x 500", (24, 500)), ("beam 512 x 100", (512, 100))):
+        video = randn(b, t, 88, 88, dtype=torch.bfloat16)
+        args = (video, *params, eps, "swish")
+        out = vs.visual_stem(*args)
+        err = None
+        if b == 24:
+            ref = vs.visual_stem_plain(video.float(), *(p.float() for p in params), eps, "swish")
+            chain = _stem_chain(video, *params, eps, F.silu)
+            errs = {}
+            for what, got in (("kernel", out), ("module chain", chain)):
+                d = (got.float() - ref).abs()
+                errs[what] = (float(d.max()), float(d.mean()), float((d - 2 ** -8 * ref.abs()).max()))
+                del d
+            del ref, chain
+            (k_max, k_mean, k_excess), (m_max, m_mean, _) = errs["kernel"], errs["module chain"]
+            ok = bool(torch.isfinite(out.float()).all()) and k_max <= m_max and k_mean <= m_mean and k_excess <= 1e-3
+            print(f"  visual stem {name}, against the f32 plain version: kernel max {k_max:.3e} mean {k_mean:.3e} "
+                  f"(beyond 2^-8 |ref|: {k_excess:.3e}, tol 1e-3), bf16 module chain max {m_max:.3e} mean "
+                  f"{m_mean:.3e} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"visual stem {name}: the kernel's error exceeds the module chain's")
+            err = k_max
+        else:  # each frame's output depends on its own utterance only: the f32 reference a slice at a time
+            k_max, k_excess, step = 0.0, -float("inf"), 32
+            for i in range(0, b, step):
+                ref = vs.visual_stem_plain(video[i:i + step].float(), *(p.float() for p in params), eps, "swish")
+                d = (out[i * t:(i + step) * t].float() - ref).abs()
+                k_max, k_excess = max(k_max, float(d.max())), max(k_excess, float((d - 2 ** -8 * ref.abs()).max()))
+                del ref, d
+            ok = bool(torch.isfinite(out.float()).all()) and k_excess <= 1e-3
+            print(f"  visual stem {name}, against the f32 plain version {step} utterances at a time: kernel max "
+                  f"{k_max:.3e} (beyond 2^-8 |ref|: {k_excess:.3e}, tol 1e-3) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"visual stem {name}: the kernel disagrees with the f32 plain version")
+            err = k_max
+        flops = 2 * 64 * 245 * b * t * 44 * 44
+        results[name] = _result(
+            err, cold_time_ms(lambda: vs.visual_stem(*args)),
+            cold_time_ms(lambda: vs.visual_stem_plain(*args)) if b == 24 else None,
+            _bound(_nbytes(video, params[0], out), flops, torch.bfloat16),
+            cold_time_ms(lambda: _stem_chain(video, *params, eps, F.silu)))
+        results[name]["launches_per_call"] = 1
+        del video, out
+        torch.cuda.empty_cache()
+    return results
 
 # T across the tile edges of both forms (bf16: 16 rows, 16 and 64 keys; f32:
 # 32-row warps, 32-key halves, 64-key tiles, 128-row blocks) and request
@@ -1026,13 +1148,19 @@ def _reset_counts() -> None:
 def _serve(engine, name: str, batch: dict) -> list:
     """One request through ``Speech2Text.greedy``; prints its wall time (the
     transcripts are on the host when greedy returns)."""
-    before = _counts()
+    from tailored_avsr_tpu_torch.ops.visual_stem import visual_stem
+
+    before, stem = _counts(), visual_stem.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hyps = engine.greedy(batch)
     wall = time.perf_counter() - t0
     after = _counts()
     launched = {k: after[k] - before[k] for k in ("K1", "K2", "K3")}
+    launched["stem"] = visual_stem.launches - stem
+    if launched["stem"] != int(engine.dtype == torch.bfloat16):
+        raise AssertionError(f"{name}: the visual stem kernel launched {launched['stem']} times; a bf16 call "
+                             "launches it once, an f32 call never")
     print(f"  {name}: {wall * 1e3:.1f} ms wall, launches {launched}")
     if len(hyps) != _utterances(batch):
         raise AssertionError(f"{name}: {len(hyps)} transcripts for {_utterances(batch)} utterances")
@@ -4322,6 +4450,11 @@ def main() -> int:
     phases.update(beam_kernel_phases(device))
     phases.update(probe_phase(device))
     seconds["kernel phases"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print("visual stem (kernel vs plain version and the module chain on the card):")
+    stem = visual_stem_phase(device)
+    seconds["visual stem"] = time.perf_counter() - t0
+    print(json.dumps({"visual_stem": stem, "card": smi}))
     t0 = time.perf_counter()
     launches = serve_phase(device)
     seconds["flagship greedy"] = time.perf_counter() - t0

@@ -1,6 +1,7 @@
 // Helpers shared by the kernels in this directory: dtype conversion to and
-// from the f32 that every kernel computes in, a warp-wide sum, the
-// asynchronous global -> shared copies (cp.async), and the once-only
+// from the f32 that every kernel computes in, a warp-wide sum, the bf16
+// tensor-core product (mma.sync m16n8k16) and its ldmatrix operand loads,
+// the asynchronous global -> shared copies (cp.async), and the once-only
 // dynamic shared memory attribute of a kernel.
 #pragma once
 
@@ -26,6 +27,35 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mma.sync operands: four 8x8 b16 matrices from shared memory (rows given by
+// lanes 0-7, 8-15, 16-23, 24-31), plain or transposed
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16 bf16, row) . b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // BYTES (16, 8 or 4) from global src to shared dst without passing through

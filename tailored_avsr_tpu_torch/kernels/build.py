@@ -128,4 +128,7 @@ def load() -> ctypes.CDLL:
     # x, partial, out, rows, row_len, elem_type, vec, chunk, nblk, stream
     lib.avsr_stream_abs_sum.argtypes = [ptr] * 3 + [i32, i64] + [i32] * 4 + [ptr]
     lib.avsr_stream_abs_sum.restype = i32
+    # video, weight, bn_w, bn_b, mean, var, out, frames, t, h, w, eps, activation, stream
+    lib.avsr_visual_stem.argtypes = [ptr] * 7 + [i32] * 4 + [ctypes.c_float, i32, ptr]
+    lib.avsr_visual_stem.restype = i32
     return lib

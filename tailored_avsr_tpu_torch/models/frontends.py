@@ -5,7 +5,11 @@ Conv3D 1->64 k=(5,7,7) s=(1,2,2) p=(2,3,3) + BN + activation + MaxPool3d
 k=(1,3,3) s=(1,2,2) p=(0,1,1), then BasicBlock x [2,2,2,2] (64->512 channels)
 and a global average pool: (B, T, 88, 88) -> (B, T, 512). The stem is the
 plain Conv3d; the JAX package's space-to-depth evaluation of it holds the
-same weights and exists only for the TPU.
+same weights and exists only for the TPU. A bf16 model in eval mode, with
+nothing for autograd to track, runs the stem, its BatchNorm, activation and
+max-pool as one hand-written kernel (``ops/visual_stem.py``), which rounds
+to bf16 once where the modules round three times; training and f32 models
+run the modules.
 
 BatchNorm follows flax's (momentum 0.9 in flax's convention, torch's 0.1;
 eps 1e-5): in training it normalises with the batch statistics over every
@@ -37,13 +41,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from tailored_avsr_tpu_torch.models import remat
+from tailored_avsr_tpu_torch.ops import visual_stem
+from tailored_avsr_tpu_torch.ops.backend import tracks_grad
 from tailored_avsr_tpu_torch.parallel import host_data
+from tailored_avsr_tpu_torch.utils.tracing import span
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.1  # torch's convention: flax's momentum 0.9
-
-# the JAX package maps "prelu" to a parameter-free leaky ReLU
-_ACTIVATIONS = {"relu": F.relu, "swish": F.silu, "prelu": F.leaky_relu}
 
 
 class _BiasedRunningVar:
@@ -112,7 +116,7 @@ class BasicBlock(nn.Module):
                  *, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        self.act = _ACTIVATIONS[activation_type]
+        self.act = visual_stem.ACTIVATIONS[activation_type]
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False, **kw)
         self.bn1 = _bn2d(planes, **kw)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False, **kw)
@@ -157,7 +161,8 @@ class Conv3dResNet18(nn.Module):
         super().__init__()
         self.bn_axis_name = bn_axis_name
         kw = {"device": device, "dtype": dtype}
-        self.act = _ACTIVATIONS[activation_type]
+        self.activation_type = activation_type
+        self.act = visual_stem.ACTIVATIONS[activation_type]
         self.frontend3D = nn.Sequential(
             nn.Conv3d(1, 64, (5, 7, 7), (1, 2, 2), (2, 3, 3), bias=False, **kw),
             FlaxBatchNorm3d(64, eps=_BN_EPS, momentum=_BN_MOMENTUM, **kw),
@@ -167,6 +172,15 @@ class Conv3dResNet18(nn.Module):
     def output_size(self) -> int:
         return 512
 
+    def _fused_stem(self, video: torch.Tensor) -> bool:
+        """Whether the stem runs as ``ops/visual_stem.py`` (on the card its
+        bf16 kernel, which raises on inputs it does not take): a bf16 model
+        in eval mode with nothing for autograd to track. Training (batch
+        statistics, gradients) and f32 models keep the modules."""
+        conv, bn = self.frontend3D
+        return (not self.training and conv.weight.dtype == torch.bfloat16
+                and not tracks_grad(video, conv.weight, bn.weight, bn.bias))
+
     def forward(self, video: torch.Tensor, lengths: torch.Tensor):
         """(B, T, H, W) grayscale -> (B, T, 512), lengths unchanged."""
         if self.training and self.bn_axis_name is not None:
@@ -174,9 +188,15 @@ class Conv3dResNet18(nn.Module):
                             "the global batch's under data parallelism without an axis name; drop "
                             "bn_axis_name to train (the JAX train step raises the same)")
         b, t = video.shape[:2]
-        x = self.act(self.frontend3D(video[:, None]))  # (B, 64, T, H', W')
-        # max pool over H, W only; the padding reads -inf, as flax's max_pool
-        x = F.max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
-        x = x.transpose(1, 2).reshape(b * t, x.shape[1], x.shape[3], x.shape[4])
+        with span("encode.visual_stem", annotate=False):
+            if self._fused_stem(video):
+                conv, bn = self.frontend3D
+                x = visual_stem.visual_stem(video, conv.weight, bn.weight, bn.bias, bn.running_mean,
+                                            bn.running_var, bn.eps, self.activation_type)
+            else:
+                x = self.act(self.frontend3D(video[:, None]))  # (B, 64, T, H', W')
+                # max pool over H, W only; the padding reads -inf, as flax's max_pool
+                x = F.max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+                x = x.transpose(1, 2).reshape(b * t, x.shape[1], x.shape[3], x.shape[4])
         x = self.trunk(x).mean(dim=(2, 3))  # global average pool -> (B*T, 512)
         return x.reshape(b, t, 512), lengths

@@ -21,7 +21,7 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"kernel inputs must share one device, got {sorted(map(str, devices))}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if tracks_grad(*tensors):
         raise RuntimeError(
             "forward-only kernel called on a tensor that requires grad; "
             "run it under torch.no_grad() or torch.inference_mode()"
@@ -32,6 +32,11 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if kind == "cpu":
         return False
     raise ValueError(f"no kernel or plain form for device type {kind!r}")
+
+
+def tracks_grad(*tensors: torch.Tensor) -> bool:
+    """True where autograd would track an operation on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def check_kernel_input(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype) -> None:

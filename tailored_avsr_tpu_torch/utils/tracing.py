@@ -8,7 +8,14 @@ no-op object and call nothing in torch. ``enable(prefix)`` turns them on:
   name)``, so a profiler running at the time shows it over the kernels
   the span launched. The prefix is the enabler's: a reader that tells its
   own ranges from the device's operations by a name prefix passes it, so
-  that the program's ranges are read as its own are;
+  that the program's ranges are read as its own are. A span opened with
+  ``annotate=False`` enters a host-only range instead (the profiler's
+  function scope, as an operator's): it shows on the host with the same
+  name, but takes no device-side annotation, so the kernels it launches
+  stay in the annotation of the user range around it. The profiler gives
+  each kernel to the innermost user range only, so a user range inside a
+  module that a reader wraps in a range of its own would take the
+  kernels it launched out of that reader's view;
 - each span appends ``(name, parent index, start_ns, end_ns)`` to the
   record of the call it runs in, on ``time.perf_counter_ns``. A record is
   ``{"id", "entry", "spans"}``; ``spans[0]`` is the root (parent -1),
@@ -32,6 +39,10 @@ kernels' wrappers or the train loop):
   the encoder's subsampling), ``encode.visual_frontend`` (the lip
   frontend, the visual embed), ``encode.encoder`` (the blocks, the final
   norm, the adaptive fusion); each may open more than once a call;
+  ``encode.visual_stem``: inside the lip frontend, its Conv3D stem,
+  BatchNorm, activation and max-pool (the fused kernel or the modules),
+  host-only (``annotate=False``: the benchmark wraps the lip frontend
+  module in a range of its own);
 - ``beam.search``: one ``beam_search``; ``beam.step``: one step, with the
   children ``beam.score`` (the decoder + LM scorer), ``beam.ctc_prefix``
   (the CTC prefix scorer and its selection) and ``beam.select`` (eos
@@ -79,10 +90,10 @@ _OFF = _Off()
 
 
 class _Span:
-    __slots__ = ("name", "root", "record", "index", "start", "range")
+    __slots__ = ("name", "root", "annotate", "record", "index", "start", "range")
 
-    def __init__(self, name: str, root: bool):
-        self.name, self.root = name, root
+    def __init__(self, name: str, root: bool, annotate: bool = True):
+        self.name, self.root, self.annotate = name, root, annotate
 
     def __enter__(self):
         stack = getattr(_local, "open", None)
@@ -94,7 +105,10 @@ class _Span:
             self.record, parent = stack[-1]
         spans = self.record["spans"]
         self.index = len(spans)
-        self.range = torch.autograd.profiler.record_function(_prefix + self.name)
+        if self.annotate:
+            self.range = torch.autograd.profiler.record_function(_prefix + self.name)
+        else:
+            self.range = torch._C._profiler._RecordFunctionFast(_prefix + self.name)
         self.range.__enter__()
         self.start = time.perf_counter_ns()
         spans.append((self.name, parent, self.start, None))
@@ -127,10 +141,11 @@ def enabled() -> bool:
     return _on
 
 
-def span(name: str):
+def span(name: str, annotate: bool = True):
     """A context manager: the span ``name`` inside the current call (or a
-    root of its own on a thread with no call open)."""
-    return _Span(name, False) if _on else _OFF
+    root of its own on a thread with no call open); with ``annotate=False``
+    its profiler range is host-only (see the module's docstring)."""
+    return _Span(name, False, annotate) if _on else _OFF
 
 
 def call(entry: str):

@@ -20,7 +20,7 @@ from tailored_avsr_tpu_torch.utils.config import load_config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKENS = os.path.join(ROOT, "tokenizers/char/spanish.txt")
 PROGRAM = ("s2t.", "encode.", "beam.")
-ENCODE = ("encode.audio_frontend", "encode.visual_frontend", "encode.encoder")
+ENCODE = ("encode.audio_frontend", "encode.visual_frontend", "encode.visual_stem", "encode.encoder")
 
 
 @pytest.fixture(autouse=True)
