@@ -1,4 +1,6 @@
-"""Operations and bytes of the work a cell asks for, from its shapes.
+"""Operations and bytes of the work a cell asks for, from its shapes: the
+layers' counts, which each family composes into the FLOPs of one call of
+its entries (``harness/families/<family>.py``), and the kernels' costs.
 
 FLOPs count the products (matmuls and convolutions, 2 per multiply-add) of
 the reference's formulation at the padded shapes a call computes, with the
@@ -72,40 +74,9 @@ def pooled_weight_flops(b: int, t: int, d: int) -> float:
     return 2.0 * (b * t * d + b * t * d + b * d)
 
 
-def encoder_frames(cfg: Dict, samples: int, frames: int) -> int:
-    """The encoder's padded length for a buffer of ``samples`` and ``frames``."""
-    t_audio = _sub(_sub(samples // HOP + 1))
-    return max(t_audio, frames) if cfg["task"] == "avsr" else t_audio
-
-
-def encoder_flops(cfg: Dict, b: int, t: int) -> float:
-    """The encoder layers, the fusion (AVSR) and the CTC head over (b, t)."""
-    enc = cfg["encoder_conf"]
-    d, h, units = enc["output_size"], enc["attention_heads"], enc["linear_units"]
-    cg, k = enc["cgmlp_linear_units"], enc["cgmlp_conv_kernel"]
-    vocab = cfg["vocab"]
-    total = 2.0 * b * t * d * vocab  # CTC
-    if cfg["task"] == "avsr":
-        for aa, va in zip(enc["acoustic_use_attn"], enc["visual_use_attn"]):
-            for attn in (aa, va):
-                total += 2 * ffn_flops(b, t, d, units)
-                total += attention_flops(b, t, d, h) if attn else cgmlp_flops(b, t, d, cg, k)
-        hidden = cfg["audiovisual_fusion_conf"]["hidden_units"]
-        return total + 2 * pooled_weight_flops(b, t, d) + ffn_flops(b, t, d, hidden)
-    for _ in range(enc["num_blocks"]):
-        total += 2 * ffn_flops(b, t, d, units) + attention_flops(b, t, d, h) + cgmlp_flops(b, t, d, cg, k)
-        total += 2 * pooled_weight_flops(b, t, d) + 2.0 * b * t * d * d  # the merge
-    return total
-
-
-def encode_flops(cfg: Dict, b: int, samples: int, frames: int) -> float:
-    """FLOPs of one encode of a (b, samples[, frames]) batch."""
-    d = cfg["encoder_conf"]["output_size"]
-    t = encoder_frames(cfg, samples, frames)
-    total = audio_frontend_flops(b, samples, d) + encoder_flops(cfg, b, t)
-    if cfg["task"] == "avsr":
-        total += visual_frontend_flops(b, frames) + 2.0 * b * frames * 512 * d  # and the visual embed
-    return total
+def audio_frames(samples: int) -> int:
+    """Encoder frames of ``samples`` of audio: the log-mel frames, subsampled by 4."""
+    return _sub(_sub(samples // HOP + 1))
 
 
 def k1_cost(b: int, h: int, t: int, dk: int, dtype: str) -> Dict[str, float]:

@@ -51,18 +51,17 @@ class Run:
     ``batch``; ``frames``: the encoder's padded length), the traced window
     (``trace``: ``harness/trace.Reduced``; ``calls``; ``steps``: the beam
     steps of each call), the kernel launches over the window
-    (``launches``), the FLOPs of one call's encode (``flops_per_call``) and
-    the host seconds of each call under each wrapped function's range
-    (``host_s``)."""
+    (``launches``), the FLOPs of one call of the entry (``flops_per_call``,
+    the family's count) and the host seconds of each call under each
+    wrapped function's range (``host_s``)."""
 
     def __init__(self, cell, driver, calls, trace, launches, flops_per_call, host_s=None):
-        from . import flops
+        from . import traffic as tf
 
         t = cell.traffic
         self.cell, self.traffic, self.cfg, self.dtype = cell, t, driver.cfg, driver.dtype
         self.batch = int(t["batch"])
-        samples, frames = int(t["buffer_s"] * 16000), int(t["buffer_s"] * 25)
-        self.frames = flops.encoder_frames(self.cfg, samples, frames)
+        self.frames = driver.family.encoder_frames(self.cfg, *tf.buffer(t))
         self.calls, self.trace, self.launches = len(calls), trace, launches
         self.flops_per_call = flops_per_call
         self.lm_cfg = cell.config.get("lm")
@@ -120,7 +119,7 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, t_start: float
     # the precision the configuration states: float32 products in float32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
 
-    from . import check, drivers, flops, stats
+    from . import check, drivers, stats
     from . import trace as tr
     from . import traffic as tf
 
@@ -128,6 +127,9 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, t_start: float
     pool = tf.make_pool(seed, cell.traffic)
     readers = {m["name"]: _load_reader(m["name"]) for m in cell.per_layer} if trace else {}
     host_s: Dict[str, List[float]] = {}
+    counters = dict(getattr(driver.family, "LAUNCH_COUNTERS", {}))
+    for r in readers.values():
+        counters.update(getattr(r, "LAUNCH_COUNTERS", {}))
     if trace:
         spans: Dict[str, List[str]] = {}
         ranges: Dict[str, str] = {}
@@ -146,7 +148,7 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, t_start: float
 
     limit_s = min(seconds, TRACE_SECONDS) if trace else seconds
     calls: List = []
-    counters0 = drivers.kernel_counters()
+    counters0 = drivers.kernel_counters(counters)
     steps_before = counters0["K5"]  # the step write launches once a beam step
     prof = tr.profiler() if trace else None
     if prof is not None:
@@ -161,7 +163,7 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, t_start: float
         else:
             out = driver.call(pool[p])
         c1 = time.perf_counter()
-        steps = drivers.kernel_counters()["K5"]
+        steps = drivers.kernel_counters(counters)["K5"]
         calls.append((p, out, c1 - c0, steps - steps_before))
         steps_before = steps
         if c1 - t0 >= limit_s:
@@ -170,18 +172,14 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, t_start: float
     if prof is not None:
         _sync(device)
         prof.stop()
-    launches = {k: v - counters0[k] for k, v in drivers.kernel_counters().items()}
+    launches = {k: v - counters0[k] for k, v in drivers.kernel_counters(counters).items()}
     cuda = device.type == "cuda"
     device_info = {"platform": "gpu" if cuda else "cpu",
                    "kind": torch.cuda.get_device_name(device) if cuda else "cpu", "count": cell.chips,
                    "memory_peak_bytes": int(torch.cuda.max_memory_allocated(device)) if cuda else 0}
 
     t = cell.traffic
-    samples, frames = int(t["buffer_s"] * 16000), int(t["buffer_s"] * 25)
-    flops_per_call = flops.encode_flops(driver.cfg, int(t["batch"]), samples, frames)
-    if t["entry"] == "nbest":
-        flops_per_call += flops.beam_memory_flops(driver.cfg, int(t["batch"]),
-                                                  flops.encoder_frames(driver.cfg, samples, frames))
+    flops_per_call = driver.family.call_flops(driver.cfg, t)
     metrics: Dict[str, Dict] = {}
     breakdown = None
     if trace:

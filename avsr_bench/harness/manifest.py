@@ -3,19 +3,28 @@
 A cell (``workloads`` entry) names a configuration and a traffic mix; the
 configuration's file is ``configs/<name>.json`` (the manifest's ``file``),
 the mix's ``traffic/<traffic>.json``, and each per-layer metric's reader
-``metrics/<metric>.py``. A later change adds a configuration, a mix or a
-metric as new files and entries; nothing here names one.
+``metrics/<metric>.py``. The configuration's top-level ``family`` names
+its model family, ``harness/families/<family>.py`` (with the plain model
+in ``reference/<family>.py``); the mix's ``entry`` names its driver,
+``harness/entries/<entry>.py``, and its ``check`` (the entry by default)
+the judge of ``correct``, ``harness/checks/<check>.py``; ``module`` finds
+those three. A later change adds a configuration, a family, a mix, an
+entry, a check or a metric as new files and entries; nothing here or in
+the harness names one.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
+import re
 from dataclasses import dataclass, field
 from typing import Dict, List
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
+MODULE_NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
 
 
 class MissingFile(RuntimeError):
@@ -81,3 +90,12 @@ def loose_cell(config: str, traffic: str, root: str = ROOT) -> Cell:
 
 def metric_path(name: str) -> str:
     return os.path.join(BENCH_DIR, "metrics", f"{name}.py")
+
+
+def module(kind: str, name: str):
+    """``harness/<kind>/<name>.py`` as a module, for ``kind`` ``families``,
+    ``entries`` or ``checks``; raises ``MissingFile`` where it is absent."""
+    path = os.path.join(BENCH_DIR, "harness", kind, f"{name}.py")
+    if not MODULE_NAME.match(str(name)) or not os.path.isfile(path):
+        raise MissingFile(f"{kind} {name!r}: {os.path.relpath(path, ROOT)} is not in the checkout")
+    return importlib.import_module(f"harness.{kind}.{name}")

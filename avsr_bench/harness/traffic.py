@@ -22,7 +22,7 @@ one token an utterance, which no check can tell from another.)
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -71,11 +71,17 @@ def moving_video(rng: np.random.Generator, b: int, frames: int) -> np.ndarray:
     return out
 
 
+def buffer(traffic: Dict) -> Tuple[int, int]:
+    """(audio samples, video frames) of the buffer every utterance is padded to."""
+    sec = float(traffic["buffer_s"])
+    return int(sec * SAMPLE_RATE), int(sec * FPS)
+
+
 def make_batch(rng: np.random.Generator, traffic: Dict) -> Dict[str, np.ndarray]:
-    b, sec = int(traffic["batch"]), float(traffic["buffer_s"])
+    b = int(traffic["batch"])
     lo, hi = traffic["length_share"]
     frac = rng.permutation(length_grid(b, lo, hi))
-    samples, frames = int(sec * SAMPLE_RATE), int(sec * FPS)
+    samples, frames = buffer(traffic)
     streams = traffic["streams"]
     out: Dict[str, np.ndarray] = {}
     audio_key = "audio" if "video" in streams else "speech"

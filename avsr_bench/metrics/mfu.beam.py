@@ -1,7 +1,8 @@
 """The beam window's share of the card's peak (%): the benchmark's FLOP
-count of every encode and every beam step served
-(``harness/flops.encode_flops``, ``flops.beam_step_flops``) over the
-traced window's length times the peak of the served type."""
+count of every call's encode and memory projection (``run.flops_per_call``,
+the family's ``call_flops``) and of every beam step served
+(``flops.beam_step_flops``) over the traced window's length times the peak
+of the served type."""
 
 from harness import flops
 

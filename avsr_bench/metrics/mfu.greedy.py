@@ -1,6 +1,7 @@
 """The greedy window's share of the card's peak (%): the benchmark's FLOP
-count of every encode served (``harness/flops.encode_flops``) over the
-traced window's length times the peak of the served type."""
+count of every encode served (``run.flops_per_call``, the family's
+``call_flops``) over the traced window's length times the peak of the
+served type."""
 
 from harness import flops
 

@@ -1,4 +1,7 @@
-"""Plain PyTorch reference of the benchmark's models, in float32.
+"""Plain PyTorch reference of the benchmark's models, in float32: the
+layers the families share. Each family's model is a module of its own
+beside this one (``reference/<family>.py``, the configuration file's
+``family``), built from these layers.
 
 It imports neither JAX nor anything of the program under test. Its
 modules carry the reference checkpoint's key grammar (the espnet names the
@@ -6,8 +9,9 @@ recipe's ``.pth`` files use), so one state dict made by the benchmark
 loads into it and into the program alike. Seeded from a frozen copy of the
 repository's independent twin of the flagship (``tests/torch_twins.py``):
 made device-aware, with flax's LayerNorm epsilon (1e-6), its own
-positional and mel tables, the relative-position term as an explicit
-Toeplitz product, and the Branchformer layer of the audio-only model.
+positional and mel tables and the relative-position term as an explicit
+Toeplitz product; the audio-only model's Branchformer layer was added
+(``branchformer_asr.py``).
 
 Semantics (espnet, as the recipe configures it):
 - audio: log-mel (n_fft 512, window 400, hop 160, 80 Slaney mels, log
@@ -16,13 +20,6 @@ Semantics (espnet, as the recipe configures it):
   a linear layer over channels x frequencies);
 - video: Conv3D stem (5x7x7, stride 1x2x2) + BatchNorm + swish + max-pool,
   a ResNet-18 trunk with swish, a global average pool; linear + LayerNorm;
-- the tailored encoder: both streams padded to one length with -1, scaled
-  by sqrt(d), a modality embedding added, 12 layers of a shared macaron
-  FFN, a per-modality branch (rel-pos MHA or cgMLP), a shared FFN and a
-  shared final norm; the learned-average adaptive fusion;
-- the Branchformer encoder: conv2d subsampling, x sqrt(d), 12 layers of a
-  macaron FFN, an attention and a cgMLP branch merged by their learned
-  average, a FFN and a final norm;
 - rel-pos MHA ("latest"): score(i, j) = (q_i + u) . k_j + (q_i + v) .
   p_{i-j}, over sqrt(dk), softmax over the valid keys;
 - the CTC head; the Transformer decoder and the Transformer LM (pre-norm,
@@ -32,7 +29,7 @@ Semantics (espnet, as the recipe configures it):
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,7 +40,6 @@ from . import ops
 
 LN_EPS = 1e-6  # flax's LayerNorm epsilon, which the recipe's models use
 BN_EPS = 1e-5
-IGNORE_ID = -1.0
 
 
 # -- tables ------------------------------------------------------------------
@@ -56,6 +52,11 @@ def sinusoid(positions: np.ndarray, d: int) -> np.ndarray:
     pe = np.zeros((len(positions), d), np.float64)
     pe[:, 0::2], pe[:, 1::2] = np.sin(ang), np.cos(ang)
     return pe.astype(np.float32)
+
+
+def rel_pos_table(t: int, d: int, device) -> torch.Tensor:
+    """(2t-1, d) relative table: row j encodes relative position t-1-j."""
+    return torch.from_numpy(sinusoid(np.arange(t - 1, -t, -1), d)).to(device)
 
 
 def slaney_mel(sr: int = 16000, n_fft: int = 512, n_mels: int = 80) -> np.ndarray:
@@ -281,68 +282,13 @@ class VisualFrontend(nn.Module):
         return x.mean(dim=(2, 3)).reshape(b, t, -1)
 
 
-# -- encoders ----------------------------------------------------------------
+# -- heads, decoder and LM ----------------------------------------------------------
 
 
-class TailoredLayer(nn.Module):
-    def __init__(self, d, h, units, cg_units, cg_kernel, acoustic_attn: bool, visual_attn: bool):
-        super().__init__()
-        self.use_attn = {"acoustic": acoustic_attn, "visual": visual_attn}
-        self.feed_forward = FFN(d, units)
-        self.feed_forward_macaron = FFN(d, units)
-        self.norm_ff = nn.LayerNorm(d)
-        self.norm_ff_macaron = nn.LayerNorm(d)
-        self.norm_final = nn.LayerNorm(d)
-        for mod, attn in self.use_attn.items():
-            if attn:
-                setattr(self, f"{mod}_attn", RelPosMHA(d, h))
-                setattr(self, f"{mod}_norm_mha", nn.LayerNorm(d))
-            else:
-                setattr(self, f"{mod}_cgmlp", CgMLP(d, cg_units, cg_kernel))
-                setattr(self, f"{mod}_norm_cgmlp", nn.LayerNorm(d))
-
-    def stream(self, x, pos, mask, mod):
-        x = x + 0.5 * self.feed_forward_macaron(layer_norm(x, self.norm_ff_macaron))
-        if self.use_attn[mod]:
-            x = x + getattr(self, f"{mod}_attn")(layer_norm(x, getattr(self, f"{mod}_norm_mha")), pos, mask)
-        else:
-            x = x + getattr(self, f"{mod}_cgmlp")(layer_norm(x, getattr(self, f"{mod}_norm_cgmlp")))
-        return layer_norm(x + 0.5 * self.feed_forward(layer_norm(x, self.norm_ff)), self.norm_final)
-
-
-class BranchformerLayer(nn.Module):
-    def __init__(self, d, h, units, cg_units, cg_kernel):
-        super().__init__()
-        self.feed_forward_macaron = FFN(d, units)
-        self.norm_ff_macaron = nn.LayerNorm(d)
-        self.attn = RelPosMHA(d, h)
-        self.norm_mha = nn.LayerNorm(d)
-        self.cgmlp = CgMLP(d, cg_units, cg_kernel)
-        self.norm_mlp = nn.LayerNorm(d)
-        self.feed_forward = FFN(d, units)
-        self.norm_ff = nn.LayerNorm(d)
-        self.norm_final = nn.LayerNorm(d)
-        self.merge_proj = nn.Linear(d, d)
-        for name in ("pooling_proj1", "pooling_proj2", "weight_proj1", "weight_proj2"):
-            setattr(self, name, nn.Linear(d, 1))
-
-    def forward(self, x, pos, mask):
-        x = x + 0.5 * self.feed_forward_macaron(layer_norm(x, self.norm_ff_macaron))
-        x1 = self.attn(layer_norm(x, self.norm_mha), pos, mask)
-        x2 = self.cgmlp(layer_norm(x, self.norm_mlp))
-        w = torch.softmax(torch.cat([pooled_weight(x1, mask, self.pooling_proj1, self.weight_proj1),
-                                     pooled_weight(x2, mask, self.pooling_proj2, self.weight_proj2)], -1), -1)
-        x = x + ops.linear(w[:, 0, None, None] * x1 + w[:, 1, None, None] * x2, self.merge_proj)
-        return layer_norm(x + 0.5 * self.feed_forward(layer_norm(x, self.norm_ff)), self.norm_final)
-
-
-class _CTC(nn.Module):
+class CTCHead(nn.Module):
     def __init__(self, d, vocab):
         super().__init__()
         self.ctc_lo = nn.Linear(d, vocab)
-
-
-# -- decoder and LM ----------------------------------------------------------
 
 
 class DecoderLayer(nn.Module):
@@ -421,114 +367,7 @@ class TransformerLM(nn.Module):
         return torch.log_softmax(ops.linear(layer_norm(x, enc.after_norm), self.lm.decoder), dim=-1)
 
 
-# -- the models --------------------------------------------------------------
-
-
-def _rel_pos(t: int, d: int, device) -> torch.Tensor:
-    """(2t-1, d) relative table: row j encodes relative position t-1-j."""
-    return torch.from_numpy(sinusoid(np.arange(t - 1, -t, -1), d)).to(device)
-
-
-class TailoredAVSR(nn.Module):
-    """The tailored audio-visual model (``task: avsr``, ``encoder: tailored``)."""
-
-    def __init__(self, cfg: Dict, vocab: int):
-        super().__init__()
-        enc = cfg["encoder_conf"]
-        d, h = enc["output_size"], enc["attention_heads"]
-        self.d = d
-        self.visual_frontend = VisualFrontend()
-        self.acoustic_embed = nn.Module()
-        self.acoustic_embed.embed = Conv2dSubsampling(d)
-        self.visual_embed = nn.Module()
-        self.visual_embed.embed = nn.Sequential(nn.Linear(512, d), nn.LayerNorm(d))
-        self.encoder = nn.Module()
-        self.encoder.modality_encoding = nn.Embedding(2, d)
-        self.encoder.encoders = nn.ModuleList([
-            TailoredLayer(d, h, enc["linear_units"], enc["cgmlp_linear_units"], enc["cgmlp_conv_kernel"], aa, va)
-            for aa, va in zip(enc["acoustic_use_attn"], enc["visual_use_attn"])])
-        self.encoder.after_norm = nn.LayerNorm(d)
-        fus = cfg["audiovisual_fusion_conf"]
-        self.audiovisual_fusion = nn.Module()
-        self.audiovisual_fusion.audiovisual_layer = FFN(d, fus["hidden_units"])
-        for name in ("acoustic_pooling_proj", "visual_pooling_proj", "acoustic_weight_proj", "visual_weight_proj"):
-            setattr(self.audiovisual_fusion, name, nn.Linear(d, 1))
-        self.audiovisual_fusion.norm_final = nn.LayerNorm(d)
-        self.ctc = _CTC(d, vocab)
-        dec = cfg["decoder_conf"]
-        self.decoder = Decoder(vocab, d, dec["attention_heads"], dec["linear_units"], dec["num_blocks"])
-
-    def encode(self, audio, audio_lengths, video, video_lengths):
-        """Dequantised (B, S) audio and (B, T, 88, 88) video -> (enc (B, T, D), lengths (B,))."""
-        a, a_lens = logmel(audio, audio_lengths)
-        a = self.acoustic_embed.embed(utterance_mvn(a, a_lens))
-        a_lens = sub4(a_lens)
-        v = self.visual_embed.embed
-        v = layer_norm(ops.linear(self.visual_frontend(video), v[0]), v[1])
-        t = max(a.shape[1], v.shape[1])
-        dev = a.device
-        a_mask = torch.arange(t, device=dev)[None] < a_lens[:, None]
-        v_mask = torch.arange(t, device=dev)[None] < video_lengths[:, None]
-        a = F.pad(a, (0, 0, 0, t - a.shape[1]), value=IGNORE_ID)
-        v = F.pad(v, (0, 0, 0, t - v.shape[1]), value=IGNORE_ID)
-        pos = _rel_pos(t, self.d, dev)
-        mod = self.encoder.modality_encoding.weight
-        a, v = a * math.sqrt(self.d) + mod[0], v * math.sqrt(self.d) + mod[1]
-        for layer in self.encoder.encoders:
-            a, v = layer.stream(a, pos, a_mask, "acoustic"), layer.stream(v, pos, v_mask, "visual")
-        a, v = layer_norm(a, self.encoder.after_norm), layer_norm(v, self.encoder.after_norm)
-        fus = self.audiovisual_fusion
-        w = torch.softmax(torch.cat([pooled_weight(a, a_mask, fus.acoustic_pooling_proj, fus.acoustic_weight_proj),
-                                     pooled_weight(v, v_mask, fus.visual_pooling_proj, fus.visual_weight_proj)], -1), -1)
-        av = layer_norm(fus.audiovisual_layer(w[:, 0, None, None] * a + w[:, 1, None, None] * v), fus.norm_final)
-        return av, (a_mask | v_mask).sum(-1)
-
-    def inputs(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        return (dequantize_audio(batch["audio"], batch["audio_lengths"]), batch["audio_lengths"],
-                dequantize_video(batch["video"], batch["video_lengths"]), batch["video_lengths"])
-
-
-class BranchformerASR(nn.Module):
-    """The audio-only Branchformer (``task: asr``, ``encoder: branchformer``)."""
-
-    def __init__(self, cfg: Dict, vocab: int):
-        super().__init__()
-        enc = cfg["encoder_conf"]
-        d, h = enc["output_size"], enc["attention_heads"]
-        self.d = d
-        self.encoder = nn.Module()
-        self.encoder.embed = Conv2dSubsampling(d, out_seq=True)
-        self.encoder.encoders = nn.ModuleList([
-            BranchformerLayer(d, h, enc["linear_units"], enc["cgmlp_linear_units"], enc["cgmlp_conv_kernel"])
-            for _ in range(enc["num_blocks"])])
-        self.encoder.after_norm = nn.LayerNorm(d)
-        self.ctc = _CTC(d, vocab)
-        dec = cfg["decoder_conf"]
-        self.decoder = Decoder(vocab, d, dec["attention_heads"], dec["linear_units"], dec["num_blocks"])
-
-    def encode(self, speech, speech_lengths):
-        x, lens = logmel(speech, speech_lengths)
-        x = self.encoder.embed(utterance_mvn(x, lens)) * math.sqrt(self.d)
-        lens = sub4(lens)
-        t = x.shape[1]
-        mask = torch.arange(t, device=x.device)[None] < lens[:, None]
-        pos = _rel_pos(t, self.d, x.device)
-        for layer in self.encoder.encoders:
-            x = layer(x, pos, mask)
-        return layer_norm(x, self.encoder.after_norm), lens
-
-    def inputs(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        return dequantize_audio(batch["speech"], batch["speech_lengths"]), batch["speech_lengths"]
-
-
-def build(cfg: Dict, vocab: int, device="meta") -> nn.Module:
-    """The reference model of ``cfg`` (a configuration file's ``model``)."""
-    with torch.device(device):
-        if cfg["task"] == "avsr" and cfg["encoder"] == "tailored":
-            return TailoredAVSR(cfg, vocab).eval()
-        if cfg["task"] == "asr" and cfg["encoder"] == "branchformer":
-            return BranchformerASR(cfg, vocab).eval()
-    raise NotImplementedError(f"no reference for task {cfg['task']!r} with encoder {cfg['encoder']!r}")
+# -- shared by the families (``reference/<family>.py``) -----------------------
 
 
 def build_lm(cfg: Dict, vocab: int, device="meta") -> nn.Module:

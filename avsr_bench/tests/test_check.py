@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from harness import check
+from harness.checks.greedy import judge_greedy
 from reference import ctc
 
 TOKENS = ["<blank>", "<unk>", "<space>", "A", "B", "C", "<sos/eos>"]
@@ -53,8 +54,8 @@ def test_missing_answers_and_the_verdict():
     rng = np.random.default_rng(2)
     logps = {0: [_logp(rng, 10) for _ in range(4)]}
     texts = [ctc.ids_to_text(ctc.collapse(lp.argmax(1)), TOKENS) for lp in logps[0]]
-    full = check.judge_greedy([(0, texts)], logps, TOKENS)
-    half = check.judge_greedy([(0, texts[:2])], logps, TOKENS)
+    full = judge_greedy([(0, texts)], logps, TOKENS)
+    half = judge_greedy([(0, texts[:2])], logps, TOKENS)
     assert full["ctc_gap_nats"] == 0.0 and full["answers_missing"] == 0 and half["answers_missing"] == 2
     assert check.verdict(full, {"ctc_gap_nats": 0.1})[0]
     assert not check.verdict(half, {"ctc_gap_nats": 0.1})[0]
@@ -78,8 +79,8 @@ def test_one_answer_over_the_per_answer_threshold_fails_where_the_mean_holds():
     worst = [int(lp.argmin(1)[6]) or 3 for lp in logps[0][:1]]
     altered = [ctc.ids_to_text(worst, TOKENS)] + texts[1:]
     limit = {"ctc_gap_mean": 1.0, "answers_over_gap": 0, check.THRESHOLD: 0.5}
-    sound = check.judge_greedy([(0, texts)], logps, TOKENS, limit[check.THRESHOLD])
-    bad = check.judge_greedy([(0, altered)], logps, TOKENS, limit[check.THRESHOLD])
+    sound = judge_greedy([(0, texts)], logps, TOKENS, limit[check.THRESHOLD])
+    bad = judge_greedy([(0, altered)], logps, TOKENS, limit[check.THRESHOLD])
     assert sound["answers_over_gap"] == 0 and bad["answers_over_gap"] == 1
     assert bad["ctc_gap_mean"] < limit["ctc_gap_mean"] and bad["top_gaps"][0] > limit[check.THRESHOLD]
     ok, compared = check.verdict(sound, limit)

@@ -5,8 +5,9 @@ at the cell's widths with a batch a test run can hold; so does one answer
 altered where it is produced, in each cell that holds its widest gap.
 (At full size one altered answer reads 0.76 nats and up in the flagship's
 greedy cell, whose sound answers reach 1.11, so it holds the mean alone;
-in the beam cell 1.08 and up, so its count of answers over 2.5 nats
-catches 31 of 36 seeds' and missed one of this test's three.
+in the beam cell, with its fixed lengths, 1.13 and up against sound
+answers up to 0.71, so its count of answers over 2.5 nats catches 11 of
+16 seeds'.
 ``test_run.py`` plants that fault in every cell at tiny widths.)
 
 python -m pytest avsr_bench/tests -q -m card   (on a machine with the card)

@@ -23,7 +23,10 @@ def test_whole_top_level_names():
 def test_the_harness_the_reference_and_the_program_load_no_jax():
     code = ("import sys; sys.path[:0] = [%r, %r]\n"
             "from harness import main, drivers, check, trace, flops, traffic, weights, manifest\n"
-            "from reference import model, ctc, ops\n"
+            "from harness.families import tailored_avsr, branchformer_asr\n"
+            "from harness.checks import greedy, nbest\n"
+            "from harness.entries import greedy as g, nbest as n\n"
+            "from reference import model, ctc, ops, tailored_avsr as t, branchformer_asr as b\n"
             "import tailored_avsr_tpu_torch.inference\n"
             "from harness import guard; print(guard.forbidden_modules())") % (BENCH, os.path.dirname(BENCH))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,

@@ -57,7 +57,10 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_per_layer_metric(m):
         c = manifest.cell(w["name"])
         names = {e["name"] for e in c.end_to_end}
         assert "setup_s" in names and len(names) >= 2 and c.per_layer
-        assert c.traffic["entry"] in ("greedy", "nbest", "train")
+        # the family, the entry and the check are files found by name
+        manifest.module("families", c.config["family"])
+        manifest.module("entries", c.traffic["entry"])
+        manifest.module("checks", c.traffic.get("check", c.traffic["entry"]))
 
 
 def test_lookup_by_name_refuses_a_missing_file(tmp_path, m):
@@ -69,6 +72,11 @@ def test_lookup_by_name_refuses_a_missing_file(tmp_path, m):
     (root / "BENCHMARK.json").write_text(json.dumps(broken))
     with pytest.raises(manifest.MissingFile):
         manifest.cell(m["workloads"][0]["name"], root=str(root))
+    for kind in ("families", "entries", "checks"):
+        with pytest.raises(manifest.MissingFile):
+            manifest.module(kind, "no_such_name")
+        with pytest.raises(manifest.MissingFile):
+            manifest.module(kind, "../harness")
 
 
 def test_at_most_a_quarter_of_the_cells_take_four_chips(m):

@@ -24,7 +24,7 @@ LIMITS = {"greedy": {"ctc_gap_nats": 1e-3, "ctc_gap_mean": 1e-4}, "nbest": {"bea
 def _run(c, monkeypatch, trace=False, fault=None):
     monkeypatch.setattr(check, "limits", lambda name: LIMITS[c.traffic["entry"]])
     if fault is not None:
-        cls = drivers.DRIVERS[c.traffic["entry"]]
+        cls = drivers.driver_class(c.traffic["entry"])
         sound = cls.call
         monkeypatch.setattr(cls, "call", lambda self, batch: fault(sound(self, batch)))
     return main.measure(c, 2 ** 31 + 99, 0.5, trace, torch.device("cpu"), time.perf_counter())
@@ -108,3 +108,8 @@ def test_the_benchmark_alone_is_no_result(tmp_path):
                           "--seconds", "1", "--trace", "0"], capture_output=True, text=True, cwd=tmp_path)
     assert out.returncode != 0 and '"correct"' not in out.stdout
     assert not any(json.loads(line).get("correct") for line in out.stdout.splitlines() if line.startswith("{"))
+
+
+def test_declared_launch_counters_are_read_by_name_beside_the_kernels():
+    got = drivers.kernel_counters({"VS": "tailored_avsr_tpu_torch.ops.visual_stem:visual_stem.launches"})
+    assert set(got) == {"K1", "K2", "K3", "K4", "K5", "K6", "VS"} and all(isinstance(v, int) for v in got.values())
